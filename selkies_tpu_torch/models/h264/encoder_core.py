@@ -1,0 +1,634 @@
+"""PyTorch encode core for the H.264 device step (IDR + P), int32-exact.
+
+Counterpart of ``selkies_tpu/models/h264/encoder_core.py``: intra
+prediction, the forward/inverse 4x4 transforms, the Hadamard DC paths,
+quantization, hierarchical motion estimation + compensation, the P-frame
+transform tail and the compact coefficient downlink. Entropy coding stays
+on the host (``cavlc.py`` / ``native.py``).
+
+Every function works on tensors of one device (CPU or CUDA) and returns
+tensors on it. Arithmetic is int32 throughout: uint8 inputs are widened
+before any arithmetic, because torch's uint8 arithmetic wraps. QP is a
+Python int (the host knows it), so the quant tables are indexed on the
+host. Outputs equal the JAX version element for element
+(tests/test_torch_encoder_core.py).
+
+Intra: row 0 uses DC prediction, a left-to-right chain over MB columns;
+rows 1.. use vertical prediction from the reconstructed row above. Both
+are sequential, so each is a Python loop of batched tensor ops (over MB
+columns for row 0, over MB rows after it).
+
+Inter: P frames have no spatial dependencies (P_Skip / P_L0_16x16 only),
+so everything is one batched program over the MB grid. The refine
+search + motion compensation goes through ``me_mc.me_mc``, which runs the
+hand-written CUDA kernel on a CUDA tensor and the plain version on a CPU
+tensor.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from selkies_tpu_torch.models.h264 import me_mc, tables
+from selkies_tpu_torch.models.h264.numpy_ref import (
+    COARSE_DS,
+    COARSE_R,
+    MV_PAD,
+    REFINE_R,
+    TOPK,
+)
+
+# out-of-range slices would read the wrong reference pixels silently
+if COARSE_DS * COARSE_R + REFINE_R > MV_PAD:
+    raise RuntimeError("ME reach exceeds MV_PAD")
+
+_I32 = torch.int32
+
+_POS_CLASS = np.array(
+    [[0 if (i % 2 == 0 and j % 2 == 0) else 1 if (i % 2 and j % 2) else 2 for j in range(4)] for i in range(4)],
+    np.int32,
+)
+_MF_BY_REM = torch.from_numpy(np.asarray(tables.QUANT_MF, np.int32)[:, _POS_CLASS])  # (6, 4, 4)
+_V_BY_REM = torch.from_numpy(np.asarray(tables.DEQUANT_V, np.int32)[:, _POS_CLASS])  # (6, 4, 4)
+_CHROMA_QP = torch.tensor([tables.chroma_qp(q) for q in range(52)], dtype=_I32)
+
+
+@functools.lru_cache(maxsize=None)
+def _table(name: str, rem: int, device: torch.device) -> torch.Tensor:
+    """(4, 4) quant (``mf``) or dequant (``v``) row for qp % 6, on ``device``."""
+    src = _MF_BY_REM if name == "mf" else _V_BY_REM
+    return src[rem].to(device)
+
+
+def _chroma_qp(qp: int) -> int:
+    return int(_CHROMA_QP[qp])
+
+
+# ---------------------------------------------------------------------------
+# Transforms and quantization
+# ---------------------------------------------------------------------------
+
+def _fdct1d(x):
+    """1-D forward core transform along the last axis of (..., 4)."""
+    x0, x1, x2, x3 = x.unbind(-1)
+    s0, s1 = x0 + x3, x1 + x2
+    d0, d1 = x0 - x3, x1 - x2
+    return torch.stack([s0 + s1, 2 * d0 + d1, s0 - s1, d0 - 2 * d1], dim=-1)
+
+
+def fdct4(blocks):
+    """Forward 4x4 core transform over (..., 4, 4) int32 blocks (exact)."""
+    b = _fdct1d(blocks.to(_I32))
+    return _fdct1d(b.transpose(-1, -2)).transpose(-1, -2)
+
+
+def _idct1d(x):
+    """1-D inverse butterfly along the last axis (8.5.12.2 step)."""
+    x0, x1, x2, x3 = x.unbind(-1)
+    e0, e1 = x0 + x2, x0 - x2
+    e2 = (x1 >> 1) - x3
+    e3 = x1 + (x3 >> 1)
+    return torch.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3], dim=-1)
+
+
+def idct4(coeffs):
+    """Bit-exact inverse 4x4 transform: horizontal first, then vertical."""
+    d = _idct1d(coeffs.to(_I32))
+    d = _idct1d(d.transpose(-1, -2)).transpose(-1, -2)
+    return (d + 32) >> 6
+
+
+def _had1d(x):
+    x0, x1, x2, x3 = x.unbind(-1)
+    s0, s1 = x0 + x1, x2 + x3
+    d0, d1 = x0 - x1, x2 - x3
+    return torch.stack([s0 + s1, s0 - s1, d0 - d1, d0 + d1], dim=-1)
+
+
+def _had4(x):
+    """H4 . X . H4 for (..., 4, 4) (H4 symmetric)."""
+    x = _had1d(x.to(_I32))
+    return _had1d(x.transpose(-1, -2)).transpose(-1, -2)
+
+
+def _had2(x):
+    """H2 . X . H2 for (..., 2, 2)."""
+    x = x.to(_I32)
+    a = x[..., 0, 0] + x[..., 0, 1]
+    b = x[..., 0, 0] - x[..., 0, 1]
+    c = x[..., 1, 0] + x[..., 1, 1]
+    d = x[..., 1, 0] - x[..., 1, 1]
+    return torch.stack(
+        [torch.stack([a + c, b + d], dim=-1), torch.stack([a - c, b - d], dim=-1)], dim=-2
+    )
+
+
+def _qparams(qp: int, intra: bool = True) -> tuple[int, int]:
+    qbits = 15 + qp // 6
+    return qbits, (1 << qbits) // (3 if intra else 6)
+
+
+def _signed(level, like):
+    return torch.where(like < 0, -level, level)
+
+
+def quant4(coeffs, qp: int, intra: bool = True):
+    qbits, f = _qparams(qp, intra)
+    c = coeffs.to(_I32)
+    mf = _table("mf", qp % 6, c.device)
+    return _signed((c.abs() * mf + f) >> qbits, c)
+
+
+def dequant4(levels, qp: int):
+    v = _table("v", qp % 6, levels.device)
+    return levels.to(_I32) * v * (1 << (qp // 6))
+
+
+def quant_luma_dc(dc, qp: int):
+    t = _had4(dc) >> 1
+    qbits, f = _qparams(qp, True)
+    mf00 = int(_MF_BY_REM[qp % 6, 0, 0])
+    return _signed((t.abs() * mf00 + 2 * f) >> (qbits + 1), t)
+
+
+def dequant_luma_dc(levels, qp: int):
+    f = _had4(levels) * int(_V_BY_REM[qp % 6, 0, 0])
+    qp_per = qp // 6
+    if qp_per >= 2:
+        return f << (qp_per - 2)
+    return (f + (1 << (1 - qp_per))) >> (2 - qp_per)
+
+
+def quant_chroma_dc(dc, qp_c: int, intra: bool = True):
+    t = _had2(dc)
+    qbits, f = _qparams(qp_c, intra)
+    mf00 = int(_MF_BY_REM[qp_c % 6, 0, 0])
+    return _signed((t.abs() * mf00 + 2 * f) >> (qbits + 1), t)
+
+
+def dequant_chroma_dc(levels, qp_c: int):
+    f = _had2(levels) * int(_V_BY_REM[qp_c % 6, 0, 0])
+    return (f << (qp_c // 6)) >> 1
+
+
+# ---------------------------------------------------------------------------
+# Intra (IDR) frame
+# ---------------------------------------------------------------------------
+
+def _row_to_blocks(row, n: int):
+    """(n*4, W) plane row -> (mbw, n, n, 4, 4) indexed [mb][by][bx][i][j]."""
+    h, w = row.shape
+    mbw = w // (n * 4)
+    return row.reshape(n, 4, mbw, n, 4).permute(2, 0, 3, 1, 4)
+
+
+def _blocks_to_row(blocks):
+    """Inverse of _row_to_blocks: (mbw, n, n, 4, 4) -> (n*4, mbw*n*4)."""
+    mbw, n = blocks.shape[0], blocks.shape[1]
+    return blocks.permute(1, 3, 0, 2, 4).reshape(n * 4, mbw * n * 4)
+
+
+def _encode_plane_row(row, pred, qp: int, n: int, luma: bool):
+    """Batched encode of one MB row of a plane.
+
+    row, pred: (n*4, W) int32. Returns (dc (mbw,n,n), ac (mbw,n,n,4,4),
+    recon (n*4, W))."""
+    w = fdct4(_row_to_blocks(row - pred, n))
+    dc = w[..., 0, 0]
+    if luma:
+        dc_levels = quant_luma_dc(dc, qp)
+        dc_deq = dequant_luma_dc(dc_levels, qp)
+    else:
+        dc_levels = quant_chroma_dc(dc, qp)
+        dc_deq = dequant_chroma_dc(dc_levels, qp)
+    ac_levels = quant4(w, qp, intra=True)
+    deq = dequant4(ac_levels, qp)
+    deq[..., 0, 0] = dc_deq
+    recon = (_blocks_to_row(idct4(deq)) + pred).clamp(0, 255)
+    return dc_levels, ac_levels, recon
+
+
+def _dc_pred_luma(left_col, device):
+    """DC prediction of a row-0 MB from its left neighbour's recon column
+    (None at the left edge -> 128)."""
+    if left_col is None:
+        return torch.full((16, 16), 128, dtype=_I32, device=device)
+    dc = (left_col.sum(dtype=_I32) + 8) >> 4
+    return dc.reshape(1, 1).expand(16, 16)
+
+
+def _dc_pred_chroma(left_col, device):
+    """Chroma DC prediction with top unavailable (8.3.4.1): the two block
+    rows use the matching 4-sample left segments; no left -> 128."""
+    if left_col is None:
+        return torch.full((8, 8), 128, dtype=_I32, device=device)
+    top = (left_col[:4].sum(dtype=_I32) + 2) >> 2
+    bot = (left_col[4:].sum(dtype=_I32) + 2) >> 2
+    return torch.stack([top, bot]).repeat_interleave(4).reshape(8, 1).expand(8, 8)
+
+
+def _encode_row0(y_row, u_row, v_row, qp: int, qp_c: int):
+    """Row 0: DC prediction, a serial loop over MB columns (each MB's
+    prediction is the reconstructed right column of its left neighbour)."""
+    mbw = y_row.shape[1] // 16
+    dev = y_row.device
+    yl = ul = vl = None
+    outs = []
+    for i in range(mbw):
+        y_mb = y_row[:, 16 * i:16 * i + 16]
+        u_mb = u_row[:, 8 * i:8 * i + 8]
+        v_mb = v_row[:, 8 * i:8 * i + 8]
+        ry = _encode_plane_row(y_mb, _dc_pred_luma(yl, dev), qp, 4, True)
+        ru = _encode_plane_row(u_mb, _dc_pred_chroma(ul, dev), qp_c, 2, False)
+        rv = _encode_plane_row(v_mb, _dc_pred_chroma(vl, dev), qp_c, 2, False)
+        yl, ul, vl = ry[2][:, -1], ru[2][:, -1], rv[2][:, -1]
+        outs.append((*ry, *ru, *rv))
+    dc_y, ac_y, rec_y, dc_u, ac_u, rec_u, dc_v, ac_v, rec_v = zip(*outs)
+    cat0 = functools.partial(torch.cat, dim=0)
+    cat1 = functools.partial(torch.cat, dim=1)
+    return (cat0(dc_y), cat0(ac_y), cat0(dc_u), cat0(ac_u), cat0(dc_v), cat0(ac_v),
+            cat1(rec_y), cat1(rec_u), cat1(rec_v))
+
+
+def encode_frame_planes(y, u, v, qp: int) -> dict:
+    """All-Intra16x16 frame encode on padded planes.
+
+    y: (H, W) uint8/int32, u/v: (H/2, W/2). Returns a dict of
+    FrameCoeffs-layout int32 tensors plus uint8 recon planes (the recon is
+    the reference of the next P frame)."""
+    y, u, v = y.to(_I32), u.to(_I32), v.to(_I32)
+    qp = int(qp)
+    qp_c = _chroma_qp(qp)
+    h, w_ = y.shape
+    mbh = h // 16
+
+    dc_y, ac_y, dc_u, ac_u, dc_v, ac_v, rec_y, rec_u, rec_v = _encode_row0(
+        y[:16], u[:8], v[:8], qp, qp_c)
+    rows = [(dc_y, ac_y, dc_u, ac_u, dc_v, ac_v, rec_y, rec_u, rec_v)]
+    for r in range(1, mbh):
+        yb, ub, vb = rows[-1][6][-1], rows[-1][7][-1], rows[-1][8][-1]
+        ry = _encode_plane_row(y[16 * r:16 * r + 16], yb.expand(16, w_), qp, 4, True)
+        ru = _encode_plane_row(u[8 * r:8 * r + 8], ub.expand(8, w_ // 2), qp_c, 2, False)
+        rv = _encode_plane_row(v[8 * r:8 * r + 8], vb.expand(8, w_ // 2), qp_c, 2, False)
+        rows.append((ry[0], ry[1], ru[0], ru[1], rv[0], rv[1], ry[2], ru[2], rv[2]))
+    luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac = (
+        torch.stack([r[k] for r in rows]) for k in range(6))
+    recon_y, recon_u, recon_v = (torch.cat([r[k] for r in rows]) for k in range(6, 9))
+
+    mbw = luma_dc.shape[1]
+    row0 = (torch.arange(mbh, device=y.device) == 0)[:, None].expand(mbh, mbw)
+    return {
+        "luma_mode": torch.where(row0, 2, 0).to(_I32),  # DC / vertical
+        "chroma_mode": torch.where(row0, 0, 2).to(_I32),  # DC / vertical
+        "luma_dc": luma_dc,
+        "luma_ac": luma_ac,
+        "chroma_dc": torch.stack([cb_dc, cr_dc], dim=2),
+        "chroma_ac": torch.stack([cb_ac, cr_ac], dim=2),
+        "recon_y": recon_y.to(torch.uint8),
+        "recon_u": recon_u.to(torch.uint8),
+        "recon_v": recon_v.to(torch.uint8),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Inter (P-frame) path
+# ---------------------------------------------------------------------------
+
+_ME_CHUNK = 17
+
+
+def edge_pad(plane, top: int, bottom: int | None = None, left: int | None = None,
+             right: int | None = None):
+    """Edge-replicating pad of a 2-D plane (``jnp.pad(mode="edge")``), by
+    index selection so it works for every dtype on every device."""
+    bottom = top if bottom is None else bottom
+    left = top if left is None else left
+    right = left if right is None else right
+    h, w = plane.shape
+    dev = plane.device
+    rows = torch.arange(-top, h + bottom, device=dev).clamp(0, h - 1)
+    cols = torch.arange(-left, w + right, device=dev).clamp(0, w - 1)
+    return plane.index_select(0, rows).index_select(1, cols)
+
+
+def _me_candidates(search: int) -> np.ndarray:
+    """Candidate (dx, dy) list in golden-model order: zero MV first, then
+    raster (dy outer). A candidate's index is its rank, which breaks SAD
+    ties identically to numpy_ref."""
+    cands = [(dx, dy) for dy in range(-search, search + 1) for dx in range(-search, search + 1)]
+    cands.sort(key=lambda c: c != (0, 0))
+    return np.array(cands, np.int32)
+
+
+def _downsample4(plane):
+    """4x4 box downsample, round-half-up (mirrors numpy_ref.downsample4)."""
+    h, w = plane.shape
+    s = plane.to(_I32).reshape(h // 4, 4, w // 4, 4).sum(dim=(1, 3), dtype=_I32)
+    return (s + 8) >> 4
+
+
+def coarse_votes(cur, rd):
+    """Per-MB coarse-rank vote histogram ((2*COARSE_R+1)^2,) int32.
+
+    ``rd`` is the downsampled reference. Each MB's best coarse candidate
+    (min SAD*scale + rank over the +-COARSE_R window, edge-padded after
+    downsampling) casts one vote."""
+    h, w = cur.shape
+    mbh, mbw = h // 16, w // 16
+    yd = _downsample4(cur)
+    hd, wd = yd.shape
+    rp = edge_pad(rd.to(_I32), COARSE_R)
+    cands = _me_candidates(COARSE_R)
+    n = len(cands)
+    scale = 1 << (n - 1).bit_length()
+    ranks = torch.arange(n, device=cur.device, dtype=_I32)
+    best = None
+    for c0 in range(0, n, _ME_CHUNK):
+        chunk = cands[c0:c0 + _ME_CHUNK]
+        sh = torch.stack([rp[COARSE_R + dy:COARSE_R + dy + hd, COARSE_R + dx:COARSE_R + dx + wd]
+                          for dx, dy in chunk.tolist()])
+        sads = (yd - sh).abs().reshape(len(chunk), mbh, 4, mbw, 4).sum(dim=(2, 4), dtype=_I32)
+        cost = (sads * scale + ranks[c0:c0 + len(chunk), None, None]).amin(dim=0)
+        best = cost if best is None else torch.minimum(best, cost)
+    best_rank = best & (scale - 1)  # cost = sad*scale + rank
+    return torch.bincount(best_rank.reshape(-1).long(), minlength=n).to(_I32)
+
+
+def select_coarse(votes):
+    """Vote histogram -> (TOPK, 2) int32 coarse candidates, in the golden
+    model's order (votes desc, then rank asc). The scores are unique, so
+    topk's order is the same as JAX's."""
+    cands = _me_candidates(COARSE_R)
+    idx = torch.arange(len(cands), device=votes.device, dtype=_I32)
+    score = votes.to(_I32) * 512 + (511 - idx)  # vote count <= mbh*mbw < 2^22
+    top_idx = torch.topk(score, TOPK).indices
+    return torch.from_numpy(cands).to(votes.device)[top_idx]
+
+
+def coarse_vote_candidates(cur, ref):
+    """(TOPK, 2) int32 coarse MVs in downsampled units, element-exact with
+    numpy_ref.coarse_vote_candidates."""
+    return select_coarse(coarse_votes(cur, _downsample4(ref.to(_I32))))
+
+
+def _refine_cands(coarse, dy_max: int | None = None, dx_max: int | None = None):
+    """(TOPK, 2) coarse -> (1 + TOPK*(2R+1)^2, 2) int32 full-res shift
+    list, zero MV first (mirrors numpy_ref.refine_candidate_list).
+
+    dy_max / dx_max clamp the vertical / horizontal component of every
+    coarse displacement so that no refined candidate reaches past
+    ``d_max`` (the window a band or tile slab holds); the refine grid stays
+    the +-R raster, so candidate order and tie-breaks are preserved."""
+    coarse = coarse.to(_I32).clone()
+    if dy_max is not None:
+        cmax = max(0, (int(dy_max) - REFINE_R) // COARSE_DS)
+        coarse[:, 1] = coarse[:, 1].clamp(-cmax, cmax)
+    if dx_max is not None:
+        cmax = max(0, (int(dx_max) - REFINE_R) // COARSE_DS)
+        coarse[:, 0] = coarse[:, 0].clamp(-cmax, cmax)
+    r = range(-REFINE_R, REFINE_R + 1)
+    grid = torch.tensor([(dx, dy) for dy in r for dx in r], dtype=_I32,
+                        device=coarse.device)  # raster, dy outer
+    cands = (coarse[:, None, :] * COARSE_DS + grid[None]).reshape(-1, 2)
+    return torch.cat([torch.zeros((1, 2), dtype=_I32, device=coarse.device), cands])
+
+
+def hier_candidates(cur, ref_y):
+    """The refine candidate list of the hierarchical search: the coarse
+    vote's TOPK global displacements, each refined over a +-REFINE_R
+    raster, zero MV first -- (1 + TOPK*(2R+1)^2, 2) int32 on cur's device."""
+    return _refine_cands(coarse_vote_candidates(cur, ref_y))
+
+
+def hier_me_mc(cur, ref_y, ry_pad, ru_pad, rv_pad):
+    """Hierarchical ME fused with MC -- the plain PyTorch version.
+
+    Coarse vote -> 76 refine candidates -> per-MB min SAD*scale + rank ->
+    the winner's full-pel luma and half-pel chroma predictions. Returns
+    (mvs (mbh,mbw,2) int32, pred_y, pred_u, pred_v int32), element-exact
+    with numpy_ref.hier_search_me + mc_luma_16x16/mc_chroma_8x8."""
+    return me_mc.me_mc_plain(hier_candidates(cur, ref_y), cur, ry_pad, ru_pad, rv_pad)
+
+
+def _me_mc_dispatch(y, ref_y, ry, ru, rv):
+    """ME + MC over MV_PAD-padded reference planes: the refine search + MC
+    runs through ``me_mc.me_mc`` (the CUDA kernel for CUDA tensors, the
+    plain version for CPU ones)."""
+    return me_mc.me_mc(hier_candidates(y, ref_y), y, ry, ru, rv)
+
+
+def _plane_to_mb_blocks(plane, n: int):
+    """(mbh*n*4, mbw*n*4) -> (mbh, mbw, n, n, 4, 4) [by][bx][i][j]."""
+    h, w = plane.shape
+    mbh, mbw = h // (n * 4), w // (n * 4)
+    return plane.reshape(mbh, n, 4, mbw, n, 4).permute(0, 3, 1, 4, 2, 5)
+
+
+def _mb_blocks_to_plane(blocks):
+    mbh, mbw, n = blocks.shape[0], blocks.shape[1], blocks.shape[2]
+    return blocks.permute(0, 2, 4, 1, 3, 5).reshape(mbh * n * 4, mbw * n * 4)
+
+
+def _neighbour(mvs, di: int, dj: int):
+    """out[i, j] = mvs[i + di, j + dj], zero where that lies off the grid."""
+    mbh, mbw = mvs.shape[:2]
+    out = torch.zeros_like(mvs)
+    i0, i1 = max(0, -di), min(mbh, mbh - di)
+    j0, j1 = max(0, -dj), min(mbw, mbw - dj)
+    if i1 > i0 and j1 > j0:
+        out[i0:i1, j0:j1] = mvs[i0 + di:i1 + di, j0 + dj:j1 + dj]
+    return out
+
+
+def _skip_mask(mvs, resid_zero):
+    """Vectorized 8.4.1.1 P_Skip eligibility: residual-free MBs whose MV
+    equals the skip-derived MV."""
+    mbh, mbw = mvs.shape[:2]
+    dev = mvs.device
+    left = _neighbour(mvs, 0, -1)
+    top = _neighbour(mvs, -1, 0)
+    # C = top-right, replaced by D = top-left on the last column (both exist
+    # whenever the median branch is taken: mbx>0 and mby>0).
+    tr = _neighbour(mvs, -1, 1)
+    tl = _neighbour(mvs, -1, -1)
+    last_col = torch.arange(mbw, device=dev) == mbw - 1
+    cmv = torch.where(last_col[None, :, None], tl, tr)
+    med = (left + top + cmv - torch.maximum(torch.maximum(left, top), cmv)
+           - torch.minimum(torch.minimum(left, top), cmv))
+    edge = (torch.arange(mbw, device=dev)[None, :] == 0) | (torch.arange(mbh, device=dev)[:, None] == 0)
+    zero_cond = edge | (left == 0).all(-1) | (top == 0).all(-1)
+    skipmv = torch.where(zero_cond[..., None], torch.zeros_like(med), med)
+    return resid_zero & (mvs == skipmv).all(-1)
+
+
+def _all_zero(x, ndims: int):
+    """True where the trailing ``ndims`` axes of ``x`` are all zero."""
+    return ~(x != 0).flatten(-ndims).any(-1)
+
+
+def _p_transform_tail(y, u, v, qp: int, mvs, pred_y, pred_u, pred_v) -> dict:
+    """Transform + quant + recon + skip derivation -- everything after ME/MC."""
+    qp_c = _chroma_qp(qp)
+    # Luma: plain 4x4 transform, all 16 coeffs (no DC Hadamard in inter MBs)
+    wy = fdct4(_plane_to_mb_blocks(y - pred_y, 4))
+    luma_ac = quant4(wy, qp, intra=False)
+    rec_y = (_mb_blocks_to_plane(idct4(dequant4(luma_ac, qp))) + pred_y).clamp(0, 255)
+
+    def chroma(plane, pred):
+        wc = fdct4(_plane_to_mb_blocks(plane - pred, 2))
+        dc = quant_chroma_dc(wc[..., 0, 0], qp_c, intra=False)
+        ac = quant4(wc, qp_c, intra=False)
+        deq = dequant4(ac, qp_c)
+        deq[..., 0, 0] = dequant_chroma_dc(dc, qp_c)
+        rec = (_mb_blocks_to_plane(idct4(deq)) + pred).clamp(0, 255)
+        return dc, ac, rec
+
+    cb_dc, cb_ac, rec_u = chroma(u, pred_u)
+    cr_dc, cr_ac, rec_v = chroma(v, pred_v)
+    resid_zero = (_all_zero(luma_ac, 4) & _all_zero(cb_dc, 2) & _all_zero(cr_dc, 2)
+                  & _all_zero(cb_ac, 4) & _all_zero(cr_ac, 4))
+    return {
+        "mvs": mvs,
+        "skip": _skip_mask(mvs, resid_zero),
+        "luma_ac": luma_ac,
+        "chroma_dc": torch.stack([cb_dc, cr_dc], dim=2),
+        "chroma_ac": torch.stack([cb_ac, cr_ac], dim=2),
+        "recon_y": rec_y.to(torch.uint8),
+        "recon_u": rec_u.to(torch.uint8),
+        "recon_v": rec_v.to(torch.uint8),
+    }
+
+
+def encode_frame_p_planes(y, u, v, ref_y, ref_u, ref_v, qp: int) -> dict:
+    """P-frame encode on padded planes against the previous recon.
+
+    Two-level hierarchical search covering +-32 (the JAX default
+    ``me="hier"``). Returns mvs/skip/coefficients (PFrameCoeffs layout) +
+    uint8 recon planes. Luma and chroma references are both edge-padded by
+    MV_PAD."""
+    y, u, v = y.to(_I32), u.to(_I32), v.to(_I32)
+    ry = edge_pad(ref_y, MV_PAD)
+    ru = edge_pad(ref_u, MV_PAD)
+    rv = edge_pad(ref_v, MV_PAD)
+    mvs, pred_y, pred_u, pred_v = _me_mc_dispatch(y, ref_y, ry, ru, rv)
+    return _p_transform_tail(y, u, v, int(qp), mvs, pred_y, pred_u, pred_v)
+
+
+# ---------------------------------------------------------------------------
+# Compact downlink
+# ---------------------------------------------------------------------------
+#
+# The device emits one int32 header (counts + packed MVs + per-MB
+# nonzero-block bitmap + skip bitmask, or intra modes for IDR) and one
+# int16 buffer whose first n rows are the nonzero 4x4 blocks in global
+# scan order. fuse_downlink joins the header and the first cap_rows rows
+# into one int16 buffer, so a typical frame is one device->host copy. The
+# host scatters rows back into dense arrays (compact.py) and feeds the
+# unchanged CAVLC packer.
+
+# Row-layout constants -- the only definition; compact.py imports these.
+# P frame, per-MB rows: [0:16) luma AC, [16:24) chroma AC, [24:26) chroma DC.
+P_ROW_CHROMA = 16
+P_ROW_DC = 24
+P_ENTRIES = 26
+# IDR, per-MB rows: [0] luma DC, [1:17) luma AC, [17:25) chroma AC,
+# [25:27) chroma DC.
+I_ROW_LUMA = 1
+I_ROW_CHROMA = 17
+I_ROW_DC_C = 25
+I_ENTRIES = 27
+
+
+def _compact_rows(rows):
+    """rows: (M, E, 16) int16 -> (flags (M,E) bool, buf (M*E, 16) int16,
+    n int32). buf's first n rows are the nonzero rows in scan order, the
+    rest are zero: a stable sort of the all-zero flags puts the nonzero
+    rows first, in order, and needs no host sync."""
+    m, e, _ = rows.shape
+    flat = rows.reshape(m * e, 16)
+    fl = (flat != 0).any(-1)
+    order = torch.sort((~fl).to(torch.uint8), stable=True).indices
+    buf = flat.index_select(0, order)
+    return fl.reshape(m, e), buf, fl.sum(dtype=_I32)
+
+
+def _bitmap_words(flags):
+    """(M, E<=32) bool -> (M,) int32 per-MB bitmap."""
+    e = flags.shape[1]
+    sh = torch.arange(e, device=flags.device, dtype=torch.int64)
+    return _as_int32((flags.to(torch.int64) << sh).sum(-1))
+
+
+def _as_int32(words):
+    """int64 holding unsigned 32-bit words -> int32 of the same bits."""
+    return torch.where(words >= (1 << 31), words - (1 << 32), words).to(_I32)
+
+
+def _bitpack32(bits):
+    """(M,) bool -> (ceil(M/32),) int32."""
+    m = bits.shape[0]
+    pad = (-m) % 32
+    b = torch.cat([bits.to(torch.int64), bits.new_zeros(pad, dtype=torch.int64)]).reshape(-1, 32)
+    sh = torch.arange(32, device=bits.device, dtype=torch.int64)
+    return _as_int32((b << sh).sum(-1))
+
+
+def _meta(n, mbh: int, mbw: int):
+    dims = torch.tensor([mbh, mbw, 0], dtype=_I32, device=n.device)
+    return torch.cat([n.reshape(1).to(_I32), dims])
+
+
+def pack_p_compact(out: dict):
+    """P-frame outputs -> (header int32, data int16 (M*26, 16)).
+
+    Header layout: [n, mbh, mbw, 0] ++ mv_words(M) ++ mbinfo(M) ++
+    skip_words(ceil(M/32)); mv_words = (mvx & 0xFFFF) | (mvy << 16)."""
+    mv = out["mvs"]
+    mbh, mbw = mv.shape[:2]
+    m = mbh * mbw
+    luma = out["luma_ac"].reshape(m, 16, 16).to(torch.int16)
+    chroma = out["chroma_ac"].reshape(m, 8, 16).to(torch.int16)
+    dc = out["chroma_dc"].reshape(m, 2, 4).to(torch.int16)
+    dc_rows = torch.cat([dc, dc.new_zeros((m, 2, 12))], dim=2)
+    rows = torch.cat([luma, chroma, dc_rows], dim=1)  # (M, 26, 16)
+    flags, buf, n = _compact_rows(rows)
+    mv_words = (mv[..., 0] & 0xFFFF) | (mv[..., 1] << 16)
+    header = torch.cat([
+        _meta(n, mbh, mbw),
+        mv_words.reshape(-1).to(_I32),
+        _bitmap_words(flags),
+        _bitpack32(out["skip"].reshape(-1)),
+    ])
+    return header, buf
+
+
+def pack_i_compact(out: dict):
+    """IDR outputs -> (header int32, data int16 (M*27, 16)).
+
+    Header: [n, mbh, mbw, 0] ++ mbinfo(M) ++ mode_words(M)
+    (mode_words = luma_mode | chroma_mode << 8). Per-MB rows: 1 luma DC +
+    16 luma AC + 8 chroma AC + 2 chroma DC."""
+    mbh, mbw = out["luma_mode"].shape[:2]
+    m = mbh * mbw
+    luma_dc = out["luma_dc"].reshape(m, 1, 16).to(torch.int16)
+    luma = out["luma_ac"].reshape(m, 16, 16).to(torch.int16)
+    chroma = out["chroma_ac"].reshape(m, 8, 16).to(torch.int16)
+    dc = out["chroma_dc"].reshape(m, 2, 4).to(torch.int16)
+    dc_rows = torch.cat([dc, dc.new_zeros((m, 2, 12))], dim=2)
+    rows = torch.cat([luma_dc, luma, chroma, dc_rows], dim=1)  # (M, 27, 16)
+    flags, buf, n = _compact_rows(rows)
+    modes = out["luma_mode"].reshape(-1) | (out["chroma_mode"].reshape(-1) << 8)
+    header = torch.cat([_meta(n, mbh, mbw), _bitmap_words(flags), modes.to(_I32)])
+    return header, buf
+
+
+def fuse_downlink(header, buf, cap_rows: int):
+    """Header + the first cap_rows data rows as ONE int16 buffer: the
+    int32 header reinterpreted as int16 pairs (little-endian, as the JAX
+    bitcast), then the rows. Frames with more than cap_rows nonzero rows
+    fetch the rest from ``buf``."""
+    hdr16 = header.contiguous().view(torch.int16)
+    return torch.cat([hdr16, buf[:cap_rows].reshape(-1)])
