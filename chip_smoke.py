@@ -8,19 +8,24 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
 2. build the ME/MC kernel (nvcc, sm_90a) and the native CAVLC packer (g++)
    from the checkout's sources, both at once; print build seconds and the
-   ``-Xptxas -v`` report;
+   ``-Xptxas -v`` report; read the kernel's SASS (``cuobjdump -sass``) for
+   the native 4-way byte SAD instruction that sets its operation floor;
 3. hold the ME/MC kernel against its plain PyTorch version on the card at
    1920x1088 on three seeded cases (static, uniform motion, motion near the
-   search reach with noise): every output exactly equal;
+   search reach with noise), on a tile-clamped candidate list and at a
+   width whose last strip of 8 MBs is ragged (1376x768): every output
+   exactly equal;
 4. drive TorchH264Encoder(1920, 1080, device="cuda") over a seeded
    desktop-like trace (IDR, scrolls, typing, a static repeat,
    force_keyframe, a QP change) with the launch counters zeroed just
    before; every access unit's sha256 must equal the same trace on the CPU,
    the kernel must have launched once per non-static P frame and the native
    packer at least once;
-5. time the kernel and its plain version with CUDA events, the encoder per
-   frame (device step, fetch, pack) for IDR and P, and the device's busy
-   and idle share over a few IDR and P frames with torch.profiler;
+5. time the kernel with CUDA events over 50 launches queued behind a spin
+   kernel (the device's time; also as the host issues them), its plain
+   version, the encoder per frame (device step, fetch, pack) for IDR and P,
+   and the device's busy and idle share and K1's kernel time over a few IDR
+   and P frames with torch.profiler;
 6. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -76,12 +82,34 @@ def _planes(h, w, seed, motion, noise, dev):
 
 
 def _me_inputs(case, dev):
+    """case: (seed, motion, noise[, (h, w)[, _refine_cands clamps]])."""
     from selkies_tpu_torch.models.h264 import encoder_core as core
 
-    cur, ref, cu, cv = _planes(1088, 1920, *case, dev)
+    seed, motion, noise, *rest = case
+    (h, w), clamp = (rest + [(1088, 1920), {}][len(rest):])
+    cur, ref, cu, cv = _planes(h, w, seed, motion, noise, dev)
     pads = [core.edge_pad(p, core.MV_PAD) for p in (ref, cu, cv)]
-    cands = core.hier_candidates(cur, ref)
+    cands = core._refine_cands(core.coarse_vote_candidates(cur, ref), **clamp)
     return (cands, cur, *pads)
+
+
+def _sass_check(lib_path: Path, nvcc: str) -> dict:
+    """Count the kernel's native 4-way byte SAD instructions (VABSDIFF4) in
+    its SASS. Each instantiation's SAD loop is unrolled over one 16x16
+    block: 64 of them means one instruction per 4 pixels and candidate."""
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    funcs = out.split("Function : ")[1:]
+    per_kernel = [f.count("VABSDIFF4") for f in funcs]
+    if not per_kernel:
+        _fail("cuobjdump shows no kernel in the ME/MC library")
+    # the opcode mix of the 16-byte-aligned instantiation (the main path's)
+    vec = next((f for f in funcs if "ILb1E" in f.split()[0]), funcs[0])
+    mix = {op: len(re.findall(rf"\b{op}[.\s]", vec)) for op in
+           ("VABSDIFF4", "SHF", "LDS", "IADD3", "LDGSTS", "STG", "BAR")}
+    return {"vabsdiff4_per_kernel": per_kernel, "native_simd4": min(per_kernel) == 64,
+            "opcodes_vec_kernel": mix}
 
 
 def _desktop_trace():
@@ -121,13 +149,19 @@ def _drive(enc, frames):
     return out
 
 
-def _time_cuda(fn, iters: int, warmup: int = 3) -> float:
+def _time_cuda(fn, iters: int, warmup: int = 3, hold: bool = False) -> float:
+    """Milliseconds per call by CUDA events around ``iters`` calls. With
+    ``hold`` the stream first runs a ~10 ms spin kernel, so the host queues
+    every call before the first starts and the events time the device
+    alone, not the host's rate of issuing calls."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -169,9 +203,11 @@ def _profile_frames(enc, frames, idr: bool, n: int) -> dict:
         row[0] += e.time_range.elapsed_us() / 1e3
         row[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    k1 = [v for k, v in by_name.items() if "me_mc_kernel" in k]
     return {"frames": n, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
             "device_ops": len(dev),
+            "me_mc_kernel": {"ms": sum(v[0] for v in k1), "count": sum(v[1] for v in k1)},
             "top": [{"name": k[:80], "ms": v[0], "count": v[1]} for k, v in top]}
 
 
@@ -205,10 +241,18 @@ def main() -> int:
     print(f"build: me_mc {k_build.seconds:.2f} s, native {n_build.seconds:.2f} s, "
           f"wall {record['build_s']['wall']:.2f} s")
     print("me_mc ptxas:", k_build.log.strip() or "(cached build)")
+    sass = _sass_check(k_build.path, me_mc._nvcc())
+    record["sass"] = sass
+    print(f"me_mc SASS: VABSDIFF4 per kernel {sass['vabsdiff4_per_kernel']} "
+          f"(native 4-way byte SAD: {sass['native_simd4']})")
 
     # -- 3. kernel against its plain version at 1920x1088
     cases = {"static": (1, (0, 0), 0), "uniform": (2, (-24, 29), 0),
-             "near_reach_noise": (3, (33, -34), 12)}
+             "near_reach_noise": (3, (33, -34), 12),
+             # a tile with a 16-pixel halo: every |d| <= 14 (halo - 2)
+             "tile_clamped": (4, (-20, 17), 6, (1088, 1920), {"dy_max": 14, "dx_max": 14}),
+             # 86 MB columns: the last block holds a strip of 6 MBs
+             "ragged_1376x768": (5, (9, -13), 6, (768, 1376))}
     max_err = 0
     for name, case in cases.items():
         args = _me_inputs(case, dev)
@@ -221,7 +265,9 @@ def main() -> int:
             if err:
                 _fail(f"me_mc {name}: {out_name} differs from the plain version (max {err})")
         nz = int((got[0] != 0).any(-1).sum())
-        print(f"me_mc check {name}: exact ({args[0].shape[0]} candidates, {nz} MBs with nonzero MV)")
+        h, w = args[1].shape
+        print(f"me_mc check {name}: exact at {w}x{h} ({args[0].shape[0]} candidates, "
+              f"{nz} MBs with nonzero MV)")
 
     # -- 4. the main path: the encoder at 1920x1080 on the card vs the CPU
     frames = _desktop_trace()
@@ -254,17 +300,28 @@ def main() -> int:
 
     # -- 5. timing
     args = _me_inputs(cases["uniform"], dev)
-    ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50)
+    ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50, hold=True)
+    issued_ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50)
+    # one candidate: the same loads and stores, ~1/76 of the SADs
+    one_ms = _time_cuda(lambda: me_mc.me_mc(args[0][:1], *args[1:]), iters=50, hold=True)
     plain_ms = _time_cuda(lambda: me_mc.me_mc_plain(*args), iters=5, warmup=1)
     cands, cur, ry, ru, rv = args
     ncand, (h, w) = cands.shape[0], cur.shape
     out_bytes = (h // 16) * (w // 16) * 2 * 4 + h * w * 4 + 2 * (h // 2) * (w // 2) * 4
     nbytes = sum(t.numel() * t.element_size() for t in args) + out_bytes
-    # one absolute-difference-accumulate (__sad) per pixel and candidate;
-    # 4-way byte SIMD (__vsadu4) would take a quarter of these instructions
+    # one absolute difference per pixel and candidate; the kernel does four
+    # at a time where the SASS shows the native instruction (VABSDIFF4)
     ops = ncand * h * w
+    simd_ops = ops // 4 if sass["native_simd4"] else ops
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    simd_ms = simd_ops / INT32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, simd_ms)
+    print(f"me_mc {ncand} cands x {w}x{h}: {ms:.5f} ms (CUDA events, 50 launches queued "
+          f"behind a spin kernel; {issued_ms:.5f} ms as the host issues them; {one_ms:.5f} ms "
+          f"for 1 candidate), plain "
+          f"{plain_ms:.3f} ms; floors: bytes {bytes_ms:.5f} ms, operations {simd_ms:.5f} ms "
+          f"({'one VABSDIFF4 per 4 pixels' if sass['native_simd4'] else 'one per pixel'}); "
+          f"bound {bound_ms:.5f} ms = {100 * bound_ms / ms:.1f}% of the kernel's time")
 
     def per_frame(idr: bool, n: int, warmup: int = 2):
         """Median FrameStats split over n frames: forced IDRs of frame 0,
@@ -295,9 +352,12 @@ def main() -> int:
         "name": "me_mc", "route": "cuda", "source": "selkies_tpu_torch/csrc/me_mc.cu",
         "replaces": me_mc.REPLACES, "launches": launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
-        "shape": f"{ncand} cands x {h}x{w}", "bytes": nbytes, "int32_ops": ops,
-        "bytes_ms": bytes_ms, "ops_ms": ops_ms, "ops_ms_simd4": ops_ms / 4,
+        "bound_by": "operations" if simd_ms >= bytes_ms else "bytes", "library_ms": None,
+        "design": "v2", "shape": f"{ncand} cands x {h}x{w}", "bytes": nbytes,
+        "int32_ops": ops, "simd_ops": simd_ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "ops_ms_simd": simd_ms, "sass_vabsdiff4_native": sass["native_simd4"],
+        "host_issued_ms": issued_ms, "one_cand_ms": one_ms,
+        "bound_share": bound_ms / ms,
         "launches_per_p_frame": launches / p_frames, "card": card, "power_limit": power_limit,
     }]
     record["kernels"] = kernels

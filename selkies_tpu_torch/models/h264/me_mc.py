@@ -9,18 +9,23 @@ MV_PAD edge-padded reference, keeps the first minimum in candidate order
 winner's MV, its full-pel luma prediction and its half-pel bilinear
 chroma predictions (8.4.2.2.2).
 
-What bounds it on an H100: at 1920x1088 with 76 candidates it does
-76 x 1920 x 1088 absolute-difference accumulations (about 0.16 G, one
-``__sad`` each) on ~24.6 MB of input and output. At 64 int32 lanes per SM
-that is ~9.5 us against ~7.3 us for the bytes at 3.35 TB/s, so the two
-floors are close; 4-way byte SIMD (``__vsadu4``) would put the operations
-under the bytes. The design (``csrc/me_mc.cu``) does the SAD in exact
-integer arithmetic, one thread per luma pixel with the current pixel held
-in a register, so each candidate costs one load and one ``__sad`` per
-thread plus a warp-shuffle reduction; the reference window of a block is
-reused across candidates from L1/L2. The TPU kernel's bf16 one-hot
-row-select matmuls and f32 cost trick exist only to keep the TPU's matrix
-unit exact and have no counterpart here.
+What bounds it on an H100: at 1920x1088 with 76 candidates it takes
+76 x 1920 x 1088 absolute differences of bytes (about 0.16 G) on ~24.6 MB
+of input and output. ``cuobjdump -sass`` of the kernel shows ``__vsadu4``
+as one native instruction on sm_90a (``VABSDIFF4.U8.ACC``, 64 per MB and
+candidate), so the operations take ~2.4 us at 64 int32 lanes per SM
+against ~7.3 us for the bytes at 3.35 TB/s: the bytes set the bound.
+The design (``csrc/me_mc.cu``) keeps the rest of the work near the SAD
+instructions and pays no barrier per candidate: a block holds a strip of
+8 MBs of one MB row, one warp per MB; it loads the reference window every
+candidate within +-MV_PAD can reach (96 x 208 bytes) and the strip's
+current pixels packed to bytes into shared memory once; each lane sums
+whole candidates' SADs four pixels at a time, and one warp min-reduction
+of ``SAD << 16 | rank`` per MB picks the first minimum in candidate
+order. The luma prediction is written from the window with coalesced
+16-byte stores. The TPU kernel's bf16 one-hot row-select matmuls and f32
+cost trick exist only to keep the TPU's matrix unit exact and have no
+counterpart here.
 
 ``me_mc`` is the wrapper: CPU tensors go to ``me_mc_plain``; CUDA tensors
 launch the kernel or raise. ``launches`` counts kernel launches.
@@ -40,6 +45,9 @@ from selkies_tpu_torch.utils.build import REPO_ROOT, BuildResult, build_shared
 
 SOURCE = REPO_ROOT / "selkies_tpu_torch" / "csrc" / "me_mc.cu"
 REPLACES = "selkies_tpu/models/h264/pallas_me.py:219"
+# The kernel keys a candidate by SAD << 16 | rank, and the plain version's
+# int32 SAD * scale + rank overflows above this count.
+MAX_CANDS = 1 << 15
 
 launches = 0  # kernel launches by me_mc()
 
@@ -90,8 +98,9 @@ def _load() -> ctypes.CDLL:
 
 
 def _check(cands, cur, ry_pad, ru_pad, rv_pad) -> tuple[int, int]:
-    if cands.dim() != 2 or cands.shape[1] != 2 or cands.shape[0] < 1:
-        raise ValueError(f"cands must be (N>=1, 2), got {tuple(cands.shape)}")
+    if cands.dim() != 2 or cands.shape[1] != 2 or not 1 <= cands.shape[0] <= MAX_CANDS:
+        raise ValueError(f"cands must be (N, 2) with 1 <= N <= {MAX_CANDS}, "
+                         f"got {tuple(cands.shape)}")
     if cur.dim() != 2:
         raise ValueError(f"cur must be 2-D, got {tuple(cur.shape)}")
     h, w = cur.shape
@@ -167,18 +176,19 @@ def me_mc(cands, cur, ry_pad, ru_pad, rv_pad):
     """ME + MC over a candidate list: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (raises if it cannot build or launch).
 
-    On CUDA: cands (N, 2) int32, cur (h, w) int32, the padded planes uint8,
-    all contiguous on one device. Same outputs as ``me_mc_plain``.
+    On CUDA: cands (N, 2) int32, cur (h, w) int32 luma in 0..255, the padded
+    planes uint8, all contiguous on one device. Same outputs as
+    ``me_mc_plain``.
 
-    Errors: ValueError for a bad device, dtype, shape or layout, before any
-    launch; RuntimeError if the kernel cannot build or launch. The candidate
-    list stays on the card (reading it would cost a sync), so a candidate
-    with |dx| or |dy| > MV_PAD is caught by the kernel, not here: it traps,
-    the next synchronising call (or launch) raises a CUDA error
-    (``tests/test_torch_gpu.py`` holds this), and the process's CUDA
-    context is unusable from then on. The CPU path raises ValueError for
-    the same input. ``encoder_core._refine_cands`` never makes such a
-    candidate."""
+    Errors: ValueError for a bad device, dtype, shape or layout, or for
+    N > MAX_CANDS, before any launch; RuntimeError if the kernel cannot build
+    or launch. The candidate list stays on the card (reading it would cost a
+    sync), so a candidate with |dx| or |dy| > MV_PAD is caught by the
+    kernel, not here: it traps, the next synchronising call (or launch)
+    raises a CUDA error (``tests/test_torch_gpu.py`` holds this), and the
+    process's CUDA context is unusable from then on. The CPU path raises
+    ValueError for the same input. ``encoder_core._refine_cands`` never
+    makes such a candidate."""
     global launches
     if cur.device.type == "cpu":
         return me_mc_plain(cands, cur, ry_pad, ru_pad, rv_pad)

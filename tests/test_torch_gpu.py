@@ -43,23 +43,90 @@ def _planes(h, w, seed, motion, noise):
     return cur, ref, cu, cv
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("seed,motion,noise", [(0, (0, 0), 0), (1, (12, -20), 0),
-                                               (2, (-31, 30), 25)])
-def test_kernel_matches_plain_on_card(seed, motion, noise):
-    _need_card()
-    dev = torch.device("cuda")
-    cur, ref, cu, cv = (torch.from_numpy(a).to(dev)
-                        for a in _planes(H, W, seed, motion, noise))
+def _rand_cands(rng, n):
+    """n seeded candidates within +-MV_PAD; the first four have dx = 0..3 mod 4."""
+    c = rng.integers(-MV_PAD, MV_PAD + 1, (n, 2)).astype(np.int32)
+    c[:4, 0] = [-40, 13, -2, 39][:n]
+    return torch.from_numpy(c)
+
+
+# name -> (h, w, seed, motion, noise, candidate list)
+_CASES = {
+    "320x192-static": (H, W, 0, (0, 0), 0, "hier"),
+    "320x192-motion": (H, W, 1, (12, -20), 0, "hier"),
+    "320x192-near-reach-noise": (H, W, 2, (-31, 30), 25, "hier"),
+    # ragged strips of 8 MBs: 21 MB columns, one MB, and the 1080p width
+    "336x208-ragged": (208, 336, 3, (5, -7), 4, "hier"),
+    "16x16-one-mb": (16, 16, 4, (1, 2), 0, "hier"),
+    "1920x1088": (1088, 1920, 5, (-24, 29), 6, "hier"),
+    # the clamped lists a band (rows) and a tile (rows and columns) search
+    "336x208-band-clamped": (208, 336, 6, (-30, 9), 3, "band"),
+    "336x208-tile-clamped": (208, 336, 7, (21, -33), 3, "tile"),
+    # candidate counts around a warp's 32 lanes and the 256-entry chunk
+    "count-1": (208, 336, 8, (0, 0), 5, 1),
+    "count-77": (208, 336, 9, (3, 3), 5, 77),
+    "count-300": (208, 336, 10, (-9, 14), 20, 300),
+    "count-600": (64, 96, 11, (2, -1), 40, 600),
+    # cur and ry off 16-byte alignment: the kernel's byte- and int-load path
+    "336x208-unaligned": (208, 336, 12, (-6, 11), 8, "unaligned"),
+    # constant planes: every candidate has SAD 0 and the first must win in
+    # every MB, across lanes and staged chunks, before a later duplicate
+    "tie-3": (48, 336, 13, (0, 0), 0, "tie"),
+    "tie-300": (48, 336, 14, (0, 0), 0, "tie"),
+}
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose data starts one element past an
+    allocation's (16-byte aligned) start."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.view(t.shape).copy_(t)
+
+
+def _case_inputs(name, dev):
+    h, w, seed, motion, noise, kind = _CASES[name]
+    cur, ref, cu, cv = (torch.from_numpy(a).to(dev) for a in _planes(h, w, seed, motion, noise))
     pads = [core.edge_pad(p, MV_PAD) for p in (ref, cu, cv)]
-    cands = core.hier_candidates(cur, ref)
+    rng = np.random.default_rng(seed)
+    if kind == "hier":
+        cands = core.hier_candidates(cur, ref)
+    elif kind == "unaligned":
+        cands = core.hier_candidates(cur, ref)
+        cur, pads[0] = _unaligned(cur), _unaligned(pads[0])
+    elif kind in ("band", "tile"):
+        coarse = core.coarse_vote_candidates(cur, ref)
+        clamp = {"dy_max": 16} if kind == "band" else {"dy_max": 24, "dx_max": 12}
+        cands = core._refine_cands(coarse, **clamp)
+    elif kind == "tie":
+        cur = torch.full_like(cur, 9)
+        pads = [torch.full_like(p, 9) for p in pads]
+        cands = _rand_cands(rng, int(name.split("-")[1]))
+        cands[-1] = cands[0]
+    elif kind == 1:
+        cands = torch.zeros((1, 2), dtype=torch.int32)
+    elif kind == 77:  # the hierarchical list, then the true motion
+        cands = torch.cat([core.hier_candidates(cur, ref).cpu(),
+                           torch.tensor([[motion[1], motion[0]]], dtype=torch.int32)])
+    else:
+        cands = _rand_cands(rng, kind)
+        cands[5] = torch.tensor([motion[1], motion[0]], dtype=torch.int32)
+    return cands.to(dev), cur, *pads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_CASES))
+def test_kernel_matches_plain_on_card(case):
+    _need_card()
+    args = _case_inputs(case, torch.device("cuda"))
     before = me_mc.launches
-    got = me_mc.me_mc(cands, cur, *pads)
-    want = me_mc.me_mc_plain(cands, cur, *pads)
+    got = me_mc.me_mc(*args)
+    want = me_mc.me_mc_plain(*args)
     torch.cuda.synchronize()
     assert me_mc.launches == before + 1
     for name, a, b in zip(("mvs", "pred_y", "pred_u", "pred_v"), got, want):
         assert torch.equal(a, b), name
+    if _CASES[case][-1] == "tie":
+        assert (got[0] == args[0][0]).all()
 
 
 _TRAP_SCRIPT = """

@@ -81,15 +81,29 @@ def test_candidate_order_breaks_ties():
     assert (mvs == torch.tensor([3, -1], dtype=torch.int32)).all()
 
 
-@pytest.mark.parametrize("bad", ["shape", "reach"])
+@pytest.mark.parametrize("bad", ["shape", "reach", "count"])
 def test_wrapper_rejects_bad_input(bad):
     cur, ref, cu, cv = _planes(32, 32, seed=1)
     pads = [torch.from_numpy(p) for p in _pads(ref, cu, cv)]
     cands = torch.zeros((1, 2), dtype=torch.int32)
     if bad == "shape":
         pads[1] = pads[1][1:]
-    else:
+    elif bad == "reach":
         cands = torch.tensor([[0, MV_PAD + 1]], dtype=torch.int32)
+    else:  # the plain version's int32 SAD*scale + rank would overflow
+        cands = torch.zeros((me_mc.MAX_CANDS + 1, 2), dtype=torch.int32)
     with pytest.raises(ValueError):
         me_mc.me_mc(cands, torch.from_numpy(cur), *pads)
+
+
+def test_candidate_limit_is_exact_in_int32():
+    """At MAX_CANDS the plain version's cost still fits int32: the last
+    candidate wins where it is the only exact match."""
+    cur, ref, cu, cv = _planes(16, 16, seed=2)
+    pads = [torch.from_numpy(p) for p in _pads(ref, cu, cv)]
+    cands = torch.full((me_mc.MAX_CANDS, 2), MV_PAD, dtype=torch.int32)
+    cands[-1] = 0
+    mvs, pred_y, *_ = me_mc.me_mc(cands, torch.from_numpy(cur), *pads)
+    assert mvs.tolist() == [[[0, 0]]]
+    assert torch.equal(pred_y, torch.from_numpy(cur))
 
