@@ -1,32 +1,47 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --no-timing  # phases 1-5 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build the ME/MC kernel (nvcc, sm_90a) and the native CAVLC packer (g++)
-   from the checkout's sources, both at once; print build seconds and the
-   ``-Xptxas -v`` report; read the kernel's SASS (``cuobjdump -sass``) for
-   the native 4-way byte SAD instruction that sets its operation floor;
+2. build the ME/MC kernel (nvcc, sm_90a), the native CAVLC packer and the
+   frameprep library (g++) from the checkout's sources, all at once; print
+   build seconds and the ``-Xptxas -v`` report; read the kernel's SASS
+   (``cuobjdump -sass``) for the native 4-way byte SAD instruction that
+   sets its operation floor;
 3. hold the ME/MC kernel against its plain PyTorch version on the card at
    1920x1088 on three seeded cases (static, uniform motion, motion near the
    search reach with noise), on a tile-clamped candidate list and at a
    width whose last strip of 8 MBs is ragged (1376x768): every output
    exactly equal;
-4. drive TorchH264Encoder(1920, 1080, device="cuda") over a seeded
-   desktop-like trace (IDR, scrolls, typing, a static repeat,
-   force_keyframe, a QP change) with the launch counters zeroed just
-   before; every access unit's sha256 must equal the same trace on the CPU,
-   the kernel must have launched once per non-static P frame and the native
-   packer at least once;
-5. time the kernel with CUDA events over 50 launches queued behind a spin
+4. the device-conversion path: TorchH264Encoder(1920, 1080,
+   host_convert=False, device="cuda") over a seeded desktop-like trace
+   (IDR, scrolls, typing, a static repeat, force_keyframe, a QP change)
+   with the launch counters zeroed just before; every access unit's sha256
+   must equal the same trace on the CPU, the kernel must have launched once
+   per non-static P frame and the native packer at least once;
+5. the host-conversion path (the registry's default row):
+   TorchH264Encoder(1920, 1080, scene_qp_boost=6, device="cuda") over a
+   seeded 1080p desktop trace that produces every frame kind (IDR, static,
+   delta with uploads, scene cut with the QP boost and pool seeding,
+   another over-budget full P, remap-only delta, forced IDR over a static
+   frame, forced IDR on a delta frame, a scroll of remaps + uploads, damage
+   hints), counters zeroed just before; each kind is asserted from
+   FrameStats and the link-byte counters, every AU's sha256 must equal the
+   CPU run's, K1 must have launched once per non-static P frame, the native
+   sparse packer at least once, and the frameprep library must be the one
+   built from ``native/frameprep.cc``;
+6. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
-   version, the encoder per frame (device step, fetch, pack) for IDR and P,
-   and the device's busy and idle share and K1's kernel time over a few IDR
-   and P frames with torch.profiler;
-6. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   version, the device-conversion encoder per frame for IDR and P, the
+   host-conversion encoder's median FrameStats split per frame kind
+   (classify / convert / h2d / step / fetch / unpack / cavlc ms, up and
+   down bytes), and with torch.profiler the device's busy and idle share
+   over IDR, P and delta-P frames;
+7. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -149,6 +164,118 @@ def _drive(enc, frames):
     return out
 
 
+def _host_frames(seed: int):
+    """1080p BGRx building blocks of the host-conversion traces: a block
+    wallpaper, a 1024x528 tile-aligned window of new content over it, the
+    wallpaper with a typed line, and the window scrolled up 16 rows with a
+    new line at its bottom."""
+    rng = np.random.default_rng(seed)
+    a = np.kron(rng.integers(30, 220, (68, 120, 4), np.uint8), np.ones((16, 16, 1), np.uint8))[:H]
+    a[::4, ::3, :3] = rng.integers(0, 255, a[::4, ::3, :3].shape, np.uint8)
+    win = a.copy()
+    win[192:720, 384:1408] = rng.integers(0, 255, (528, 1024, 4), np.uint8)
+    typed = a.copy()
+    typed[500:516, 300:700, :3] = 255 - typed[500:516, 300:700, :3]
+    scrolled = win.copy()
+    scrolled[192:704, 384:1408] = win[208:720, 384:1408]
+    scrolled[704:720, 384:1408] = rng.integers(0, 255, (16, 1024, 4), np.uint8)
+    return a, win, typed, scrolled
+
+
+# the frame kinds of the host-conversion path, as _host_kind names them
+HOST_KINDS = ("idr", "static", "delta_upload", "scene_cut_seed", "full_seed", "remap_only",
+              "idr_resident", "idr_delta", "delta_mixed")
+BOOST = 6
+
+
+def _host_trace():
+    """-> [(frame, op, damage, expected kind)] producing every kind."""
+    a, win, typed, scrolled = _host_frames(2027)
+    patched = win.copy()
+    patched[900:916, 100:300, :3] = 9
+    scrolled = scrolled.copy()
+    scrolled[900:916, 100:300, :3] = 9
+    cursor = scrolled.copy()
+    cursor[60:76, 1500:1512, :3] = 250
+    return [
+        (a, None, None, "idr"),
+        (a.copy(), None, None, "static"),
+        (typed, None, [(300, 500, 400, 16)], "delta_upload"),
+        (win, None, None, "scene_cut_seed"),
+        (typed.copy(), None, None, "full_seed"),
+        (win.copy(), None, None, "remap_only"),
+        (win.copy(), "idr", None, "idr_resident"),
+        (patched, "idr", None, "idr_delta"),
+        (scrolled, None, None, "delta_mixed"),
+        (cursor, None, [(1500, 60, 12, 16), (0, 0, 2, 2)], "delta_upload"),
+        (cursor.copy(), None, [], "static"),
+    ]
+
+
+def _host_kind(prev_links: dict, links: dict, st, base_qp: int) -> str:
+    """A host-path frame's kind from its FrameStats and the link-byte
+    counters' growth over the frame."""
+    grew = {k for k, v in links.items() if v != prev_links.get(k, 0)}
+    if st.idr:
+        if not grew & {"up_full", "up_delta"}:
+            return "idr_resident"
+        return "idr_delta" if "up_delta" in grew else "idr"
+    if st.upload_kind == "static":
+        return "static"
+    if st.upload_kind == "full":
+        if "up_seed" not in grew:
+            return "full"
+        return "scene_cut_seed" if st.scene_cut and st.qp == base_qp + BOOST else "full_seed"
+    if st.remap_frac == 1.0:
+        return "remap_only"
+    return "delta_upload" if st.remap_frac == 0.0 else "delta_mixed"
+
+
+def _drive_host(enc, trace, base_qp=28):
+    """-> [(sha256, FrameStats, kind, up bytes, down bytes)]."""
+    out = []
+    prev = enc.link_bytes.snapshot()
+    for i, (frame, op, damage, _) in enumerate(trace):
+        if op == "idr":
+            enc.force_keyframe()
+        (au, st, _), = enc.submit(frame, damage=damage)
+        if not au.startswith(b"\x00\x00\x00\x01"):
+            _fail(f"host frame {i}: access unit is not Annex-B")
+        links = enc.link_bytes.snapshot()
+        grown = {k: v - prev.get(k, 0) for k, v in links.items()}
+        out.append((hashlib.sha256(au).hexdigest(), st, _host_kind(prev, links, st, base_qp),
+                    sum(v for k, v in grown.items() if k.startswith("up_")),
+                    sum(v for k, v in grown.items() if k.startswith("down_"))))
+        prev = links
+    return out
+
+
+def _host_timing_trace(rounds: int):
+    """Rounds of every kind for the per-kind timing: a new wallpaper each
+    round (forced IDR, static), four typed lines one after another (the
+    first re-codes the IDR's quantisation tail, the next three are steady
+    typing deltas), a forced IDR over the static screen, a window over it
+    (full P with seeding), the typed screen and the window again (remaps),
+    the window scrolled (remaps + uploads), a forced IDR on a delta frame."""
+    trace = []
+    for r in range(rounds):
+        a, win, _, scrolled = _host_frames(100 + r)
+        typed = [a]
+        for k in range(4):
+            t = typed[-1].copy()
+            rows = slice(400 + 32 * k, 416 + 32 * k)
+            t[rows, 300:700, :3] = 255 - t[rows, 300:700, :3]
+            typed.append(t)
+        patched = typed[-1].copy()
+        patched[900:916, 100:300, :3] = 9
+        trace += [(a, "idr", None, ""), (a.copy(), None, None, "")]
+        trace += [(t, None, None, "") for t in typed[1:]]
+        trace += [(typed[-1].copy(), "idr", None, ""), (win, None, None, ""),
+                  (typed[-1].copy(), None, None, ""), (win.copy(), None, None, ""),
+                  (scrolled, None, None, ""), (patched, "idr", None, "")]
+    return trace
+
+
 def _time_cuda(fn, iters: int, warmup: int = 3, hold: bool = False) -> float:
     """Milliseconds per call by CUDA events around ``iters`` calls. With
     ``hold`` the stream first runs a ~10 ms spin kernel, so the host queues
@@ -170,19 +297,24 @@ def _time_cuda(fn, iters: int, warmup: int = 3, hold: bool = False) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _profile_frames(enc, frames, idr: bool, n: int) -> dict:
+def _profile_frames(enc, frames, idr: bool, n: int, feed=None, expect: str = "") -> dict:
     """Device busy and idle share over n frames (torch.profiler kernel and
     copy intervals, merged), and the kernels that took the most time.
+    ``feed(i)`` picks frame i (default: frame 0 as forced IDRs, or frames 1
+    and 2 in turn); ``expect`` is the upload_kind every frame must have.
     "not measured" when the profiler reports no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    feed = feed or (lambda i: frames[0] if idr else frames[1 + i % 2])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
             if idr:
                 enc.force_keyframe()
-            enc.submit(frames[0] if idr else frames[1 + i % 2])
+            (_, st, _), = enc.submit(feed(i))
+            if expect and st.upload_kind != expect:
+                _fail(f"profiled frame {i} is {st.upload_kind}, not {expect}")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -211,14 +343,36 @@ def _profile_frames(enc, frames, idr: bool, n: int) -> dict:
             "top": [{"name": k[:80], "ms": v[0], "count": v[1]} for k, v in top]}
 
 
+def _profile_host_deltas(enc, n: int) -> dict:
+    """Device busy and idle share over n typing-delta frames of the
+    host-conversion encoder (torch.profiler, as _profile_frames)."""
+    a, _, typed, _ = _host_frames(7)
+    enc.force_keyframe()
+    enc.submit(a)
+    rng = np.random.default_rng(8)
+    frames = []
+    for i in range(n):
+        f = a.copy()
+        f[500:516, 300 + 16 * i:700 + 16 * i, :3] = rng.integers(0, 255, (16, 400, 3), np.uint8)
+        frames.append(f)
+    enc.submit(frames[-1])  # warm
+    return _profile_frames(enc, frames, False, n, feed=lambda i: frames[i],
+                           expect="delta")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from selkies_tpu_torch.models import frameprep
     from selkies_tpu_torch.models.h264 import me_mc, native
     from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
+    from selkies_tpu_torch.utils.build import BUILD_DIR
+
+    timing = "--no-timing" not in sys.argv[1:]
+    t_start = time.perf_counter()
 
     record: dict = {}
     # -- 1. the card
@@ -231,15 +385,19 @@ def main() -> int:
     print(smi)
     record["card"] = {"name": card, "power_limit": power_limit, "kind": kind, "count": count}
 
-    # -- 2. build both libraries at once
+    # -- 2. build the three libraries at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        fut_k, fut_n = pool.submit(me_mc.build), pool.submit(native.build)
-        k_build, n_build = fut_k.result(), fut_n.result()
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(f) for f in (me_mc.build, native.build, frameprep.build)]
+        k_build, n_build, f_build = (f.result() for f in futs)
     record["build_s"] = {"me_mc": k_build.seconds, "native": n_build.seconds,
-                         "wall": time.perf_counter() - t0}
+                         "frameprep": f_build.seconds, "wall": time.perf_counter() - t0}
     print(f"build: me_mc {k_build.seconds:.2f} s, native {n_build.seconds:.2f} s, "
-          f"wall {record['build_s']['wall']:.2f} s")
+          f"frameprep {f_build.seconds:.2f} s, wall {record['build_s']['wall']:.2f} s")
+    if f_build.path.parent != BUILD_DIR or not f_build.path.exists():
+        _fail(f"frameprep library {f_build.path} is not a build of native/frameprep.cc")
+    print(f"frameprep: {f_build.path.relative_to(BUILD_DIR.parents[1])} "
+          f"(g++ of native/frameprep.cc, {f_build.seconds:.2f} s)")
     print("me_mc ptxas:", k_build.log.strip() or "(cached build)")
     sass = _sass_check(k_build.path, me_mc._nvcc())
     record["sass"] = sass
@@ -269,9 +427,9 @@ def main() -> int:
         print(f"me_mc check {name}: exact at {w}x{h} ({args[0].shape[0]} candidates, "
               f"{nz} MBs with nonzero MV)")
 
-    # -- 4. the main path: the encoder at 1920x1080 on the card vs the CPU
+    # -- 4. the device-conversion path: the encoder at 1920x1080 on the card vs the CPU
     frames = _desktop_trace()
-    enc = TorchH264Encoder(W, H, qp=28, device="cuda")
+    enc = TorchH264Encoder(W, H, qp=28, host_convert=False, device="cuda")
     me_mc.launches = 0
     native.calls = 0
     t0 = time.perf_counter()
@@ -280,7 +438,7 @@ def main() -> int:
     main_s = time.perf_counter() - t0
     launches, packs = me_mc.launches, native.calls
     t0 = time.perf_counter()
-    cpu = _drive(TorchH264Encoder(W, H, qp=28, device="cpu"), frames)
+    cpu = _drive(TorchH264Encoder(W, H, qp=28, host_convert=False, device="cpu"), frames)
     cpu_s = time.perf_counter() - t0
     for i, ((hg, sg), (hc, sc)) in enumerate(zip(gpu, cpu)):
         if hg != hc:
@@ -296,9 +454,53 @@ def main() -> int:
           f"bytes {[s.bytes for _, s in gpu]}; cuda run {main_s:.2f} s, cpu run {cpu_s:.2f} s")
     record["main_path"] = {"frames": "".join(kinds), "me_mc_launches": launches,
                            "native_packs": packs, "bytes": [s.bytes for _, s in gpu],
-                           "sha256": [h for h, _ in gpu]}
+                           "sha256": [h for h, _ in gpu], "cuda_s": main_s, "cpu_s": cpu_s}
 
-    # -- 5. timing
+    # -- 5. the host-conversion path at 1920x1080 on the card vs the CPU
+    trace = _host_trace()
+    henc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda")
+    me_mc.launches = 0
+    native.calls = native.sparse_calls = 0
+    t0 = time.perf_counter()
+    hgpu = _drive_host(henc, trace)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    host_launches, host_packs, host_sparse = me_mc.launches, native.calls, native.sparse_calls
+    t0 = time.perf_counter()
+    hcpu = _drive_host(TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cpu"), trace)
+    hcpu_s = time.perf_counter() - t0
+    for i, (g, c) in enumerate(zip(hgpu, hcpu)):
+        if g[0] != c[0]:
+            _fail(f"host frame {i}: cuda AU sha256 {g[0][:16]} != cpu {c[0][:16]}")
+        if (g[2], g[3], g[4]) != (c[2], c[3], c[4]):
+            _fail(f"host frame {i}: cuda {g[2:]} != cpu {c[2:]}")
+    hkinds = [r[2] for r in hgpu]
+    if hkinds != [k for *_, k in trace]:
+        _fail(f"host path frame kinds {hkinds} != {[k for *_, k in trace]}")
+    if set(HOST_KINDS) - set(hkinds):
+        _fail(f"host path missed kinds {set(HOST_KINDS) - set(hkinds)}")
+    host_p = sum(1 for r in hgpu if not r[1].idr and r[1].upload_kind != "static")
+    if host_launches != host_p:
+        _fail(f"me_mc launched {host_launches} times for {host_p} non-static P frames (host path)")
+    if host_sparse <= 0:
+        _fail("the native sparse packer never ran on the host path")
+    print(f"host path 1920x1080: {len(trace)} frames {hkinds}; AUs sha256-equal cuda vs cpu; "
+          f"me_mc launches {host_launches} (= non-static P frames), native packs {host_packs} "
+          f"(sparse {host_sparse}); bytes {[r[1].bytes for r in hgpu]}; up bytes "
+          f"{[r[3] for r in hgpu]}; down bytes {[r[4] for r in hgpu]}; cuda run {host_s:.2f} s, "
+          f"cpu run {hcpu_s:.2f} s")
+    record["host_path"] = {
+        "kinds": hkinds, "me_mc_launches": host_launches, "native_packs": host_packs,
+        "native_sparse_packs": host_sparse, "bytes": [r[1].bytes for r in hgpu],
+        "up_bytes": [r[3] for r in hgpu], "down_bytes": [r[4] for r in hgpu],
+        "sha256": [r[0] for r in hgpu], "cuda_s": host_s, "cpu_s": hcpu_s,
+        "frameprep_lib": str(f_build.path.name)}
+    print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s")
+    if not timing:
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
+    # -- 6. timing
     args = _me_inputs(cases["uniform"], dev)
     ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50, hold=True)
     issued_ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50)
@@ -342,9 +544,25 @@ def main() -> int:
 
     enc_t = {"idr": per_frame(True, 5), "p": per_frame(False, 20)}
     record["encoder_ms"] = enc_t
-    print("encoder per frame (median ms): " + json.dumps(enc_t))
+    print("device-conversion encoder per frame (median ms): " + json.dumps(enc_t))
+
+    # the host-conversion encoder: median FrameStats split per frame kind
+    tenc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda")
+    rounds = _drive_host(tenc, _host_timing_trace(4))[12:]  # the first round warms up
+    split = {}
+    for kind_name in sorted({r[2] for r in rounds}):
+        rows = [r for r in rounds if r[2] == kind_name]
+        med = {k: statistics.median(getattr(r[1], k) for r in rows) for k in (
+            "classify_ms", "convert_ms", "h2d_ms", "upload_ms", "step_ms", "fetch_ms",
+            "unpack_ms", "cavlc_ms", "device_ms", "pack_ms", "bytes")}
+        med.update(frames=len(rows), up_bytes=statistics.median(r[3] for r in rows),
+                   down_bytes=statistics.median(r[4] for r in rows))
+        split[kind_name] = med
+    record["host_encoder_ms"] = split
+    print("host-conversion encoder per frame kind (median ms, bytes): " + json.dumps(split))
     prof = {"idr": _profile_frames(enc, frames, True, 2),
-            "p": _profile_frames(enc, frames, False, 5)}
+            "p": _profile_frames(enc, frames, False, 5),
+            "delta_p": _profile_host_deltas(tenc, 8)}
     record["profile"] = prof
     print("profile (torch.profiler, profiler on): " + json.dumps(prof))
 
@@ -358,13 +576,16 @@ def main() -> int:
         "ops_ms_simd": simd_ms, "sass_vabsdiff4_native": sass["native_simd4"],
         "host_issued_ms": issued_ms, "one_cand_ms": one_ms,
         "bound_share": bound_ms / ms,
-        "launches_per_p_frame": launches / p_frames, "card": card, "power_limit": power_limit,
+        "launches_per_p_frame": launches / p_frames, "launches_host_path": host_launches,
+        "launches_per_p_frame_host_path": host_launches / host_p,
+        "card": card, "power_limit": power_limit,
     }]
     record["kernels"] = kernels
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -576,16 +576,16 @@ def _bitpack32(bits):
     return _as_int32((b << sh).sum(-1))
 
 
-def _meta(n, mbh: int, mbw: int):
-    dims = torch.tensor([mbh, mbw, 0], dtype=_I32, device=n.device)
-    return torch.cat([n.reshape(1).to(_I32), dims])
+def _meta(n, mbh: int, mbw: int, *rest):
+    """[n, mbh, mbw, 0] (or [n, mbh, mbw, *rest] for int32 scalar tensors
+    ``rest``) as one int32 vector, built on n's device without a host copy."""
+    tail = [r.reshape(1).to(_I32) for r in rest] or [n.new_zeros(1, dtype=_I32)]
+    return torch.cat([n.reshape(1).to(_I32), n.new_full((1,), mbh, dtype=_I32),
+                      n.new_full((1,), mbw, dtype=_I32), *tail])
 
 
-def pack_p_compact(out: dict):
-    """P-frame outputs -> (header int32, data int16 (M*26, 16)).
-
-    Header layout: [n, mbh, mbw, 0] ++ mv_words(M) ++ mbinfo(M) ++
-    skip_words(ceil(M/32)); mv_words = (mvx & 0xFFFF) | (mvy << 16)."""
+def _p_components(out: dict):
+    """P outputs -> (n, mbh, mbw, mv_words (M,), mbinfo (M,), rows buf)."""
     mv = out["mvs"]
     mbh, mbw = mv.shape[:2]
     m = mbh * mbw
@@ -595,14 +595,124 @@ def pack_p_compact(out: dict):
     dc_rows = torch.cat([dc, dc.new_zeros((m, 2, 12))], dim=2)
     rows = torch.cat([luma, chroma, dc_rows], dim=1)  # (M, 26, 16)
     flags, buf, n = _compact_rows(rows)
-    mv_words = (mv[..., 0] & 0xFFFF) | (mv[..., 1] << 16)
-    header = torch.cat([
-        _meta(n, mbh, mbw),
-        mv_words.reshape(-1).to(_I32),
-        _bitmap_words(flags),
-        _bitpack32(out["skip"].reshape(-1)),
-    ])
+    mv_words = ((mv[..., 0] & 0xFFFF) | (mv[..., 1] << 16)).reshape(-1).to(_I32)
+    return n, mbh, mbw, mv_words, _bitmap_words(flags), buf
+
+
+def pack_p_compact(out: dict):
+    """P-frame outputs -> (header int32, data int16 (M*26, 16)).
+
+    Header layout: [n, mbh, mbw, 0] ++ mv_words(M) ++ mbinfo(M) ++
+    skip_words(ceil(M/32)); mv_words = (mvx & 0xFFFF) | (mvy << 16)."""
+    n, mbh, mbw, mv_words, mbinfo, buf = _p_components(out)
+    header = torch.cat([_meta(n, mbh, mbw), mv_words, mbinfo,
+                        _bitpack32(out["skip"].reshape(-1))])
     return header, buf
+
+
+# ---------------------------------------------------------------------------
+# Sparse P downlinks (the delta path)
+# ---------------------------------------------------------------------------
+#
+# One fused int16 buffer whose live content tracks the frame's activity:
+# meta ++ skip bitmap ++ (mv, mbinfo) pairs of the first nscap non-skip MBs
+# ++ the coefficient rows at a data-dependent offset. Every write at a
+# data-dependent offset is an index_copy_ at a device-side start (the
+# clamped start of ``lax.dynamic_update_slice``), and the dense/packed
+# choice is a torch.where: the host reads no count before the fetch.
+
+
+def _dus(buf, upd, start):
+    """In-place ``lax.dynamic_update_slice`` of a 1-D buffer: the start is
+    clamped so ``upd`` fits. ``start`` is an int or a device scalar."""
+    size = upd.shape[0]
+    hi = buf.shape[0] - size
+    if isinstance(start, int):
+        s = min(max(start, 0), hi)
+        buf[s:s + size] = upd
+        return buf
+    s = start.to(torch.int64).clamp(0, hi)
+    return buf.index_copy_(0, s + torch.arange(size, device=buf.device), upd)
+
+
+def _sparse_pairs(skip, mv_words, mbinfo, nscap: int):
+    """(ns int32, (mv, info) int32 pairs of the first nscap non-skip MBs as
+    int16 words (4*nscap,)). Skipped MBs and those past nscap land in a
+    sentinel slot that is dropped."""
+    mask = ~skip
+    ns = mask.sum(dtype=_I32)
+    pos = torch.cumsum(mask, 0) - 1
+    dest = torch.where(mask & (pos < nscap), pos, nscap)
+    mv_c = mv_words.new_zeros(nscap + 1).index_put_((dest,), mv_words)[:nscap]
+    info_c = mbinfo.new_zeros(nscap + 1).index_put_((dest,), mbinfo)[:nscap]
+    return ns, torch.stack([mv_c, info_c], -1).reshape(-1).view(torch.int16)
+
+
+def pack_p_sparse_var(out: dict, nscap: int, cap_rows: int):
+    """Skip-aware variable-density P downlink -> (fused int16, dense
+    header int32, rows buf).
+
+    fused = [n, mbh, mbw, ns] ++ skip_words ++ pairs (4*nscap int16) ++
+    rows (16*cap_rows int16) written at base + 4*min(ns, nscap), over the
+    pair region's dead tail. ``dense`` is pack_p_compact's header (the
+    ns > nscap fallback), ``buf`` the rows past cap_rows (spill)."""
+    n, mbh, mbw, mv_words, mbinfo, buf = _p_components(out)
+    skip = out["skip"].reshape(-1)
+    ns, pairs16 = _sparse_pairs(skip, mv_words, mbinfo, nscap)
+    skip_words = _bitpack32(skip)
+    head16 = torch.cat([_meta(n, mbh, mbw, ns), skip_words]).view(torch.int16)
+    base = head16.shape[0]  # 8 + 2*sw
+    fused = buf.new_zeros(base + 4 * nscap + 16 * cap_rows)
+    _dus(fused, head16, 0)
+    _dus(fused, pairs16, base)
+    _dus(fused, buf[:cap_rows].reshape(-1), base + 4 * ns.clamp(0, nscap))
+    dense = torch.cat([_meta(n, mbh, mbw), mv_words, mbinfo, skip_words])
+    return fused, dense, buf
+
+
+def pack_p_sparse_packed(out: dict, nscap: int, cap_rows: int, density_pct: int = 75):
+    """Bit-packed variant of pack_p_sparse_var -> (fused, dense, buf).
+
+    Meta is [n, mbh, mbw, ns, nw, dense_flag]. At the rows offset either
+    the 16-lane rows (dense_flag=1) or per-row int16 significance bitmaps
+    followed by the nonzero values, each row's padded to quads (nw words
+    in all; the values overwrite the bitmap array's dead tail). The dense
+    layout is chosen when bitmaps + values exceed density_pct% of the
+    rows. Both layouts are built and one is selected with torch.where."""
+    n, mbh, mbw, mv_words, mbinfo, buf = _p_components(out)
+    skip = out["skip"].reshape(-1)
+    ns, pairs16 = _sparse_pairs(skip, mv_words, mbinfo, nscap)
+    skip_words = _bitpack32(skip)
+    dev = buf.device
+
+    rows = buf[:cap_rows]  # zero past row n
+    sig = rows != 0
+    bitmap16 = (sig.to(_I32) << torch.arange(16, dtype=_I32, device=dev)).sum(
+        -1, dtype=_I32).to(torch.int16)
+    counts = sig.sum(-1, dtype=_I32)
+    width = 4 * ((counts + 3) // 4)  # int16 slots incl. quad padding
+    off = torch.cumsum(width, 0) - width  # exclusive prefix
+    nw = width.sum(dtype=_I32)
+    lane = torch.cumsum(sig, -1) - 1  # rank of each nonzero in its row
+    vdest = torch.where(sig, off[:, None] + lane, 16 * cap_rows)  # sentinel dropped
+    vals16 = rows.new_zeros(16 * cap_rows + 1).index_put_(
+        (vdest.reshape(-1),), rows.reshape(-1))[:16 * cap_rows]
+
+    held = n.clamp(max=cap_rows)
+    dense_flag = (held + nw) * 100 > (16 * held) * density_pct
+    head16 = torch.cat([_meta(n, mbh, mbw, ns, nw, dense_flag),
+                        skip_words]).view(torch.int16)
+    base = head16.shape[0]  # 12 + 2*sw
+    fused = buf.new_zeros(base + 4 * nscap + cap_rows + 16 * cap_rows)
+    _dus(fused, head16, 0)
+    _dus(fused, pairs16, base)
+    rows_off = base + 4 * ns.clamp(0, nscap)
+    with_rows = _dus(fused.clone(), rows.reshape(-1), rows_off)
+    _dus(fused, bitmap16, rows_off)
+    _dus(fused, vals16, rows_off + held)
+    fused = torch.where(dense_flag, with_rows, fused)
+    dense = torch.cat([_meta(n, mbh, mbw), mv_words, mbinfo, skip_words])
+    return fused, dense, buf
 
 
 def pack_i_compact(out: dict):
@@ -632,3 +742,49 @@ def fuse_downlink(header, buf, cap_rows: int):
     fetch the rest from ``buf``."""
     hdr16 = header.contiguous().view(torch.int16)
     return torch.cat([hdr16, buf[:cap_rows].reshape(-1)])
+
+
+# ---------------------------------------------------------------------------
+# Delta upload: tile writes into device-resident planes
+# ---------------------------------------------------------------------------
+#
+# The JAX steps apply tile lists with sequential loops of
+# dynamic_update_slice, so where two entries hit one tile the later wins.
+# Here a list is one scatter: every entry writes the data of the LAST
+# entry that targets its tile, so duplicates carry identical bytes and the
+# undefined order of duplicate writes (index_put_ on CUDA) cannot matter.
+
+
+def last_writer(keys, valid=None):
+    """(k,) keys -> (k,) int64: for each entry the index of the last entry
+    (in list order) with the same key, among ``valid`` entries when given;
+    -1 where no valid entry has the key. A k x k comparison on the device."""
+    k = keys.shape[0]
+    same = keys[:, None] == keys[None, :]
+    if valid is not None:
+        same = same & valid[None, :]
+    order = torch.arange(k, device=keys.device)
+    return torch.where(same, order[None, :], -1).amax(1)
+
+
+def tile_view(plane, th: int, tw: int):
+    """(H, W) plane -> (H/th, W/tw, th, tw) view of its tiles (writes to
+    the view land in the plane)."""
+    h, w = plane.shape
+    return plane.view(h // th, th, w // tw, tw).transpose(1, 2)
+
+
+def scatter_tiles(y, u, v, yb, ub, vb, idx, tile_w: int):
+    """Write uploaded I420 tiles into the resident planes, in place.
+
+    yb: (k, 16, tile_w) luma, ub/vb: (k, 8, tile_w/2) chroma, idx: (k,)
+    band*1024 + tile. Duplicate positions are allowed (the host pads the
+    list by repeating its last tile); the last entry at a position wins.
+    Returns the planes."""
+    idx = idx.to(torch.int64)
+    band, tile = idx // 1024, idx % 1024
+    win = last_writer(idx)
+    tile_view(y, 16, tile_w)[band, tile] = yb[win]
+    tile_view(u, 8, tile_w // 2)[band, tile] = ub[win]
+    tile_view(v, 8, tile_w // 2)[band, tile] = vb[win]
+    return y, u, v

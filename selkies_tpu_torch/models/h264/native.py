@@ -8,7 +8,8 @@ The port builds ``native/cavlc_pack.cc`` + ``native/cabac_pack.cc`` with
 is no quiet fallback to the Python packer.
 
 ``calls`` counts native packer calls, so a run can show that the native
-packer (and not the Python oracle) packed its slices.
+packer (and not the Python oracle) packed its slices; ``sparse_calls``
+counts the sparse-wire P packer (``pack_slice_p_sparse_native``) alone.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ _HEADERS = (_NATIVE_DIR / "cavlc_tables.h",)
 _COMMAND = ["g++", "-O2", "-Wall", "-fPIC", "-std=c++17", "-shared",
             f"-I{_NATIVE_DIR}"]
 
-calls = 0  # native slice packs (pack_slice_fast + pack_slice_p_fast)
+calls = 0  # native slice packs (all three packers)
+sparse_calls = 0  # pack_slice_p_sparse_native packs
 
 _lib: ctypes.CDLL | None = None
 _build: BuildResult | None = None
@@ -74,6 +76,15 @@ def _load() -> ctypes.CDLL:
                 _I16P, _U8P, _I16P, _I16P, _I16P,
                 ctypes.c_int, ctypes.c_int,
                 _U8P, ctypes.c_int64, _I32P, _I32P,
+            ]
+            lib.pack_slice_p_sparse_rbsp.restype = ctypes.c_int64
+            lib.pack_slice_p_sparse_rbsp.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64,
+                _I16P, _I16P, ctypes.c_int32, ctypes.c_int32,
+                _I16P, _I16P, _I16P, ctypes.c_int32,
+                _I16P, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_int, ctypes.c_int,
+                _U8P, ctypes.c_int64, _I32P, _I32P, _I32P,
             ]
             lib.emulation_prevent.restype = ctypes.c_int64
             lib.emulation_prevent.argtypes = [_U8P, ctypes.c_int64, _U8P, ctypes.c_int64]
@@ -113,6 +124,7 @@ def _scratch(mbh: int, mbw: int, cap: int) -> dict[str, np.ndarray]:
         "rbsp": np.empty(cap, np.uint8),
         "luma_tc": np.empty(mbh * 4 * mbw * 4, np.int32),
         "chroma_tc": np.empty(2 * mbh * 2 * mbw * 2, np.int32),
+        "mv": np.empty(mbh * mbw * 2, np.int32),  # the sparse packer's MV grid
     }
 
 
@@ -187,4 +199,44 @@ def pack_slice_p_fast(fc: PFrameCoeffs, p: StreamParams, frame_num: int,
         if cap > (1 << 30):
             raise RuntimeError("pack_slice_p_rbsp overflow beyond 1 GiB")
     calls += 1
+    return _finish_nal(s["rbsp"], n, NAL_SLICE_NON_IDR)
+
+
+def pack_slice_p_sparse_native(wire, p: StreamParams, frame_num: int, qp: int,
+                               ltr_ref: int | None = None, mark_ltr: int | None = None,
+                               mmco_evict: tuple = (), first_mb: int = 0) -> bytes:
+    """P slice NAL straight from the sparse downlink's wire views
+    (``compact.SparsePWire``): no dense scatter, no PFrameCoeffs.
+    Byte-identical to cavlc.pack_slice_p fed the unpacked frame."""
+    global calls, sparse_calls
+    lib = _load()
+    mbh, mbw = wire.mbh, wire.mbw
+    hdr = BitWriter()
+    write_slice_header(hdr, p, SLICE_P, frame_num, idr=False, slice_qp=qp,
+                       ltr_ref=ltr_ref, mark_ltr=mark_ltr,
+                       mmco_evict=mmco_evict, first_mb=first_mb)
+    hdr_bytes, hdr_bits = hdr.get_partial()
+    arrs = [np.ascontiguousarray(a, np.int16) for a in (
+        wire.skip16, wire.pairs16, wire.rows16, wire.bitmaps, wire.vals, wire.extra_rows)]
+    skip16, pairs16, rows16, bitmaps, vals, extra = arrs
+    cap = len(hdr_bytes) + 4096 + 40 * wire.ns + 72 * wire.n
+    while True:
+        s = _scratch(mbh, mbw, cap)
+        n = lib.pack_slice_p_sparse_rbsp(
+            hdr_bytes, hdr_bits, _ptr(skip16, _I16P), _ptr(pairs16, _I16P),
+            wire.ns, 1 if wire.packed else 0,
+            _ptr(rows16, _I16P), _ptr(bitmaps, _I16P), _ptr(vals, _I16P),
+            wire.held, _ptr(extra, _I16P), wire.n, len(vals), mbh, mbw,
+            _ptr(s["rbsp"], _U8P), cap, _ptr(s["luma_tc"], _I32P),
+            _ptr(s["chroma_tc"], _I32P), _ptr(s["mv"], _I32P))
+        if n >= 0:
+            break
+        if n == -2:
+            raise ValueError("sparse wire inconsistent: pair/row/value counts disagree "
+                             "with the skip bitmap or mbinfo words")
+        cap *= 2
+        if cap > (1 << 30):
+            raise RuntimeError("pack_slice_p_sparse_rbsp overflow beyond 1 GiB")
+    calls += 1
+    sparse_calls += 1
     return _finish_nal(s["rbsp"], n, NAL_SLICE_NON_IDR)

@@ -1,0 +1,122 @@
+"""Per-slice sparse P completion: fused downlink words -> slice NAL.
+
+Counterpart of ``selkies_tpu/models/h264/sparse_complete.py`` (its
+coefficient arms; the device-bits and CABAC arms are not ported). A delta
+frame's fused sparse downlink is finished in four steps:
+
+  1. read the fetched prefix's need/row/non-skip counts
+     (``p_sparse_*_need``) and feed the fetch-hint loop;
+  2. refetch the full live content when the hint-sized slice fell short;
+  3. fetch the row spill past the fused cap (``fetch_rest``);
+  4. hand the wire regions straight to the native sparse packer
+     (``p_sparse_wire_views`` + ``pack_slice_p_sparse_native``), or when
+     ns > nscap (or ``native_wire=False``) expand the rows on the host
+     (``unpack_p_sparse_*``, with the dense-header fallback fetch) and
+     pack with the native dense packer.
+
+Device buffers are torch tensors; each fetch is one ``.cpu()`` copy.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from selkies_tpu_torch.models.h264.compact import (
+    p_sparse_packed_need,
+    p_sparse_var_need,
+    p_sparse_wire_views,
+    unpack_p_compact,
+    unpack_p_sparse_packed,
+    unpack_p_sparse_var,
+)
+from selkies_tpu_torch.models.h264.native import pack_slice_p_fast, pack_slice_p_sparse_native
+
+__all__ = ["complete_sparse_slice", "fetch_rest", "host"]
+
+
+def host(a) -> np.ndarray:
+    """One device-to-host copy of a tensor (numpy arrays pass through)."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def fetch_rest(buf, n: int, base: int = 4096) -> np.ndarray:
+    """Rows [base, >=n) of a row buffer, fetched in power-of-two buckets
+    from 4096 (the whole buffer's tail once the bucket reaches it)."""
+    total = buf.shape[0]
+    bucket = max(base, 4096)
+    while bucket < n:
+        bucket <<= 1
+    if bucket >= total:
+        return host(buf)[base:]
+    return host(buf[base:bucket])
+
+
+def complete_sparse_slice(
+    fused: np.ndarray,
+    *,
+    mbh: int,
+    mbw: int,
+    nscap: int,
+    cap_rows: int,
+    qp: int,
+    frame_num: int,
+    params,
+    packed: bool = False,
+    full_d=None,
+    buf_d=None,
+    dense_d=None,
+    link_bytes=None,
+    prefix_bytes: int = 0,
+    note_need: Callable[[int], None] | None = None,
+    native_wire: bool = True,
+) -> tuple[bytes, int, float, str]:
+    """One P slice's fetched sparse prefix -> (nal, skipped_mbs,
+    t_unpacked, downlink_mode).
+
+    ``full_d`` is the full fused buffer on the device (shortfall refetch),
+    ``buf_d`` the row buffer (spill), ``dense_d`` the dense header (the
+    ns > nscap fallback). ``prefix_bytes`` is the size of the fetched
+    prefix, counted as ``down_prefix``. ``downlink_mode`` is "coeff", or
+    "dense" when the dense-header fallback ran."""
+    if link_bytes is not None and prefix_bytes:
+        link_bytes.add("down_prefix", prefix_bytes)
+    mode = "coeff"
+    need_fn = p_sparse_packed_need if packed else p_sparse_var_need
+    need, n, ns = need_fn(fused, mbh, mbw, nscap, cap_rows)
+    if note_need is not None:
+        note_need(need)
+    if need > len(fused):  # hint too small: refetch the live content
+        fused = host(full_d)
+        if link_bytes is not None:
+            link_bytes.add("down_refetch", fused.nbytes)
+    extra = None
+    if n > cap_rows:  # rows spilled past the fused buffer
+        extra = fetch_rest(buf_d, n, cap_rows)
+        if link_bytes is not None:
+            link_bytes.add("down_spill", extra.nbytes)
+    wire = pfc = None
+    if ns <= nscap and native_wire:
+        wire = p_sparse_wire_views(fused, mbh, mbw, nscap, cap_rows, packed, extra)
+    if wire is None:
+        unpack = unpack_p_sparse_packed if packed else unpack_p_sparse_var
+        pfc, rows = unpack(fused, qp, mbh, mbw, nscap, cap_rows, extra)
+        if pfc is None:  # ns > nscap: dense-header fallback fetch
+            if dense_d is None:
+                raise RuntimeError("ns > nscap with no dense fallback buffer")
+            dense = host(dense_d)
+            if link_bytes is not None:
+                link_bytes.add("down_spill", dense.nbytes)
+            pfc = unpack_p_compact(dense, rows, qp)
+            mode = "dense"
+    t_unpacked = time.perf_counter()
+    if wire is not None:
+        nal = pack_slice_p_sparse_native(wire, params, frame_num, qp)
+        skipped = mbh * mbw - wire.ns
+    else:
+        nal = pack_slice_p_fast(pfc, params, frame_num=frame_num)
+        skipped = int(pfc.skip.sum())
+    return nal, skipped, t_unpacked, mode

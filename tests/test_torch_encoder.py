@@ -1,5 +1,6 @@
 """TorchH264Encoder against TPUH264Encoder in its device-conversion
-configuration: the same frames must give byte-identical access units."""
+configuration (``host_convert=False`` on both): the same frames must give
+byte-identical access units."""
 
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ def test_matches_jax_encoder_bytes(keyframe_interval):
     want = _drive(_jax_encoder(qp=28, keyframe_interval=keyframe_interval), frames)
     calls = native.calls
     got = _drive(TorchH264Encoder(W, H, qp=28, keyframe_interval=keyframe_interval,
-                                  device="cpu"), frames)
+                                  host_convert=False, device="cpu"), frames)
     assert got == want
     assert native.calls > calls
     idrs = [i for i, (_, idr) in enumerate(got) if idr]
@@ -72,7 +73,7 @@ def test_matches_jax_encoder_bytes(keyframe_interval):
 
 def test_static_frame_is_allskip_au():
     frames = _trace()
-    enc = TorchH264Encoder(W, H, device="cpu")
+    enc = TorchH264Encoder(W, H, host_convert=False, device="cpu")
     enc.encode_frame(frames[3])
     au = enc.encode_frame(frames[3])
     assert enc.last_stats.upload_kind == "static"
@@ -94,7 +95,8 @@ def test_load_jax_state_continues_the_stream():
         "pic_init_qp": jax_enc.params.qp,
         "prev_frame": jax_enc._prev_frame,
     }
-    enc = TorchH264Encoder(W, H, device="cpu")  # default qp 28: the state sets 30
+    # default qp 28: the state sets 30
+    enc = TorchH264Encoder(W, H, host_convert=False, device="cpu")
     enc.load_jax_state(state)
     for i, f in enumerate(frames[2:7]):
         qp = 26 if i == 2 else None
@@ -108,7 +110,7 @@ def test_load_jax_state_continues_the_stream():
 def test_recon_planes_match_jax():
     frame = _trace(seed=3)[-3]
     want = _jax_encoder().recon_planes(frame)
-    got = TorchH264Encoder(W, H, device="cpu").recon_planes(frame)
+    got = TorchH264Encoder(W, H, host_convert=False, device="cpu").recon_planes(frame)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
 
@@ -119,7 +121,7 @@ def test_non_mb_multiple_size_pads_like_jax():
     frames = [rng.integers(0, 255, (h, w, 3), np.uint8) for _ in range(2)]
     jax_enc = TPUH264Encoder(w, h, channels=3, host_convert=False, pipeline_depth=0,
                              frame_batch=1, entropy_coder="cavlc", tile_cache=0)
-    enc = TorchH264Encoder(w, h, channels=3, device="cpu")
+    enc = TorchH264Encoder(w, h, channels=3, host_convert=False, device="cpu")
     for f in frames:
         assert enc.encode_frame(f) == jax_enc.encode_frame(f)
 
@@ -134,7 +136,7 @@ def test_construction_without_card_raises(monkeypatch):
 
 
 def test_bad_qp_and_frame_raise():
-    enc = TorchH264Encoder(W, H, device="cpu")
+    enc = TorchH264Encoder(W, H, host_convert=False, device="cpu")
     with pytest.raises(ValueError):
         enc.set_qp(52)
     with pytest.raises(ValueError):

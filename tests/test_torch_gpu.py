@@ -18,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from selkies_tpu_torch.models.h264 import encoder as enc_mod
 from selkies_tpu_torch.models.h264 import encoder_core as core
-from selkies_tpu_torch.models.h264 import me_mc
+from selkies_tpu_torch.models.h264 import me_mc, native
 from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
 from selkies_tpu_torch.models.h264.numpy_ref import MV_PAD
 
@@ -185,7 +186,130 @@ def test_cuda_encoder_matches_cpu_bytes():
     _need_card()
     frames = _trace()
     before = me_mc.launches
-    got = _drive(TorchH264Encoder(W, H, device="cuda"), frames)
+    got = _drive(TorchH264Encoder(W, H, host_convert=False, device="cuda"), frames)
     launched = me_mc.launches - before
-    assert got == _drive(TorchH264Encoder(W, H, device="cpu"), frames)
+    assert got == _drive(TorchH264Encoder(W, H, host_convert=False, device="cpu"), frames)
     assert launched == 3  # 6 frames less 2 IDRs and 1 static repeat
+
+
+def _tile_case(seed, tw=128, ph=1088, pw=1920, slots=1024, bucket=256, cbucket=1020):
+    """A 1080p tile list as the host could send it, with heavy duplication:
+    copies and uploads onto repeated positions, uploads into repeated pool
+    slots and the scratch row, pads (-1) in both lists."""
+    rng = np.random.default_rng(seed)
+    nb, nt = ph // 16, pw // tw
+    pos = rng.integers(0, nb, 64) * 1024 + rng.integers(0, nt, 64)  # few positions
+    up_idx = rng.choice(pos, bucket).astype(np.int32)
+    up_idx[-20:] = -1
+    pool_dst = rng.integers(0, 40, bucket).astype(np.int32)
+    pool_dst[rng.random(bucket) < 0.3] = slots
+    pool_dst[-20:] = slots
+    pairs = np.stack([rng.integers(0, slots, cbucket), rng.choice(pos, cbucket)], 1)
+    pairs = pairs.astype(np.int32)
+    pairs[rng.random(cbucket) < 0.2] = (-1, 0)
+    tiles = [rng.integers(0, 256, (bucket, 16, tw), np.uint8),
+             rng.integers(0, 256, (bucket, 8, tw // 2), np.uint8),
+             rng.integers(0, 256, (bucket, 8, tw // 2), np.uint8)]
+    packed = np.concatenate([up_idx.view(np.uint8), pool_dst.view(np.uint8),
+                             pairs.reshape(-1).view(np.uint8), *(t.ravel() for t in tiles)])
+    planes = [rng.integers(0, 256, (ph, pw), np.uint8),
+              rng.integers(0, 256, (ph // 2, pw // 2), np.uint8),
+              rng.integers(0, 256, (ph // 2, pw // 2), np.uint8)]
+    pool = [rng.integers(0, 256, (slots + 1, 16, tw), np.uint8),
+            rng.integers(0, 256, (slots + 1, 8, tw // 2), np.uint8),
+            rng.integers(0, 256, (slots + 1, 8, tw // 2), np.uint8)]
+    return packed, planes, pool, pairs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_apply_tiles2_with_duplicates_on_card_equals_cpu(seed):
+    """Duplicate indices have no defined write order on CUDA: the scatter
+    must resolve them itself. The card's planes and whole pool (scratch row
+    included) equal the CPU result, for _apply_tiles2, _pool_seed_step and
+    scatter_tiles."""
+    _need_card()
+    packed, planes, pool, pairs = _tile_case(seed)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731
+        out = enc_mod._apply_tiles2(*map(t, planes), *map(t, pool), t(packed), tile_w=128,
+                                    bucket=256, cbucket=1020)
+        seed_pairs = t(np.where(pairs[:, :1] < 0, 1024, pairs))
+        seeded = enc_mod._pool_seed_step(seed_pairs, *out[:3], *map(t, pool), tile_w=128,
+                                         sbucket=1020)
+        idx = t(np.abs(pairs[:256, 1]))
+        tiles = [t(np.array(pool[i][:256])) for i in range(3)]
+        scattered = core.scatter_tiles(*map(t, planes), *tiles, idx, 128)
+        res[dev] = [x.cpu() for x in (*out, *seeded, *scattered)]
+    for i, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True], ids=["var", "packed"])
+def test_sparse_packers_on_card_equal_cpu(packed):
+    """Whole fused buffers, dense headers and row buffers at 1080p."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    mbh, mbw = 68, 120
+    skip = rng.random((mbh, mbw)) < 0.7
+    out = {"mvs": rng.integers(-40, 41, (mbh, mbw, 2)).astype(np.int32), "skip": skip}
+    for k, shape in (("luma_ac", (4, 4, 4, 4)), ("chroma_dc", (2, 2, 2)),
+                     ("chroma_ac", (2, 2, 2, 4, 4))):
+        c = rng.integers(-20, 21, (mbh, mbw, *shape)) * (rng.random((mbh, mbw, *shape)) < 0.05)
+        c[skip] = 0
+        out[k] = c.astype(np.int32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        o = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in out.items()}
+        fn = core.pack_p_sparse_packed if packed else core.pack_p_sparse_var
+        res[dev] = [x.cpu() for x in fn(o, 4096, 4096)]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert torch.equal(a, b)
+
+
+def _host_trace_1080p():
+    """IDR, static, typing delta, scene cut (full + seed), remap-only, a
+    forced IDR on a delta frame, a window scroll (remaps + uploads)."""
+    w, h = 1920, 1080
+    rng = np.random.default_rng(11)
+    a = np.kron(rng.integers(30, 220, (68, 120, 4), np.uint8), np.ones((16, 16, 1), np.uint8))[:h]
+    win = a.copy()
+    win[192:720, 384:1408] = rng.integers(0, 255, (528, 1024, 4), np.uint8)
+    typed = a.copy()
+    typed[500:516, 300:700, :3] = 255 - typed[500:516, 300:700, :3]
+    patched = win.copy()
+    patched[900:916, 100:300, :3] = 9
+    scrolled = patched.copy()
+    scrolled[192:704, 384:1408] = patched[208:720, 384:1408]
+    scrolled[704:720, 384:1408] = rng.integers(0, 255, (16, 1024, 4), np.uint8)
+    return [(a, None), (a.copy(), None), (typed, None), (win, None), (typed.copy(), None),
+            (win.copy(), None), (patched, "idr"), (scrolled, None)]
+
+
+@pytest.mark.gpu
+def test_host_encoder_cuda_matches_cpu_at_1080p():
+    _need_card()
+    trace = _host_trace_1080p()
+
+    def drive(dev):
+        enc = TorchH264Encoder(1920, 1080, scene_qp_boost=6, device=dev)
+        out = []
+        for frame, op in trace:
+            if op == "idr":
+                enc.force_keyframe()
+            (au, st, _), = enc.submit(frame)
+            out.append((hashlib.sha256(au).hexdigest(), st.upload_kind, st.idr, st.remap_frac))
+        return out, enc.link_bytes.snapshot()
+
+    before, sparse = me_mc.launches, native.sparse_calls
+    got = drive("cuda")
+    launched, packed = me_mc.launches - before, native.sparse_calls - sparse
+    assert got == drive("cpu")
+    kinds = [(k, idr) for _, k, idr, _ in got[0]]
+    assert kinds == [("full", True), ("static", False), ("delta", False), ("full", False),
+                     ("full", False), ("delta", False), ("full", True), ("delta", False)]
+    assert got[0][5][3] == 1.0 and 0.0 < got[0][7][3] < 1.0
+    assert launched == 5  # the non-static P frames
+    assert packed >= 1  # the sparse-wire packer (a dense fallback skips it)
