@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-5 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-6 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -18,13 +18,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    width whose last strip of 8 MBs is ragged (1376x768): every output
    exactly equal;
 4. the device-conversion path: TorchH264Encoder(1920, 1080,
-   host_convert=False, device="cuda") over a seeded desktop-like trace
+   host_convert=False, pipeline_depth=0, frame_batch=1, device="cuda")
+   over a seeded desktop-like trace
    (IDR, scrolls, typing, a static repeat, force_keyframe, a QP change)
    with the launch counters zeroed just before; every access unit's sha256
    must equal the same trace on the CPU, the kernel must have launched once
    per non-static P frame and the native packer at least once;
-5. the host-conversion path (the registry's default row):
-   TorchH264Encoder(1920, 1080, scene_qp_boost=6, device="cuda") over a
+5. the host-conversion path, ungrouped and unpipelined:
+   TorchH264Encoder(1920, 1080, scene_qp_boost=6, frame_batch=1,
+   pipeline_depth=0, ltr_scenes=False, device="cuda") over a
    seeded 1080p desktop trace that produces every frame kind (IDR, static,
    delta with uploads, scene cut with the QP boost and pool seeding,
    another over-budget full P, remap-only delta, forced IDR over a static
@@ -34,14 +36,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    CPU run's, K1 must have launched once per non-static P frame, the native
    sparse packer at least once, and the frameprep library must be the one
    built from ``native/frameprep.cc``;
-6. time the kernel with CUDA events over 50 launches queued behind a spin
+6. the registry row: TorchH264Encoder(1920, 1080, scene_qp_boost=6,
+   device="cuda") with its defaults (groups of 4, pipeline depth 2, the LTR
+   scene cache) over a seeded 1080p trace (IDR, a group of 4 typing
+   deltas, a group of 2 closed by a static frame, a window switch with the
+   scene cut, a typed delta carrying the long-term marking, two switches
+   back that restore from the scene cache, a scroll of remaps and uploads,
+   a forced IDR that clears the slots, another group), counters zeroed
+   just before, every AU collected across submit and flush; the AUs must
+   equal the CPU run's and an ungrouped, unpipelined card run's (LTR on),
+   with ltr_restores >= 2, a group of 4 and one of 2 dispatched, K1 launched
+   once per non-static P frame, the native sparse packer run and the up_*
+   link bytes equal to the CPU run's;
+7. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
    host-conversion encoder's median FrameStats split per frame kind
    (classify / convert / h2d / step / fetch / unpack / cavlc ms, up and
    down bytes), and with torch.profiler the device's busy and idle share
-   over IDR, P and delta-P frames;
-7. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   over IDR, P and delta-P frames; over a 1080p typing run, the registry
+   row against frame_batch=1, pipeline_depth=0 (and each knob alone, in
+   turns, twice each): frames per second, median
+   and p95 latency from a frame's submit() call to the return of the call
+   that hands back its AU, the FrameStats split, and the device idle share
+   over 8 grouped typing deltas;
+8. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -276,6 +295,111 @@ def _host_timing_trace(rounds: int):
     return trace
 
 
+def _type(frame, rng, row: int, col: int, width: int = 400):
+    """A copy of ``frame`` with one 16-row line of glyph noise typed in."""
+    f = frame.copy()
+    f[row:row + 16, col:col + width, :3] = rng.integers(0, 255, (16, width, 3), np.uint8)
+    return f
+
+
+def _registry_trace():
+    """-> [(frame, op)], 19 frames at 1080p: desktop A (IDR), four typing
+    deltas (a group of 4), two more (a group of 2) closed by a static frame,
+    a switch to desktop B (A under a 1024x528 window: the scene cut), a
+    line typed in B's window (its slice carries B's long-term marking),
+    back to A's last capture and to B's (two restores from the scene
+    cache), two 16-row scrolls of the window (remaps plus a new line of
+    uploads), a forced IDR on the static screen (it clears the slots) and
+    four typing deltas after it."""
+    a, win, _, _ = _host_frames(2028)
+    rng = np.random.default_rng(2029)
+    typing = [a]
+    for k in range(6):
+        typing.append(_type(typing[-1], rng, 300 + 32 * k, 200))
+    b_typed = _type(win, rng, 400, 500)
+    scrolls = [b_typed]
+    for _ in range(2):
+        s = scrolls[-1].copy()
+        s[192:704, 384:1408] = scrolls[-1][208:720, 384:1408]
+        s[704:720, 384:1408] = rng.integers(0, 255, (16, 1024, 4), np.uint8)
+        scrolls.append(s)
+    after = [scrolls[-1]]
+    for k in range(4):
+        after.append(_type(after[-1], rng, 900, 100 + 400 * k))
+    return ([(a, None)] + [(f, None) for f in typing[1:]] + [(typing[-1].copy(), None)]
+            + [(win, None), (b_typed, None), (typing[-1], None), (b_typed, None)]
+            + [(f, None) for f in scrolls[1:]] + [(scrolls[-1].copy(), "idr")]
+            + [(f, None) for f in after[1:]])
+
+
+def _drive_registry(enc, trace):
+    """Every AU of the trace, collected across submit() and flush() ->
+    ([(sha256, FrameStats)] in frame order, up_* link bytes)."""
+    outs = []
+    for i, (frame, op) in enumerate(trace):
+        if op == "idr":
+            enc.force_keyframe()
+        outs += enc.submit(frame, meta=i)
+    outs += enc.flush()
+    if [m for *_, m in outs] != list(range(len(trace))):
+        _fail(f"registry path returned frames {[m for *_, m in outs]}")
+    if not all(au.startswith(b"\x00\x00\x00\x01") for au, *_ in outs):
+        _fail("registry path: an access unit is not Annex-B")
+    ups = {k: v for k, v in enc.link_bytes.snapshot().items() if k.startswith("up_")}
+    return [(hashlib.sha256(au).hexdigest(), st) for au, st, _ in outs], ups
+
+
+def _typing_run(n: int, seed: int):
+    """Desktop A, then n frames each typing one more line somewhere on it."""
+    a, *_ = _host_frames(seed)
+    rng = np.random.default_rng(seed + 1)
+    frames = [a]
+    for i in range(n):
+        frames.append(_type(frames[-1], rng, 64 + 16 * (i % 60), 100 + (i * 37) % 1200))
+    return frames
+
+
+def _time_typing(cfg: dict, frames, warm: int) -> dict:
+    """Frames per second, per-frame latency (a frame's submit() call to the
+    return of the call that hands back its AU) and the median FrameStats
+    split over frames[1 + warm:], after an IDR and ``warm`` deltas, on a
+    fresh encoder of configuration ``cfg``. The frames are submitted back to
+    back, not paced to a capture rate."""
+    import torch
+    from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
+
+    enc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda", **cfg)
+    for f in frames[:1 + warm]:
+        enc.submit(f)
+    enc.flush()
+    torch.cuda.synchronize()
+    t_sub, lat, stats = {}, {}, {}
+
+    def take(outs):
+        now = time.perf_counter()
+        for _, st, m in outs:
+            lat[m], stats[m] = (now - t_sub[m]) * 1e3, st
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames[1 + warm:]):
+        t_sub[i] = time.perf_counter()
+        take(enc.submit(f, meta=i))
+    take(enc.flush())
+    wall = time.perf_counter() - t0
+    enc.close()
+    n = len(t_sub)
+    if len(lat) != n or any(st.upload_kind != "delta" for st in stats.values()):
+        _fail(f"typing run {cfg}: {len(lat)} of {n} frames, kinds "
+              f"{sorted({st.upload_kind for st in stats.values()})}")
+    lats = sorted(lat.values())
+    out = {"frames": n, "fps": n / wall, "latency_ms_median": statistics.median(lats),
+           "latency_ms_p95": lats[-(-95 * n // 100) - 1], "latency_ms_max": lats[-1],
+           "group_sizes": dict(enc.group_sizes)}
+    for k in ("classify_ms", "convert_ms", "h2d_ms", "upload_ms", "step_ms", "fetch_ms",
+              "unpack_ms", "cavlc_ms", "pack_ms", "device_ms", "bytes"):
+        out[k] = statistics.median(getattr(st, k) for st in stats.values())
+    return out
+
+
 def _time_cuda(fn, iters: int, warmup: int = 3, hold: bool = False) -> float:
     """Milliseconds per call by CUDA events around ``iters`` calls. With
     ``hold`` the stream first runs a ~10 ms spin kernel, so the host queues
@@ -309,14 +433,19 @@ def _profile_frames(enc, frames, idr: bool, n: int, feed=None, expect: str = "")
     feed = feed or (lambda i: frames[0] if idr else frames[1 + i % 2])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        outs = []
         for i in range(n):
             if idr:
                 enc.force_keyframe()
-            (_, st, _), = enc.submit(feed(i))
-            if expect and st.upload_kind != expect:
-                _fail(f"profiled frame {i} is {st.upload_kind}, not {expect}")
+            outs += enc.submit(feed(i))
+        outs += enc.flush()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if len(outs) != n:
+        _fail(f"profiled {n} frames, {len(outs)} came back")
+    for i, (_, st, _) in enumerate(outs):
+        if expect and st.upload_kind != expect:
+            _fail(f"profiled frame {i} is {st.upload_kind}, not {expect}")
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return {"frames": n, "wall_ms": wall_ms, "device_busy_ms": "not measured"}
@@ -356,6 +485,7 @@ def _profile_host_deltas(enc, n: int) -> dict:
         f[500:516, 300 + 16 * i:700 + 16 * i, :3] = rng.integers(0, 255, (16, 400, 3), np.uint8)
         frames.append(f)
     enc.submit(frames[-1])  # warm
+    enc.flush()
     return _profile_frames(enc, frames, False, n, feed=lambda i: frames[i],
                            expect="delta")
 
@@ -429,7 +559,8 @@ def main() -> int:
 
     # -- 4. the device-conversion path: the encoder at 1920x1080 on the card vs the CPU
     frames = _desktop_trace()
-    enc = TorchH264Encoder(W, H, qp=28, host_convert=False, device="cuda")
+    flat = dict(pipeline_depth=0, frame_batch=1)  # one AU per submit
+    enc = TorchH264Encoder(W, H, qp=28, host_convert=False, device="cuda", **flat)
     me_mc.launches = 0
     native.calls = 0
     t0 = time.perf_counter()
@@ -438,7 +569,7 @@ def main() -> int:
     main_s = time.perf_counter() - t0
     launches, packs = me_mc.launches, native.calls
     t0 = time.perf_counter()
-    cpu = _drive(TorchH264Encoder(W, H, qp=28, host_convert=False, device="cpu"), frames)
+    cpu = _drive(TorchH264Encoder(W, H, qp=28, host_convert=False, device="cpu", **flat), frames)
     cpu_s = time.perf_counter() - t0
     for i, ((hg, sg), (hc, sc)) in enumerate(zip(gpu, cpu)):
         if hg != hc:
@@ -458,7 +589,8 @@ def main() -> int:
 
     # -- 5. the host-conversion path at 1920x1080 on the card vs the CPU
     trace = _host_trace()
-    henc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda")
+    flat_host = dict(flat, ltr_scenes=False)
+    henc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda", **flat_host)
     me_mc.launches = 0
     native.calls = native.sparse_calls = 0
     t0 = time.perf_counter()
@@ -467,7 +599,8 @@ def main() -> int:
     host_s = time.perf_counter() - t0
     host_launches, host_packs, host_sparse = me_mc.launches, native.calls, native.sparse_calls
     t0 = time.perf_counter()
-    hcpu = _drive_host(TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cpu"), trace)
+    hcpu = _drive_host(TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cpu",
+                                        **flat_host), trace)
     hcpu_s = time.perf_counter() - t0
     for i, (g, c) in enumerate(zip(hgpu, hcpu)):
         if g[0] != c[0]:
@@ -495,7 +628,60 @@ def main() -> int:
         "up_bytes": [r[3] for r in hgpu], "down_bytes": [r[4] for r in hgpu],
         "sha256": [r[0] for r in hgpu], "cuda_s": host_s, "cpu_s": hcpu_s,
         "frameprep_lib": str(f_build.path.name)}
-    print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s")
+    # -- 6. the registry row: groups of 4, pipeline depth 2, the LTR scene cache
+    rtrace = _registry_trace()
+    renc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda")
+    me_mc.launches = 0
+    native.calls = native.sparse_calls = 0
+    t0 = time.perf_counter()
+    rgpu, rups = _drive_registry(renc, rtrace)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    reg_launches, reg_sparse = me_mc.launches, native.sparse_calls
+    groups, restores = dict(renc.group_sizes), renc.ltr_restores
+    renc.close()
+    t0 = time.perf_counter()
+    rflat_enc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda", **flat)
+    rflat, _ = _drive_registry(rflat_enc, rtrace)
+    flat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rcpu_enc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cpu")
+    rcpu, rcpu_ups = _drive_registry(rcpu_enc, rtrace)
+    rcpu_s = time.perf_counter() - t0
+    rcpu_enc.close()
+    for i, ((g, st), (c, _), (f, _)) in enumerate(zip(rgpu, rcpu, rflat)):
+        if g != c:
+            _fail(f"registry frame {i}: cuda AU sha256 {g[:16]} != cpu {c[:16]}")
+        if g != f:
+            _fail(f"registry frame {i}: grouped+pipelined AU {g[:16]} != flat card run {f[:16]}")
+    if rups != rcpu_ups:
+        _fail(f"registry path up bytes {rups} != cpu {rcpu_ups}")
+    if restores < 2 or rcpu_enc.ltr_restores != restores or rflat_enc.ltr_restores != restores:
+        _fail(f"ltr_restores {restores} (cpu {rcpu_enc.ltr_restores}, flat "
+              f"{rflat_enc.ltr_restores}); want >= 2 and equal")
+    if groups.get(4, 0) < 1 or groups.get(2, 0) < 1:
+        _fail(f"registry path dispatched groups {groups}; want a 4 and a 2")
+    reg_p = sum(1 for _, st in rgpu if not st.idr and st.upload_kind != "static")
+    if reg_launches != reg_p:
+        _fail(f"me_mc launched {reg_launches} times for {reg_p} non-static P frames (registry)")
+    if reg_sparse <= 0:
+        _fail("the native sparse packer never ran on the registry path")
+    rkinds = "".join("I" if st.idr else {"static": "S", "full": "F", "delta": "D"}[st.upload_kind]
+                     for _, st in rgpu)
+    print(f"registry path 1920x1080 (frame_batch 4, pipeline_depth 2, ltr_scenes): "
+          f"{len(rtrace)} frames {rkinds}; AUs sha256-equal to the cpu run and to the card run "
+          f"with frame_batch=1, pipeline_depth=0; up bytes equal to the cpu run's {rups}; "
+          f"ltr_restores {restores}; groups dispatched {groups}; me_mc launches {reg_launches} "
+          f"(= non-static P frames); native sparse packs {reg_sparse}; qp "
+          f"{[st.qp for _, st in rgpu]}; bytes {[st.bytes for _, st in rgpu]}; cuda run "
+          f"{reg_s:.2f} s, flat card run {flat_s:.2f} s, cpu run {rcpu_s:.2f} s")
+    record["registry_path"] = {
+        "kinds": rkinds, "ltr_restores": restores, "group_sizes": groups,
+        "me_mc_launches": reg_launches, "native_sparse_packs": reg_sparse, "up_bytes": rups,
+        "bytes": [st.bytes for _, st in rgpu], "qp": [st.qp for _, st in rgpu],
+        "sha256": [g for g, _ in rgpu], "cuda_s": reg_s, "flat_cuda_s": flat_s,
+        "cpu_s": rcpu_s}
+    print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
@@ -547,7 +733,7 @@ def main() -> int:
     print("device-conversion encoder per frame (median ms): " + json.dumps(enc_t))
 
     # the host-conversion encoder: median FrameStats split per frame kind
-    tenc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda")
+    tenc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda", **flat_host)
     rounds = _drive_host(tenc, _host_timing_trace(4))[12:]  # the first round warms up
     split = {}
     for kind_name in sorted({r[2] for r in rounds}):
@@ -566,6 +752,25 @@ def main() -> int:
     record["profile"] = prof
     print("profile (torch.profiler, profiler on): " + json.dumps(prof))
 
+    # the registry row against ungrouped, unpipelined, and each knob alone,
+    # in turns, on a typing run
+    typing = _typing_run(40, 300)
+    cfgs = {"registry": {}, "flat": flat, "batch4_depth0": {"pipeline_depth": 0},
+            "batch1_depth2": {"frame_batch": 1}}
+    typing_t = {name: [] for name in cfgs}
+    for name in list(cfgs) + list(cfgs)[::-1]:
+        typing_t[name].append(_time_typing(cfgs[name], typing, warm=8))
+    record["typing_run"] = typing_t
+    print(f"1080p typing run, 32 deltas after an IDR and 8 warm-up deltas, submitted back to "
+          f"back ({card}, {power_limit}): " + json.dumps(typing_t))
+    preg = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda")
+    prof_reg = _profile_host_deltas(preg, 8)
+    prof_reg["group_sizes"] = dict(preg.group_sizes)
+    preg.close()
+    record["profile"]["delta_p_registry"] = prof_reg
+    print(f"profile of 8 grouped typing deltas, registry row ({card}, {power_limit}): "
+          + json.dumps(prof_reg))
+
     kernels = [{
         "name": "me_mc", "route": "cuda", "source": "selkies_tpu_torch/csrc/me_mc.cu",
         "replaces": me_mc.REPLACES, "launches": launches, "max_abs_err": max_err,
@@ -578,6 +783,8 @@ def main() -> int:
         "bound_share": bound_ms / ms,
         "launches_per_p_frame": launches / p_frames, "launches_host_path": host_launches,
         "launches_per_p_frame_host_path": host_launches / host_p,
+        "launches_registry_path": reg_launches,
+        "launches_per_p_frame_registry_path": reg_launches / reg_p,
         "card": card, "power_limit": power_limit,
     }]
     record["kernels"] = kernels

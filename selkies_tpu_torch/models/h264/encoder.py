@@ -1,8 +1,8 @@
 """TorchH264Encoder: frame in, Annex-B access unit out, on a CUDA card.
 
 Counterpart of ``selkies_tpu/models/h264/encoder.py``'s ``TPUH264Encoder``
-with ``pipeline_depth=0, frame_batch=1, entropy_coder="cavlc",
-device_entropy=False, ltr_scenes=False``, in its two configurations:
+with ``entropy_coder="cavlc", device_entropy=False``, in its two
+configurations:
 
 * **host conversion** (``host_convert=True``, the default, as the
   registry's row): BGRx->I420 on the host (``models/frameprep.py``); a
@@ -12,27 +12,41 @@ device_entropy=False, ltr_scenes=False``, in its two configurations:
   cache, tiles already in the card's slot pool cross as 8-byte remaps) or
   full (three I420 planes uploaded). Delta P frames fetch a sparse
   downlink (bit-packed rows by default) sized by a fetch hint, and the
-  host packs it with the native sparse packer;
+  host packs it with the native sparse packer. Consecutive deltas are
+  grouped (``frame_batch``) into one upload, one dispatch and one fetch;
+  the LTR scene cache (``ltr_scenes``) serves a switch back to a
+  remembered window as a small delta against a long-term reference;
 * **device conversion** (``host_convert=False``): the whole packed frame is
   uploaded and converted on the device, with the dense compact downlink.
+
+Both pipeline ``pipeline_depth`` device round trips: a frame's fetch and
+host pack run on a completion worker while the next frames dispatch. The
+defaults are the JAX constructor's (depth 2, groups of 4, LTR on).
 
 The IDR step is ``encode_frame_planes``, the P step ``encode_frame_p_planes``
 (whose refine search + motion compensation is the ME/MC CUDA kernel,
 ``me_mc.py``). Reconstruction and source planes stay on the device. Every
 access unit is byte-identical to the JAX encoder's on the same frames
-(tests/test_torch_encoder.py, tests/test_torch_encoder_host.py).
+(tests/test_torch_encoder*.py, test_torch_group.py, test_torch_pipeline.py,
+test_torch_ltr.py).
 
 No host sync inside a device step: the delta steps' tile lists are applied
 as scatters whose duplicates are resolved on the device
 (``encoder_core.last_writer``), the sparse packers write at device-side
 offsets, and the hint-sized fetch slice is cut before anything is read.
+On the card each step's downlink copy is enqueued right behind it (pinned,
+``non_blocking``) between two CUDA events that the completion worker
+waits on (``_Fetch``): a worker never synchronises the whole device, which
+would wait for later frames' steps too.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
-from collections import deque
+from collections import Counter, deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -246,20 +260,97 @@ def _i_scatter_step2(packed, qp: int, sy, su, sv, py, pu, pv, *, tile_w: int, bu
     return (*_i_planes_step(y, u, v, qp), y, u, v, qy, qu, qv)
 
 
+def _p_scatter_multi_step(packed, qps, sy, su, sv, ref_y, ref_u, ref_v, *, nscap: int,
+                          cap: int, tile_w: int, density: int | None):
+    """K delta frames in one dispatch: row k of ``packed`` (K, F) is frame
+    k's tile upload, ``qps[k]`` its QP. The source planes (written in
+    place) and the recon chain carry from frame k-1 to frame k, as the JAX
+    scan's carry does; the K downlinks come back stacked, so the group is
+    one device-to-host copy. -> (prefixes, dense headers, row buffers,
+    recon y, u, v, source y, u, v)."""
+    outs = []
+    y, u, v, ry, ru, rv = sy, su, sv, ref_y, ref_u, ref_v
+    for pk, qp in zip(packed, qps):
+        prefix, dense, buf, ry, ru, rv, y, u, v = _p_scatter_step(
+            pk, qp, y, u, v, ry, ru, rv, nscap=nscap, cap=cap, tile_w=tile_w, density=density)
+        outs.append((prefix, dense, buf))
+    prefixes, denses, bufs = (torch.stack(t) for t in zip(*outs))
+    return prefixes, denses, bufs, ry, ru, rv, y, u, v
+
+
+def _p_scatter_multi_step2(packed, qps, sy, su, sv, py, pu, pv, ref_y, ref_u, ref_v, *,
+                           nscap: int, cap: int, tile_w: int, bucket: int, cbucket: int,
+                           density: int | None):
+    """Grouped ``_p_scatter_step2``: the slot pool carries too, so frame k's
+    remaps may read slots that frame k-1's uploads inserted (the host
+    cache's split() ran in frame order)."""
+    outs = []
+    y, u, v, ry, ru, rv = sy, su, sv, ref_y, ref_u, ref_v
+    for pk, qp in zip(packed, qps):
+        prefix, dense, buf, ry, ru, rv, y, u, v, py, pu, pv = _p_scatter_step2(
+            pk, qp, y, u, v, py, pu, pv, ry, ru, rv, nscap=nscap, cap=cap, tile_w=tile_w,
+            bucket=bucket, cbucket=cbucket, density=density)
+        outs.append((prefix, dense, buf))
+    prefixes, denses, bufs = (torch.stack(t) for t in zip(*outs))
+    return prefixes, denses, bufs, ry, ru, rv, y, u, v, py, pu, pv
+
+
+class _Fetch:
+    """One downlink buffer's device-to-host copy.
+
+    On the card the copy is enqueued at dispatch, right behind the step
+    that wrote the buffer, into pinned memory (``non_blocking``), between
+    two events: ``step_done`` (the step finished) and ``fetched`` (the
+    copy landed). The completion worker waits on those two events only,
+    never on the device as a whole, so it does not wait for the steps of
+    later frames. On the CPU the copy is made when the worker asks."""
+
+    def __init__(self, t: torch.Tensor):
+        self.src = t
+        self.step_done = self.fetched = self.host = None
+        if t.device.type == "cuda":
+            # blocking-sync events: a waiting worker sleeps instead of
+            # spinning on a core the submit thread needs
+            self.step_done = torch.cuda.Event(blocking=True)
+            self.step_done.record()
+            self.host = t.contiguous().to("cpu", non_blocking=True)
+            self.fetched = torch.cuda.Event(blocking=True)
+            self.fetched.record()
+
+    def wait(self, t_disp: float) -> tuple[np.ndarray, float, float]:
+        """-> (host array, step ms since ``t_disp``, fetch ms)."""
+        if self.step_done is None:
+            t_ready = time.perf_counter()
+            arr = np.ascontiguousarray(host(self.src))
+        else:
+            self.step_done.synchronize()
+            t_ready = time.perf_counter()
+            self.fetched.synchronize()
+            arr = self.host.numpy()
+        return arr, (t_ready - t_disp) * 1e3, (time.perf_counter() - t_ready) * 1e3
+
+
 @dataclass
 class _Pending:
-    """One dispatched frame awaiting its fetch and host pack."""
+    """One frame in the encode pipeline."""
 
-    kind: str  # "i" | "p" (full P, dense downlink) | "pd" (delta P, sparse downlink)
+    kind: str  # "static" | "i" | "p" (full P, dense downlink) | "pd" (delta P, sparse downlink)
     frame_index: int
     qp: int
     frame_num: int
     idr_pic_id: int
     t0: float
+    t1: float = 0.0
+    meta: object = None
+    au: bytes | None = None  # static only
     prefix_d: object = None
-    pfx_slice_d: object = None  # pd: hint-sized slice, cut at dispatch
     buf_d: object = None
     hdr_d: object = None  # pd: dense header for the ns > nscap fallback
+    fetch: _Fetch | None = None  # the downlink copy, enqueued at dispatch (not grouped)
+    future: object = None  # completion future (fetch + unpack + pack on a worker)
+    batch_slot: int = -1  # >= 0: index into a shared group future's result list
+    # t_disp is the wall clock just before the step's dispatch: a worker's
+    # step_ms runs from it; up_ms is the host front end before it
     t_disp: float = 0.0
     up_ms: float = 0.0
     classify_ms: float = 0.0
@@ -268,6 +359,10 @@ class _Pending:
     scene_cut: bool = False
     n_up: int = 0
     n_remap: int = 0
+    # LTR scene cache slice-header fields (bitstream.write_slice_header)
+    ltr_ref: int | None = None  # predict from long-term reference j
+    mark_ltr: int | None = None  # mark the previous frame as long-term index k
+    mmco_evict: tuple = ()  # MMCO 1 differences for stale short-term frames
 
 
 def _unsupported(knob: str, item: str):
@@ -279,11 +374,12 @@ class TorchH264Encoder:
     """Stateful per-stream encoder: frame in, Annex-B access unit out.
 
     ``device=None`` means ``cuda`` and raises without a card; pass
-    ``device="cpu"`` to run on the CPU. Submissions complete at once
-    (pipeline depth 0). Keyword names and env defaults
-    (``SELKIES_TILE_CACHE``, ``SELKIES_PACK_DENSITY`` and FramePrep's) are
-    the JAX encoder's; knobs of later port slices raise
-    NotImplementedError."""
+    ``device="cpu"`` to run on the CPU. Keyword names, defaults and env
+    defaults (``SELKIES_TILE_CACHE``, ``SELKIES_PACK_DENSITY``,
+    ``SELKIES_PACK_WORKERS`` and FramePrep's) are the JAX encoder's;
+    ``device_entropy=True`` and ``entropy_coder="cabac"`` raise
+    NotImplementedError. ``submit`` returns the frames that completed,
+    oldest first; ``flush`` completes the rest."""
 
     # submit() takes capture-layer damage-rect hints (FramePrep.scan)
     accepts_damage = True
@@ -293,19 +389,13 @@ class TorchH264Encoder:
 
     def __init__(self, width: int, height: int, qp: int = 28, fps: int = 60,
                  channels: int = 4, keyframe_interval: int = 0, host_convert: bool = True,
-                 pipeline_depth: int = 0, frame_batch: int = 1, scene_qp_boost: int = 0,
+                 pipeline_depth: int = 2, frame_batch: int = 4, scene_qp_boost: int = 0,
                  device_entropy: bool = False, entropy_coder: str = "cavlc",
-                 ltr_scenes: bool = False, tile_cache: int | None = None,
+                 ltr_scenes: bool = True, tile_cache: int | None = None,
                  packed_downlink: bool | None = None, pack_density: int | None = None,
                  device=None):
         if channels not in (3, 4):
             raise ValueError(f"channels must be 3 (RGB) or 4 (BGRx), got {channels}")
-        if int(frame_batch) > 1:
-            raise _unsupported("frame_batch > 1", "grouped dispatch")
-        if int(pipeline_depth) > 0:
-            raise _unsupported("pipeline_depth > 0", "pipelined submit")
-        if ltr_scenes:
-            raise _unsupported("ltr_scenes=True", "the LTR scene cache")
         if device_entropy:
             raise _unsupported("device_entropy=True", "device CAVLC/CABAC")
         if entropy_coder not in (None, "cavlc"):
@@ -325,6 +415,7 @@ class TorchH264Encoder:
         self._mbh, self._mbw = self._pad_h // 16, self._pad_w // 16
         self._hdr_words_i = i_header_words(self._mbh, self._mbw)
         self._hdr_words_p = p_header_words(self._mbh, self._mbw)
+        self.pipeline_depth = max(0, int(pipeline_depth))
         # the sparse downlink: bit-packed rows unless SELKIES_PACK_DENSITY=0;
         # explicit arguments win over the env
         dens_env = os.environ.get("SELKIES_PACK_DENSITY", "")
@@ -338,10 +429,26 @@ class TorchH264Encoder:
         self._density = int(pack_density) if packed_downlink else None
         self._nscap, self._cap_delta = NSCAP, CAP_ROWS_DELTA
         self._tile_w = tile_width_for(width)
-        self._prep = (FramePrep(width, height, self._pad_w, self._pad_h, nslots=2)
+        # one conversion slot per frame that may be in flight, plus one
+        self._prep = (FramePrep(width, height, self._pad_w, self._pad_h,
+                                nslots=self.pipeline_depth + 2)
                       if host_convert and channels == 4 else None)
-        self._ntiles = self._mbh * (self._pad_w // self._tile_w)
+        ntx = self._pad_w // self._tile_w
+        self._ntiles = self._mbh * ntx
         self._delta_buckets = delta_buckets_for(width, height)
+        # grouped dispatch: consecutive delta frames go to the card as one
+        # upload, one dispatch and one fetch; groups are frame_batch frames,
+        # then a half group, then singles (_flush_batch)
+        self.frame_batch = max(1, int(frame_batch))
+        self._batch_sizes = tuple(
+            sorted({self.frame_batch, max(2, self.frame_batch // 2)}, reverse=True)
+        ) if self.frame_batch > 1 else ()
+        self._batch_cap = self.frame_batch  # set_batch_cap
+        self._batch_pend: list = []  # (rec, yb, ub, vb, up_idx, pool_dst, pairs)
+        self.group_sizes: Counter = Counter()  # _flush_batch's dispatches by group size
+        # a group's upload pads to this ladder, not the single-frame one
+        self.BATCH_BUCKETS = tuple(sorted({16, 4 * ntx, 16 * ntx} | (
+            {self._delta_buckets[0]} if self._delta_buckets else set())))
         if tile_cache is None:
             tile_cache = int(os.environ.get("SELKIES_TILE_CACHE", "1024") or "0")
         self.tile_cache_slots = (int(tile_cache)
@@ -355,18 +462,49 @@ class TorchH264Encoder:
         self._copy_buckets = (tuple(sorted({16, self._delta_buckets[-1], self._tc_try_cap}))
                               if self._delta_buckets else ())
         self._up_buckets = (0,) + self._delta_buckets
+        self._up_batch_buckets = (0,) + self.BATCH_BUCKETS
+        self._ltr_probe: object = ()  # _classify's scene-cache match, () if not run
         self.link_bytes = LinkByteCounter()
-        # the delta-downlink fetch hint (int16 words), from recent frames
+        # completion workers (fetch + unpack + pack), and a separate pool for
+        # a group's per-slot packs: a group's coordinator blocks on its slots,
+        # so the two must not share workers
+        self._inflight: deque = deque()
+        self._workers = ThreadPoolExecutor(max_workers=max(2, self.pipeline_depth + 1),
+                                           thread_name_prefix="h264-complete")
+        pack_workers = int(os.environ.get("SELKIES_PACK_WORKERS", "0") or 0)
+        if pack_workers <= 0:
+            pack_workers = min(os.cpu_count() or 4,
+                               max(2, self.frame_batch * max(1, self.pipeline_depth)))
+        self._pack_pool = (ThreadPoolExecutor(max_workers=pack_workers,
+                                              thread_name_prefix="h264-pack")
+                           if self.frame_batch > 1 else None)
+        # the delta-downlink fetch hint (int16 words), from recent frames;
+        # completion workers update it, the submit thread reads it
         self._pfx_total = (p_sparse_var_words if self._density is None else p_sparse_packed_words)(
             self._mbh, self._mbw, self._nscap, self._cap_delta)
         self._pfx_hint = min(self.PFX_SMALL, self._pfx_total)
         self._pfx_recent: deque = deque(maxlen=8)
+        self._pfx_lock = threading.Lock()
         self._ref: tuple | None = None  # recon planes: the next P frame's reference
         self._src: tuple | None = None  # resident source planes: the delta base
         self._prev_frame: np.ndarray | None = None  # device-conversion mode only
         self._prev_kind = "full"  # the first frame is not a scene cut
-        self._full_run = 0
+        self._full_run = 0  # consecutive full frames
         self._allskip: PFrameCoeffs | None = None
+        # LTR scene cache: two slots of a scene-cut frame's source and recon
+        # planes and its capture. The frame after a cut marks it long-term
+        # (MMCO 3); a full frame that matches a slot within the delta budget
+        # is coded as a delta against that long-term reference. New scenes
+        # go to the slot that was not most recently used (_ltr_mru).
+        self.ltr_scenes = bool(ltr_scenes) and self._prep is not None
+        self._ltr_slots: list[dict | None] = [None, None]
+        self._ltr_mru = 1
+        self._ltr_candidate: dict | None = None
+        self.ltr_restores = 0
+        # the decoder's short-term reference frame_nums in decode order:
+        # marking slices replace the sliding window, so they evict these
+        # themselves (MMCO 1)
+        self._dpb_st: list[int] = []
         self._t_conv_ms = self._t_h2d_ms = self._t_disp0 = 0.0
         self.frame_index = 0
         self._frames_since_idr = 0
@@ -384,8 +522,23 @@ class TorchH264Encoder:
     def force_keyframe(self) -> None:
         self._force_idr = True
 
+    def set_batch_cap(self, cap: int) -> bool:
+        """Cap the grouped-dispatch size; returns True when it changed. The
+        cap snaps down to a group size _flush_batch uses (1, frame_batch//2,
+        frame_batch). Grouped and single dispatches give the same bytes, so
+        this is safe at any frame boundary."""
+        cap = max(1, min(int(cap), self.frame_batch))
+        cap = max(s for s in (1,) + self._batch_sizes if s <= cap)
+        if cap == self._batch_cap:
+            return False
+        self._batch_cap = cap
+        if len(self._batch_pend) >= cap:
+            self._flush_batch()
+        return True
+
     def load_jax_state(self, state: dict) -> None:
-        """Continue a stream that the JAX encoder started.
+        """Continue a stream that the JAX encoder started (taken after its
+        ``flush()``: nothing pending or in flight on either side).
 
         ``state`` holds numpy arrays and plain Python values:
 
@@ -399,10 +552,16 @@ class TorchH264Encoder:
           ``._scan_count``), ``prev_kind``, ``full_run``, ``pfx_hint``,
           ``pfx_recent`` and ``tile_cache`` (the TileCache's ``_hash2slot``,
           ``_slot_hash``, ``_free``, ``_stamp``, ``_clock``, ``_store``,
-          ``hits``, ``misses``, ``evictions``, or None).
+          ``hits``, ``misses``, ``evictions``, or None);
+        * the LTR scene cache, optionally: ``ltr_slots`` (two entries, each
+          None or a dict of ``src`` and ``ref`` planes and the ``cap``
+          capture), ``ltr_candidate`` (None or such a dict with its
+          ``slot``), ``ltr_mru``, ``dpb_st``, ``ltr_restores``.
 
         This system has no weights: its state is these planes on the device
         and this host bookkeeping."""
+        if self._inflight or self._batch_pend:
+            raise RuntimeError("load_jax_state with frames in flight; flush() first")
         plane = ((self._pad_h, self._pad_w), (self._pad_h // 2, self._pad_w // 2),
                  (self._pad_h // 2, self._pad_w // 2))
 
@@ -411,6 +570,16 @@ class TorchH264Encoder:
             if tuple(a.shape for a in arrs) != want:
                 raise ValueError(f"{what} planes {[a.shape for a in arrs]} != {list(want)}")
             return tuple(torch.from_numpy(a).to(self.device) for a in arrs)
+
+        def scene(s, what):
+            if s is None:
+                return None
+            out = {"src": planes(s["src"], plane, what + " source"),
+                   "ref": planes(s["ref"], plane, what + " reference"),
+                   "cap": np.array(s["cap"], copy=True)}
+            if "slot" in s:
+                out["slot"] = int(s["slot"])
+            return out
 
         self._ref = planes(state["ref"], plane, "reference")
         self.frame_index = int(state["frame_index"])
@@ -436,8 +605,9 @@ class TorchH264Encoder:
         self._prep._scan_count = int(state.get("scan_count", 0))
         self._prev_kind = str(state.get("prev_kind", "full"))
         self._full_run = int(state.get("full_run", 0))
-        self._pfx_hint = int(state.get("pfx_hint", self._pfx_hint))
-        self._pfx_recent = deque((int(n) for n in state.get("pfx_recent", ())), maxlen=8)
+        with self._pfx_lock:
+            self._pfx_hint = int(state.get("pfx_hint", self._pfx_hint))
+            self._pfx_recent = deque((int(n) for n in state.get("pfx_recent", ())), maxlen=8)
         tc = state.get("tile_cache")
         if self._tcache is not None:
             if tc is None:
@@ -452,6 +622,12 @@ class TorchH264Encoder:
                 c._store = np.array(tc["store"], np.uint8)
                 c.hits, c.misses, c.evictions = (
                     int(tc[k]) for k in ("hits", "misses", "evictions"))
+        slots = state.get("ltr_slots") or (None, None)
+        self._ltr_slots = [scene(s, f"LTR slot {j}") for j, s in enumerate(slots)]
+        self._ltr_candidate = scene(state.get("ltr_candidate"), "LTR candidate")
+        self._ltr_mru = int(state.get("ltr_mru", 1))
+        self._dpb_st = [int(n) for n in state.get("dpb_st", ())]
+        self.ltr_restores = int(state.get("ltr_restores", 0))
 
     # -- frame classification (static / delta / full upload) --
 
@@ -465,7 +641,10 @@ class TorchH264Encoder:
         tiles). payload: dirty indices (band*1024 + tile) without the
         cache, the cache's (up_idx, pool_dst, pairs) with it, or
         ("seed", idx, hashes) for an over-budget frame whose tiles should
-        seed the pool after its full upload."""
+        seed the pool after its full upload. An over-budget frame that a
+        remembered scene covers is "full" for the LTR restore; the match
+        is kept in _ltr_probe for submit."""
+        self._ltr_probe = ()
         if self._prep is None:
             if self._prev_frame is None or self._prev_frame.shape != frame.shape:
                 self._prev_frame = frame.copy()
@@ -489,16 +668,22 @@ class TorchH264Encoder:
         idx = (band_i * 1024 + tile_i).astype(np.int32)
         if self._tcache is None:
             return "delta", idx
-        # a sampled probe skips the split when over-budget content is not
-        # pool-resident (video), so sustained motion reads ~8 hashes a frame
-        if len(band_i) > cap and self._tcache.probe(frame, idx, hashes=res.hashes) < 0.5:
-            return "full", ("seed", idx, res.hashes)
+        if len(band_i) > cap:
+            if self.ltr_scenes:
+                self._ltr_probe = self._ltr_match(frame)
+                if self._ltr_probe is not None:
+                    return "full", None
+            # a sampled probe skips the split when over-budget content is
+            # not pool-resident (video), so sustained motion reads ~8 hashes
+            if self._tcache.probe(frame, idx, hashes=res.hashes) < 0.5:
+                return "full", ("seed", idx, res.hashes)
         payload = self._tcache.split(frame, idx, max_up=cap, hashes=res.hashes)
         if payload is None:
             return "full", ("seed", idx, res.hashes)
         return "delta", payload
 
-    def _allskip_slice(self, frame_num: int) -> bytes:
+    def _allskip_slice(self, frame_num: int, mark_ltr: int | None = None,
+                       mmco_evict: tuple = ()) -> bytes:
         """P slice with every MB P_Skip: recon == ref exactly (zero MV,
         full-pel, no residual), so the device reference stays valid."""
         if self._allskip is None:
@@ -512,19 +697,25 @@ class TorchH264Encoder:
                 qp=self.qp,
             )
         self._allskip.qp = self.qp
-        return pack_slice_p_fast(self._allskip, self.params, frame_num=frame_num)
+        return pack_slice_p_fast(self._allskip, self.params, frame_num=frame_num,
+                                 mark_ltr=mark_ltr, mmco_evict=mmco_evict)
 
     # -- uploads and the full steps --
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _put_timed(self, arr: np.ndarray) -> torch.Tensor:
-        """One host-to-device copy (a copy on the CPU too: the resident
-        planes are written in place and must not alias host buffers)."""
+        """One host-to-device copy. On the card it is staged into pinned
+        memory and enqueued (``non_blocking``): a blocking copy ends in a
+        stream synchronise, which would wait for the steps of the frames in
+        flight. PyTorch's caching host allocator keeps each pinned block
+        until its copy is done, so the source buffer may be reused at once.
+        On the CPU it is a copy too: the resident planes are written in
+        place and must not alias host buffers."""
         t0 = time.perf_counter()
-        out = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, copy=True)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            out = t.pin_memory().to(self.device, non_blocking=True)
+        else:
+            out = t.to(self.device, copy=True)
         self._t_h2d_ms += (time.perf_counter() - t0) * 1e3
         return out
 
@@ -646,72 +837,229 @@ class TorchH264Encoder:
         return np.concatenate([idxp.view(np.uint8), dstp.view(np.uint8),
                                pr.reshape(-1).view(np.uint8), yb.ravel(), ub.ravel(), vb.ravel()])
 
-    def _pack_payload2(self, frame: np.ndarray, payload):
-        """Cache split -> (packed buffer, bucket, cbucket)."""
-        up_idx, pool_dst, pairs = payload
-        bucket = next(b for b in self._up_buckets if b >= len(up_idx))
-        cbucket = next(cb for cb in self._copy_buckets if cb >= len(pairs))
-        yb, ub, vb = self._convert_tiles_timed(frame, up_idx)
-        return self._pack_tiles2(yb, ub, vb, up_idx, pool_dst, pairs, bucket, cbucket), \
-            bucket, cbucket
+    def _p_consts(self) -> dict:
+        return dict(nscap=self._nscap, cap=self._cap_delta, tile_w=self._tile_w,
+                    density=self._density)
 
-    def _run_step_delta(self, frame: np.ndarray, payload, idr: bool):
-        """Upload only the dirty tiles (remapping pool-resident ones);
-        scatter + encode on the device. -> (prefix, dense header or None,
-        rows buf, recon y, u, v)."""
-        qp = self.qp
+    def _pack_uploads(self, frames: list, batch: bool):
+        """Pack each frame's converted tiles (``_delta_tiles``) into an
+        upload buffer padded to one bucket, the smallest that holds the
+        largest frame on the single-frame ladder or, for a group
+        (``batch``), the batch ladder. -> (buffers, bucket, cbucket)."""
+        most = max(len(t[3]) for t in frames)
         if self._tcache is not None:
-            packed, bucket, cbucket = self._pack_payload2(frame, payload)
-            self.link_bytes.add("up_delta", packed.nbytes)
-            packed_d = self._put_timed(packed)
-            pool = self._get_pool()
-            self._t_disp0 = time.perf_counter()
-            consts = dict(tile_w=self._tile_w, bucket=bucket, cbucket=cbucket)
-            if idr:
-                prefix_d, buf_d, ry, ru, rv, *_ = _i_scatter_step2(
-                    packed_d, qp, *self._src, *pool, **consts)
-                hdr_d = None
-            else:
-                prefix_d, hdr_d, buf_d, ry, ru, rv, *_ = _p_scatter_step2(
-                    packed_d, qp, *self._src, *pool, *self._ref, nscap=self._nscap,
-                    cap=self._cap_delta, density=self._density, **consts)
-            return prefix_d, hdr_d, buf_d, ry, ru, rv
-        bucket = next(b for b in self._delta_buckets if b >= len(payload))
-        yb, ub, vb = self._convert_tiles_timed(frame, payload)
-        packed = self._pack_tiles(yb, ub, vb, payload, bucket)
-        self.link_bytes.add("up_delta", packed.nbytes)
+            ladder = self._up_batch_buckets if batch else self._up_buckets
+            bucket = next(b for b in ladder if b >= most)
+            cbucket = next(cb for cb in self._copy_buckets if cb >= max(len(t[5]) for t in frames))
+            return [self._pack_tiles2(*t, bucket, cbucket) for t in frames], bucket, cbucket
+        bucket = next(b for b in (self.BATCH_BUCKETS if batch else self._delta_buckets)
+                      if b >= most)
+        return [self._pack_tiles(*t[:4], bucket) for t in frames], bucket, None
+
+    def _delta_tiles(self, frame: np.ndarray, payload) -> tuple:
+        """A delta payload -> (yb, ub, vb, up_idx, pool_dst, pairs): the
+        upload tiles converted now. With the tile cache the payload is its
+        split; without it, dirty indices (no pool slots, no remaps)."""
+        up_idx, pool_dst, pairs = payload if self._tcache is not None else (payload, None, None)
+        return (*self._convert_tiles_timed(frame, up_idx), up_idx, pool_dst, pairs)
+
+    def _step_tiles(self, tiles: tuple, qp: int, *, idr: bool = False, stash: dict | None = None):
+        """Upload one frame's converted dirty tiles (``_delta_tiles``) and run
+        its delta step: the tiles are scattered into the resident source
+        planes (in place) and the frame is encoded against the reference.
+        An LTR restore (``stash``) scatters into a clone of the stash's
+        source planes instead and encodes against the stash's recon: the
+        stash must come out unchanged, as the same slot may be restored
+        again before this frame's candidate replaces it. The scattered
+        planes become the resident ones. -> (prefix, dense header or None,
+        rows buf, recon y, u, v)."""
+        tc = self._tcache is not None
+        (packed,), bucket, cbucket = self._pack_uploads([tiles], batch=False)
+        self.link_bytes.add("up_delta" if stash is None else "up_ltr", packed.nbytes)
         packed_d = self._put_timed(packed)
+        pool = self._get_pool() if tc else ()
         self._t_disp0 = time.perf_counter()
-        if idr:
-            prefix_d, buf_d, ry, ru, rv, *_ = _i_scatter_step(
-                packed_d, qp, *self._src, tile_w=self._tile_w)
-            hdr_d = None
+        if stash is None:
+            src, ref = self._src, self._ref
         else:
-            prefix_d, hdr_d, buf_d, ry, ru, rv, *_ = _p_scatter_step(
-                packed_d, qp, *self._src, *self._ref, nscap=self._nscap, cap=self._cap_delta,
-                tile_w=self._tile_w, density=self._density)
+            src, ref = tuple(p.clone() for p in stash["src"]), stash["ref"]
+        hdr_d = None
+        if tc and idr:
+            prefix_d, buf_d, ry, ru, rv, sy, su, sv, *_ = _i_scatter_step2(
+                packed_d, qp, *src, *pool, tile_w=self._tile_w, bucket=bucket, cbucket=cbucket)
+        elif tc:
+            prefix_d, hdr_d, buf_d, ry, ru, rv, sy, su, sv, *_ = _p_scatter_step2(
+                packed_d, qp, *src, *pool, *ref, bucket=bucket, cbucket=cbucket,
+                **self._p_consts())
+        elif idr:
+            prefix_d, buf_d, ry, ru, rv, sy, su, sv = _i_scatter_step(
+                packed_d, qp, *src, tile_w=self._tile_w)
+        else:
+            prefix_d, hdr_d, buf_d, ry, ru, rv, sy, su, sv = _p_scatter_step(
+                packed_d, qp, *src, *ref, **self._p_consts())
+        self._src = (sy, su, sv)
         return prefix_d, hdr_d, buf_d, ry, ru, rv
+
+    # -- LTR scene cache (a switch back to a remembered window) --
+
+    def _dirty_vs(self, frame: np.ndarray, cap: np.ndarray) -> np.ndarray:
+        """Per-tile inequality of two captures in FramePrep's geometry."""
+        d = (frame != cap).any(axis=2)
+        h, w = d.shape
+        pb = np.zeros((self._pad_h, self._pad_w), bool)
+        pb[:h, :w] = d
+        nb, nt = self._pad_h // 16, self._pad_w // self._tile_w
+        return pb.reshape(nb, 16, nt, self._tile_w).any(axis=(1, 3))
+
+    @staticmethod
+    def _ltr_quick_reject(frame: np.ndarray, cap: np.ndarray) -> bool:
+        """Sampled pre-filter: a restore differs from its scene in at most
+        the delta budget, so a >35% sampled mismatch cannot match."""
+        s1, s2 = frame[8::48, 16::128], cap[8::48, 16::128]
+        return float((s1 != s2).any(axis=-1).mean()) > 0.35
+
+    def _ltr_match(self, frame: np.ndarray):
+        """-> (slot, dirty_idx) of the best-matching remembered scene, or
+        None when no slot matches within the delta-bucket budget."""
+        if not self._delta_buckets:
+            return None
+        best = None
+        for j, s in enumerate(self._ltr_slots):
+            if s is None or s["cap"].shape != frame.shape:
+                continue
+            if self._ltr_quick_reject(frame, s["cap"]):
+                continue
+            band_i, tile_i = np.nonzero(self._dirty_vs(frame, s["cap"]))
+            if len(band_i) > self._delta_buckets[-1]:
+                continue
+            if best is None or len(band_i) < len(best[1]):
+                best = (j, (band_i * 1024 + tile_i).astype(np.int32))
+        if best is None:
+            return None
+        j, idx = best
+        if len(idx) == 0:
+            # the capture equals the stash: rewrite tile 0 with its own
+            # content so the scatter step has an input
+            idx = np.zeros(1, np.int32)
+        return j, idx
+
+    def _stash_candidate(self, frame: np.ndarray, slot: int) -> None:
+        """Snapshot this full frame as the pending LTR candidate: clones of
+        the six planes (the next delta writes the resident ones in place)
+        and the capture. The slot commits when the next frame emits MMCO 3."""
+        if self._src is None or self._ref is None:
+            return
+        self._ltr_candidate = {
+            "slot": int(slot),
+            "src": tuple(p.clone() for p in self._src),
+            "ref": tuple(p.clone() for p in self._ref),
+            "cap": np.array(frame, copy=True),
+        }
+
+    # -- grouped delta dispatch (frame_batch > 1) --
+
+    def _flush_batch(self) -> None:
+        """Dispatch the pending delta frames: full groups of frame_batch,
+        then a half group, then singles. Runs before any other dispatch, so
+        the device's source and reference chain advances in frame order."""
+        pend = self._batch_pend
+        if not pend:
+            return
+        self._batch_pend = []
+        tc = self._tcache is not None
+        try:
+            i = 0
+            while i < len(pend):
+                t_d0 = time.perf_counter()
+                take = next((s for s in self._batch_sizes if len(pend) - i >= s), 1)
+                group = pend[i: i + take]
+                i += take
+                self._t_h2d_ms = 0.0
+                if take == 1:
+                    rec = group[0][0]
+                    prefix_d, hdr_d, buf_d, ry, ru, rv = self._step_tiles(group[0][1:], rec.qp)
+                    self._ref = (ry, ru, rv)
+                    rec.prefix_d, rec.hdr_d, rec.buf_d = prefix_d, hdr_d, buf_d
+                    rec.fetch = _Fetch(self._pfx_slice(prefix_d))
+                    rec.batch_slot = -1
+                    rec.t_disp = self._t_disp0
+                    rec.h2d_ms += self._t_h2d_ms
+                    rec.up_ms = rec.classify_ms + rec.convert_ms + (rec.t_disp - t_d0) * 1e3
+                    self.group_sizes[1] += 1
+                    rec.future = self._workers.submit(self._complete_work, rec)
+                    continue
+                qps = [g[0].qp for g in group]
+                bufs, bucket, cbucket = self._pack_uploads([g[1:] for g in group], batch=True)
+                packed = np.stack(bufs)
+                self.link_bytes.add("up_delta", packed.nbytes)
+                packed_d = self._put_timed(packed)
+                self._t_disp0 = time.perf_counter()
+                if tc:
+                    prefixes_d, denses_d, bufs_d, ry, ru, rv, sy, su, sv, *_ = (
+                        _p_scatter_multi_step2(packed_d, qps, *self._src, *self._get_pool(),
+                                               *self._ref, bucket=bucket, cbucket=cbucket,
+                                               **self._p_consts()))
+                else:
+                    prefixes_d, denses_d, bufs_d, ry, ru, rv, sy, su, sv = (
+                        _p_scatter_multi_step(packed_d, qps, *self._src, *self._ref,
+                                              **self._p_consts()))
+                self._src, self._ref = (sy, su, sv), (ry, ru, rv)
+                fetch = _Fetch(self._pfx_slice(prefixes_d))
+                recs = [g[0] for g in group]
+                # the group's host front end (pack + h2d) is stamped on every
+                # member, beside each frame's own classify and convert
+                t_disp = self._t_disp0
+                grp_ms = (t_disp - t_d0) * 1e3
+                for rec in recs:
+                    rec.t_disp = t_disp
+                    rec.h2d_ms += self._t_h2d_ms
+                    rec.up_ms = rec.classify_ms + rec.convert_ms + grp_ms
+                self.group_sizes[take] += 1
+                shared = self._workers.submit(self._complete_batch, recs, fetch,
+                                              list(prefixes_d), denses_d, bufs_d)
+                for slot, rec in enumerate(recs):
+                    rec.future = shared
+                    rec.batch_slot = slot
+        except Exception:
+            # frames not yet dispatched never produce AUs: drop their
+            # records (the forced IDR next frame heals the frame_num gap);
+            # groups already dispatched stay deliverable
+            dropped = {id(g[0]) for g in pend if g[0].future is None}
+            self._inflight = deque(r for r in self._inflight if id(r) not in dropped)
+            self._ref = self._src = None
+            self._reset_tile_cache()
+            raise
 
     # -- the delta downlink's fetch hint --
 
     def _update_pfx_hint(self) -> None:
         """The fetch length from recent frames: the small slice while 1.5x
-        the recent need fits it, else the whole fused buffer."""
-        want = max([2048] + [n * 3 // 2 for n in self._pfx_recent])
-        self._pfx_hint = self.PFX_SMALL if want <= self.PFX_SMALL else self._pfx_total
+        the recent need fits it, else the whole fused buffer. Completion
+        workers and the submit thread both run it."""
+        with self._pfx_lock:
+            want = max([2048] + [n * 3 // 2 for n in self._pfx_recent])
+            self._pfx_hint = self.PFX_SMALL if want <= self.PFX_SMALL else self._pfx_total
 
     def _pfx_slice(self, prefix_d):
-        """Hint-sized view of a fused delta downlink, cut at dispatch."""
-        return prefix_d[: self._pfx_hint] if self._pfx_hint < self._pfx_total else prefix_d
+        """Hint-sized view of a fused delta downlink (or a group's stack of
+        them), cut on the submit thread right behind the step."""
+        with self._pfx_lock:
+            n = self._pfx_hint
+        if n >= self._pfx_total:
+            return prefix_d
+        return prefix_d[:n] if prefix_d.dim() == 1 else prefix_d[:, :n]
 
     def _note_need(self, need: int) -> None:
-        self._pfx_recent.append(need)
+        with self._pfx_lock:
+            self._pfx_recent.append(need)
 
     # -- encoding --
 
     def submit(self, frame: np.ndarray, qp: int | None = None, meta=None, damage=None) -> list:
-        """Encode one (H, W, channels) uint8 frame; returns
-        ``[(au, FrameStats, meta)]`` (depth 0: the frame completes at once).
+        """Encode one (H, W, channels) uint8 frame; returns the frames that
+        completed as ``[(au, FrameStats, meta)]``, oldest first: empty while
+        the pipeline fills (``pipeline_depth`` device round trips, a group
+        counting once) or a group accumulates.
 
         ``damage``: optional (x, y, w, h) rects known to cover every
         changed pixel; they bound the classification scan and never change
@@ -730,83 +1078,175 @@ class TorchH264Encoder:
         t0 = time.perf_counter()
         kind, payload = self._classify(frame, damage)
         classify_ms = (time.perf_counter() - t0) * 1e3
+        batch_full = False
         orig_qp = self.qp
         # a scene cut is the transition into a full-frame change: that one
         # frame is coded with scene_qp_boost added to its QP
         scene_cut = kind == "full" and self._src is not None and self._prev_kind != "full"
         self._prev_kind = kind
         self._full_run = self._full_run + 1 if kind == "full" else 0
-        if scene_cut and self.scene_qp_boost:
+        # LTR: any full frame may be a switch back to a remembered scene,
+        # matched against the slot table as it stands (the pending
+        # candidate commits below, as the decoder applies this slice's
+        # marking only after decoding it)
+        ltr_hit = ltr_stash = None
+        if self.ltr_scenes and not idr and kind == "full" and self._src is not None:
+            hit = self._ltr_probe if self._ltr_probe != () else self._ltr_match(frame)
+            if hit is not None:
+                ltr_hit, ltr_stash = hit, self._ltr_slots[hit[0]]
+        # this slice's MMCO 3 marks the previous full frame long-term
+        mark_ltr = None
+        if self.ltr_scenes and not idr and self._ltr_candidate is not None:
+            cand, self._ltr_candidate = self._ltr_candidate, None
+            self._ltr_slots[cand["slot"]] = cand
+            mark_ltr = cand["slot"]
+        # the decoder's DPB: a marking slice bypasses the sliding window and
+        # must evict stale short-terms itself (MMCO 1), or the DPB would
+        # exceed max_num_ref_frames = 3
+        mmco_evict: tuple = ()
+        if idr:
+            self._dpb_st = [0]
+        else:
+            cur_fn = self._frames_since_idr % 256
+            if mark_ltr is not None:
+                prev_fn = (cur_fn - 1) % 256
+                if prev_fn in self._dpb_st:
+                    self._dpb_st.remove(prev_fn)  # it becomes long-term
+                mmco_evict = tuple(sorted(((cur_fn - s) % 256) - 1 for s in self._dpb_st))
+                self._dpb_st = [cur_fn]
+            else:
+                lt_count = sum(1 for s in self._ltr_slots if s is not None)
+                if len(self._dpb_st) + lt_count >= 3:  # sliding window
+                    self._dpb_st.pop(0)
+                self._dpb_st.append(cur_fn)
+        # a restore predicts from its own scene: no boost
+        if scene_cut and self.scene_qp_boost and ltr_hit is None:
             self.qp = min(51, self.qp + self.scene_qp_boost)
-        rec = None
         if kind == "static" and not idr:
-            # unchanged capture: all-skip P slice on the host, no device work
-            au = self._allskip_slice(self._frames_since_idr % 256)
-            stats = FrameStats(
-                frame_index=self.frame_index, idr=False, qp=self.qp, bytes=len(au),
-                device_ms=(time.perf_counter() - t0) * 1e3, pack_ms=0.0,
-                skipped_mbs=self._mbh * self._mbw, upload_kind="static",
-                upload_ms=classify_ms, classify_ms=classify_ms)
+            # unchanged capture: all-skip P slice on the host, no device
+            # work; the screen went idle, so pending deltas dispatch now
+            self._flush_batch()
+            au = self._allskip_slice(self._frames_since_idr % 256, mark_ltr=mark_ltr,
+                                     mmco_evict=mmco_evict)
+            rec = _Pending(kind="static", frame_index=self.frame_index, qp=self.qp,
+                           frame_num=self._frames_since_idr % 256, idr_pic_id=0, t0=t0,
+                           t1=time.perf_counter(), meta=meta, au=au, mark_ltr=mark_ltr,
+                           mmco_evict=mmco_evict, classify_ms=classify_ms, up_ms=classify_ms)
+        elif (not idr and kind == "delta" and self.frame_batch > 1
+              and (len(payload[0]) if self._tcache is not None else len(payload))
+              <= self.BATCH_BUCKETS[-1]):
+            # group candidate: convert the (post-remap) upload tiles now, as
+            # the capture may be reused before the group dispatches
+            self._t_conv_ms = 0.0
+            tiles = self._delta_tiles(frame, payload)
+            up_idx, pairs = tiles[3], tiles[5]
+            rec = _Pending(kind="pd", frame_index=self.frame_index, qp=self.qp,
+                           frame_num=self._frames_since_idr % 256, idr_pic_id=0, t0=t0,
+                           meta=meta, mark_ltr=mark_ltr, mmco_evict=mmco_evict,
+                           n_up=len(up_idx), n_remap=len(pairs) if pairs is not None else 0,
+                           classify_ms=classify_ms, convert_ms=self._t_conv_ms)
+            self._batch_pend.append((rec, *tiles))
+            batch_full = len(self._batch_pend) >= self._batch_cap
         else:
             try:
-                rec = self._dispatch(frame, kind, payload, idr, t0, classify_ms, scene_cut)
+                # dispatch order is frame order: pending deltas go first
+                self._flush_batch()
+                rec = self._dispatch(frame, kind, payload, idr, t0, classify_ms, scene_cut,
+                                     meta, ltr_hit, ltr_stash, mark_ltr, mmco_evict)
             except Exception:
                 # the old planes may be half-written: drop the chain so the
-                # next frame self-heals as a full-upload IDR
+                # next frame self-heals as a full-upload IDR (which also
+                # clears the LTR slots); frames already in flight stay
+                # deliverable
                 self._ref = self._src = None
+                self._ltr_candidate = None
                 self._reset_tile_cache()
                 self.qp = orig_qp
                 raise
         self.qp = orig_qp
         self.frame_index += 1
         self._frames_since_idr += 1
-        if rec is not None:
-            try:
-                au, stats = self._complete(rec)
-            except Exception:
-                # the decoder never gets this frame: encoding successors
-                # against its recon would desync it, so force an IDR
-                self._ref = self._src = None
-                self._reset_tile_cache()
-                raise
-        self.last_stats = stats
-        return [(au, stats, meta)]
+        self._inflight.append(rec)
+        if batch_full:
+            self._flush_batch()
+        out = []
+        while self._inflight:
+            head = self._inflight[0]
+            if head.au is not None or (head.future is not None and head.future.done()):
+                out.append(self._emit(self._inflight.popleft()))
+                continue
+            # depth counts device round trips (distinct futures): a group
+            # of K frames is one
+            busy = len({id(r.future) for r in self._inflight
+                        if r.future is not None and not r.future.done()})
+            if busy > self.pipeline_depth:
+                out.append(self._emit(self._inflight.popleft()))  # waits
+                continue
+            # frame backstop: pipeline_depth round trips of groups plus the
+            # group accumulating
+            if len(self._inflight) > (self.pipeline_depth + 1) * self.frame_batch:
+                if head.future is None:
+                    self._flush_batch()  # give the stalled head a future
+                else:
+                    out.append(self._emit(self._inflight.popleft()))
+                continue
+            break
+        return out
 
-    def _dispatch(self, frame, kind, payload, idr, t0, classify_ms, scene_cut) -> _Pending:
-        """Upload and run the device step; the recon becomes the reference."""
+    def _dispatch(self, frame, kind, payload, idr, t0, classify_ms, scene_cut, meta,
+                  ltr_hit, ltr_stash, mark_ltr, mmco_evict) -> _Pending:
+        """Upload and run one frame's device step, enqueue its downlink
+        copy and hand its completion to a worker; the recon becomes the
+        reference."""
         t_d0 = time.perf_counter()
         self._t_conv_ms = self._t_h2d_ms = self._t_disp0 = 0.0
         hdr_d = None
-        n_up = n_remap = 0
         if idr:
             if kind == "delta":
-                prefix_d, hdr_d, buf_d, ry, ru, rv = self._run_step_delta(frame, payload, idr=True)
+                prefix_d, hdr_d, buf_d, ry, ru, rv = self._step_tiles(
+                    self._delta_tiles(frame, payload), self.qp, idr=True)
             elif kind == "static" and self._src is not None:
                 self._t_disp0 = time.perf_counter()
                 prefix_d, buf_d, ry, ru, rv = _i_resident_step(self.qp, *self._src)
             else:
                 prefix_d, buf_d, ry, ru, rv = self._run_step_i(frame)
             rec = _Pending(kind="i", frame_index=self.frame_index, qp=self.qp, frame_num=0,
-                           idr_pic_id=self._idr_pic_id, t0=t0)
+                           idr_pic_id=self._idr_pic_id, t0=t0, meta=meta)
+            rec.fetch = _Fetch(prefix_d)
             self._frames_since_idr = 0
             self._idr_pic_id = (self._idr_pic_id + 1) % 2
             self._force_idr = False
-        elif kind == "delta":
-            prefix_d, hdr_d, buf_d, ry, ru, rv = self._run_step_delta(frame, payload, idr=False)
-            if isinstance(payload, tuple):  # tile-cache split
-                n_up, n_remap = len(payload[0]), len(payload[2])
-            else:
-                n_up = len(payload)
-            rec = _Pending(kind="pd", frame_index=self.frame_index, qp=self.qp,
-                           frame_num=self._frames_since_idr % 256, idr_pic_id=0, t0=t0)
-            rec.pfx_slice_d = self._pfx_slice(prefix_d)
         else:
-            prefix_d, buf_d, ry, ru, rv = self._run_step_p(frame)
-            rec = _Pending(kind="p", frame_index=self.frame_index, qp=self.qp,
-                           frame_num=self._frames_since_idr % 256, idr_pic_id=0, t0=t0)
+            n_up = n_remap = 0
+            ltr_ref = None
+            if ltr_hit is not None:
+                # scene restore: a few tiles against the slot's long-term
+                # reference instead of a full-frame upload
+                idx = ltr_hit[1]
+                tiles = self._delta_tiles(
+                    frame, self._tcache.split(frame, idx) if self._tcache is not None else idx)
+                prefix_d, hdr_d, buf_d, ry, ru, rv = self._step_tiles(tiles, self.qp,
+                                                                      stash=ltr_stash)
+                pk, ltr_ref, n_up = "pd", ltr_hit[0], len(idx)
+                self.ltr_restores += 1
+            elif kind == "delta":
+                prefix_d, hdr_d, buf_d, ry, ru, rv = self._step_tiles(
+                    self._delta_tiles(frame, payload), self.qp)
+                pk = "pd"
+                if isinstance(payload, tuple):  # tile-cache split
+                    n_up, n_remap = len(payload[0]), len(payload[2])
+                else:
+                    n_up = len(payload)
+            else:
+                prefix_d, buf_d, ry, ru, rv = self._run_step_p(frame)
+                pk = "p"
+            rec = _Pending(kind=pk, frame_index=self.frame_index, qp=self.qp,
+                           frame_num=self._frames_since_idr % 256, idr_pic_id=0, t0=t0,
+                           meta=meta, scene_cut=scene_cut, n_up=n_up, n_remap=n_remap,
+                           ltr_ref=ltr_ref, mark_ltr=mark_ltr, mmco_evict=mmco_evict)
+            rec.fetch = _Fetch(self._pfx_slice(prefix_d) if pk == "pd" else prefix_d)
         self._ref = (ry, ru, rv)
         rec.prefix_d, rec.buf_d, rec.hdr_d = prefix_d, buf_d, hdr_d
-        rec.scene_cut, rec.n_up, rec.n_remap = scene_cut, n_up, n_remap
         rec.t_disp = self._t_disp0 or time.perf_counter()
         rec.classify_ms, rec.convert_ms, rec.h2d_ms = classify_ms, self._t_conv_ms, self._t_h2d_ms
         rec.up_ms = classify_ms + (rec.t_disp - t_d0) * 1e3
@@ -815,54 +1255,59 @@ class TorchH264Encoder:
         if (self._tcache is not None and kind == "full" and isinstance(payload, tuple)
                 and self._src is not None and self._full_run <= 2):
             self._seed_pool(frame, payload[1], payload[2])
-        if kind == "full":
+        # every full frame (IDR, full P, restore) becomes the pending LTR
+        # candidate: a restore refreshes its own slot and becomes the most
+        # recently used, a new scene goes to the other slot
+        if self.ltr_scenes:
+            if idr:
+                self._ltr_slots = [None, None]  # the decoder dropped every reference
+                self._ltr_candidate = None
+                self._ltr_mru = 0
+                self._stash_candidate(frame, 0)
+            elif ltr_hit is not None:
+                self._ltr_mru = ltr_hit[0]
+                self._stash_candidate(frame, ltr_hit[0])
+            elif kind == "full" and self._full_run <= 2:
+                self._stash_candidate(frame, 1 - self._ltr_mru)
+        if kind == "full" and ltr_hit is None:
             # the frames after a full-frame change carry a frame-wide
             # residual tail: grow the fetch hint now
-            self._pfx_recent.append(self._pfx_total // 2)
+            self._note_need(self._pfx_total // 2)
             self._update_pfx_hint()
+        rec.future = self._workers.submit(self._complete_work, rec)
         return rec
 
-    def _complete(self, rec: _Pending):
-        """Fetch the downlink, unpack and pack the slice -> (au, FrameStats)."""
-        self._sync()
-        t_ready = time.perf_counter()
-        step_ms = (t_ready - rec.t_disp) * 1e3
-        skipped = 0
-        if rec.kind == "pd":
-            fused = host(rec.pfx_slice_d)
-            t1 = time.perf_counter()
-            au, skipped, tu, mode = complete_sparse_slice(
-                fused, mbh=self._mbh, mbw=self._mbw, nscap=self._nscap,
-                cap_rows=self._cap_delta, qp=rec.qp, frame_num=rec.frame_num,
-                params=self.params, packed=self._density is not None,
-                full_d=rec.prefix_d, buf_d=rec.buf_d, dense_d=rec.hdr_d,
-                link_bytes=self.link_bytes, prefix_bytes=fused.nbytes,
-                note_need=self._note_need)
-            self._update_pfx_hint()
-        else:
-            prefix = host(rec.prefix_d)
-            self.link_bytes.add("down_prefix", prefix.nbytes)
-            header, data, n = split_prefix(
-                prefix, self._hdr_words_i if rec.kind == "i" else self._hdr_words_p)
-            if n > CAP_ROWS:  # rows spilled past the prefix
-                rest = fetch_rest(rec.buf_d, n, CAP_ROWS)
-                self.link_bytes.add("down_spill", rest.nbytes)
-                data = np.concatenate([data, rest])
-            t1 = time.perf_counter()
-            if rec.kind == "i":
-                fc = unpack_i_compact(header, data, rec.qp)
-                tu = time.perf_counter()
-                au = self._headers + pack_slice_fast(fc, self.params, frame_num=0, idr=True,
-                                                     idr_pic_id=rec.idr_pic_id)
-                mode = ""
-            else:
-                pfc = unpack_p_compact(header, data, rec.qp)
-                tu = time.perf_counter()
-                skipped = int(pfc.skip.sum())
-                au = pack_slice_p_fast(pfc, self.params, frame_num=rec.frame_num)
-                mode = "coeff"
-        t2 = time.perf_counter()
-        fetch_ms = (t1 - t_ready) * 1e3
+    def flush(self) -> list:
+        """Complete every frame in flight, oldest first."""
+        self._flush_batch()
+        out = []
+        while self._inflight:
+            out.append(self._emit(self._inflight.popleft()))
+        return out
+
+    def _emit(self, rec: _Pending):
+        """Resolve one frame (waiting on its worker if needed)."""
+        if rec.kind == "static":
+            stats = FrameStats(
+                frame_index=rec.frame_index, idr=False, qp=rec.qp, bytes=len(rec.au),
+                device_ms=(rec.t1 - rec.t0) * 1e3, pack_ms=0.0,
+                skipped_mbs=self._mbh * self._mbw, upload_kind="static",
+                upload_ms=rec.up_ms, classify_ms=rec.classify_ms)
+            self.last_stats = stats
+            return rec.au, stats, rec.meta
+        try:
+            res = rec.future.result()
+            if rec.batch_slot >= 0:
+                res = res[rec.batch_slot]
+        except Exception:
+            # the decoder never gets this frame: encoding successors against
+            # its recon would desync it, so force an IDR and drop the pipeline
+            self._ref = self._src = None
+            self._inflight.clear()
+            self._batch_pend.clear()
+            self._reset_tile_cache()
+            raise
+        au, skipped, t1, tu, t2, mode, step_ms, fetch_ms = res
         delta = rec.kind == "pd"
         dirty = rec.n_up + rec.n_remap
         stats = FrameStats(
@@ -874,16 +1319,92 @@ class TorchH264Encoder:
             downlink_mode=mode, upload_kind="delta" if delta else "full",
             dirty_frac=min(1.0, dirty / self._ntiles) if delta else 1.0,
             remap_frac=rec.n_remap / dirty if delta and dirty else 0.0)
-        return au, stats
+        self.last_stats = stats
+        return au, stats, rec.meta
 
-    def flush(self) -> list:
-        """Nothing is ever in flight (depth 0)."""
-        return []
+    # -- completion (worker threads) --
+
+    def _complete_sparse_p(self, fused, full_d, dense_d, buf_d, rec: _Pending):
+        """One delta frame's fetched sparse prefix -> (au, skipped_mbs,
+        t_start, t_unpacked, t_done, mode). ``full_d`` is the frame's whole
+        fused buffer for a shortfall refetch."""
+        t1 = time.perf_counter()
+        au, skipped, tu, mode = complete_sparse_slice(
+            fused, mbh=self._mbh, mbw=self._mbw, nscap=self._nscap,
+            cap_rows=self._cap_delta, qp=rec.qp, frame_num=rec.frame_num,
+            params=self.params, packed=self._density is not None,
+            full_d=full_d, buf_d=buf_d, dense_d=dense_d, link_bytes=self.link_bytes,
+            prefix_bytes=fused.nbytes, note_need=self._note_need, ltr_ref=rec.ltr_ref,
+            mark_ltr=rec.mark_ltr, mmco_evict=rec.mmco_evict)
+        return au, skipped, t1, tu, time.perf_counter(), mode
+
+    def _complete_batch(self, recs, fetch: _Fetch, rows_d, denses_d, bufs_d):
+        """A group's completion: one fetch of the stacked prefixes, then each
+        frame's unpack and pack fanned out over the pack pool (the slices
+        are independent and the native packer releases the GIL). Results in
+        slot order."""
+        prefixes, step_ms, fetch_ms = fetch.wait(recs[0].t_disp)
+        args = [(prefixes[k], rows_d[k], denses_d[k], bufs_d[k], rec)
+                for k, rec in enumerate(recs)]
+        if self._pack_pool is not None and len(recs) > 1:
+            futs = [self._pack_pool.submit(self._complete_sparse_p, *a) for a in args]
+            results = [f.result() for f in futs]
+        else:
+            results = [self._complete_sparse_p(*a) for a in args]
+        self._update_pfx_hint()
+        return [(*r, step_ms, fetch_ms) for r in results]
+
+    def _complete_work(self, rec: _Pending):
+        """One dispatched frame's completion: wait for its downlink copy,
+        unpack and pack. -> (au, skipped_mbs, t_start, t_unpacked, t_done,
+        mode, step_ms, fetch_ms)."""
+        fused, step_ms, fetch_ms = rec.fetch.wait(rec.t_disp or rec.t0)
+        if rec.kind == "pd":
+            out = self._complete_sparse_p(fused, rec.prefix_d, rec.hdr_d, rec.buf_d, rec)
+            self._update_pfx_hint()
+            return (*out, step_ms, fetch_ms)
+        self.link_bytes.add("down_prefix", fused.nbytes)
+        header, data, n = split_prefix(
+            fused, self._hdr_words_i if rec.kind == "i" else self._hdr_words_p)
+        if n > CAP_ROWS:  # rows spilled past the prefix
+            rest = fetch_rest(rec.buf_d, n, CAP_ROWS)
+            self.link_bytes.add("down_spill", rest.nbytes)
+            data = np.concatenate([data, rest])
+        t1 = time.perf_counter()
+        skipped = 0
+        if rec.kind == "i":
+            fc = unpack_i_compact(header, data, rec.qp)
+            tu = time.perf_counter()
+            au = self._headers + pack_slice_fast(fc, self.params, frame_num=0, idr=True,
+                                                 idr_pic_id=rec.idr_pic_id)
+            mode = ""
+        else:
+            pfc = unpack_p_compact(header, data, rec.qp)
+            tu = time.perf_counter()
+            skipped = int(pfc.skip.sum())
+            au = pack_slice_p_fast(pfc, self.params, frame_num=rec.frame_num,
+                                   ltr_ref=rec.ltr_ref, mark_ltr=rec.mark_ltr,
+                                   mmco_evict=rec.mmco_evict)
+            mode = "coeff"
+        return au, skipped, t1, tu, time.perf_counter(), mode, step_ms, fetch_ms
 
     def encode_frame(self, frame: np.ndarray, qp: int | None = None) -> bytes:
         """Synchronous encode: complete Annex-B access unit out (SPS/PPS
-        prepended on IDR)."""
-        return self.submit(frame, qp)[-1][0]
+        prepended on IDR). Refused while frames are in flight: their AUs
+        would be lost, a frame_num gap the decoder sees."""
+        if self._inflight:
+            raise RuntimeError("encode_frame() called with frames in flight; use flush() first")
+        outs = self.submit(frame, qp)
+        outs.extend(self.flush())
+        return outs[-1][0]
+
+    def close(self) -> None:
+        """Discard the frames in flight and stop the completion workers."""
+        self._inflight.clear()
+        self._batch_pend.clear()
+        self._workers.shutdown(wait=False, cancel_futures=True)
+        if self._pack_pool is not None:
+            self._pack_pool.shutdown(wait=False, cancel_futures=True)
 
     def recon_planes(self, frame: np.ndarray):
         """Debug helper: (recon_y, recon_u, recon_v) of an IDR encode of

@@ -10,6 +10,8 @@ is no quiet fallback to the Python packer.
 ``calls`` counts native packer calls, so a run can show that the native
 packer (and not the Python oracle) packed its slices; ``sparse_calls``
 counts the sparse-wire P packer (``pack_slice_p_sparse_native``) alone.
+The encoder's completion workers pack on several threads at once (ctypes
+releases the GIL), so the counts advance under a lock.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ sparse_calls = 0  # pack_slice_p_sparse_native packs
 _lib: ctypes.CDLL | None = None
 _build: BuildResult | None = None
 _load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 _I16P = ctypes.POINTER(ctypes.c_int16)
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -94,6 +97,14 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
+def _count(sparse: bool = False) -> None:
+    global calls, sparse_calls
+    with _count_lock:
+        calls += 1
+        if sparse:
+            sparse_calls += 1
+
+
 def _ptr(a: np.ndarray, ptype):
     return a.ctypes.data_as(ptype)
 
@@ -141,7 +152,6 @@ def pack_slice_fast(fc: FrameCoeffs, p: StreamParams, frame_num: int = 0,
                     idr: bool = True, idr_pic_id: int = 0, first_mb: int = 0) -> bytes:
     """I slice NAL; byte-identical to cavlc.pack_slice (the JAX package's
     ``native.pack_slice_fast`` signature; the port always packs natively)."""
-    global calls
     lib = _load()
     mbh, mbw = fc.luma_mode.shape
     hdr = BitWriter()
@@ -163,7 +173,7 @@ def pack_slice_fast(fc: FrameCoeffs, p: StreamParams, frame_num: int = 0,
         cap *= 2  # pathological content; retry with more room
         if cap > (1 << 30):
             raise RuntimeError("pack_slice_rbsp overflow beyond 1 GiB")
-    calls += 1
+    _count()
     return _finish_nal(s["rbsp"], n, NAL_SLICE_IDR if idr else NAL_SLICE_NON_IDR)
 
 
@@ -172,7 +182,6 @@ def pack_slice_p_fast(fc: PFrameCoeffs, p: StreamParams, frame_num: int,
                       mmco_evict: tuple = (), first_mb: int = 0) -> bytes:
     """P slice NAL; byte-identical to cavlc.pack_slice_p (the JAX package's
     ``native.pack_slice_p_fast`` signature)."""
-    global calls
     lib = _load()
     mbh, mbw = fc.skip.shape
     hdr = BitWriter()
@@ -198,7 +207,7 @@ def pack_slice_p_fast(fc: PFrameCoeffs, p: StreamParams, frame_num: int,
         cap *= 2
         if cap > (1 << 30):
             raise RuntimeError("pack_slice_p_rbsp overflow beyond 1 GiB")
-    calls += 1
+    _count()
     return _finish_nal(s["rbsp"], n, NAL_SLICE_NON_IDR)
 
 
@@ -208,7 +217,6 @@ def pack_slice_p_sparse_native(wire, p: StreamParams, frame_num: int, qp: int,
     """P slice NAL straight from the sparse downlink's wire views
     (``compact.SparsePWire``): no dense scatter, no PFrameCoeffs.
     Byte-identical to cavlc.pack_slice_p fed the unpacked frame."""
-    global calls, sparse_calls
     lib = _load()
     mbh, mbw = wire.mbh, wire.mbw
     hdr = BitWriter()
@@ -237,6 +245,5 @@ def pack_slice_p_sparse_native(wire, p: StreamParams, frame_num: int, qp: int,
         cap *= 2
         if cap > (1 << 30):
             raise RuntimeError("pack_slice_p_sparse_rbsp overflow beyond 1 GiB")
-    calls += 1
-    sparse_calls += 1
+    _count(sparse=True)
     return _finish_nal(s["rbsp"], n, NAL_SLICE_NON_IDR)

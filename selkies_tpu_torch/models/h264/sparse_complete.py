@@ -14,7 +14,10 @@ frame's fused sparse downlink is finished in four steps:
      (``unpack_p_sparse_*``, with the dense-header fallback fetch) and
      pack with the native dense packer.
 
-Device buffers are torch tensors; each fetch is one ``.cpu()`` copy.
+Device buffers are torch tensors. The prefix arrives already fetched;
+each refetch, spill or dense-fallback fetch here is one blocking
+``.cpu()`` copy, which on the card also waits for the steps queued
+since (correct, only slower; these fetches are rare).
 """
 
 from __future__ import annotations
@@ -73,6 +76,9 @@ def complete_sparse_slice(
     prefix_bytes: int = 0,
     note_need: Callable[[int], None] | None = None,
     native_wire: bool = True,
+    ltr_ref: int | None = None,
+    mark_ltr: int | None = None,
+    mmco_evict: tuple = (),
 ) -> tuple[bytes, int, float, str]:
     """One P slice's fetched sparse prefix -> (nal, skipped_mbs,
     t_unpacked, downlink_mode).
@@ -81,7 +87,8 @@ def complete_sparse_slice(
     ``buf_d`` the row buffer (spill), ``dense_d`` the dense header (the
     ns > nscap fallback). ``prefix_bytes`` is the size of the fetched
     prefix, counted as ``down_prefix``. ``downlink_mode`` is "coeff", or
-    "dense" when the dense-header fallback ran."""
+    "dense" when the dense-header fallback ran. ``ltr_ref``, ``mark_ltr``
+    and ``mmco_evict`` go to the slice header (the LTR scene cache)."""
     if link_bytes is not None and prefix_bytes:
         link_bytes.add("down_prefix", prefix_bytes)
     mode = "coeff"
@@ -114,9 +121,11 @@ def complete_sparse_slice(
             mode = "dense"
     t_unpacked = time.perf_counter()
     if wire is not None:
-        nal = pack_slice_p_sparse_native(wire, params, frame_num, qp)
+        nal = pack_slice_p_sparse_native(wire, params, frame_num, qp, ltr_ref=ltr_ref,
+                                         mark_ltr=mark_ltr, mmco_evict=mmco_evict)
         skipped = mbh * mbw - wire.ns
     else:
-        nal = pack_slice_p_fast(pfc, params, frame_num=frame_num)
+        nal = pack_slice_p_fast(pfc, params, frame_num=frame_num, ltr_ref=ltr_ref,
+                                mark_ltr=mark_ltr, mmco_evict=mmco_evict)
         skipped = int(pfc.skip.sum())
     return nal, skipped, t_unpacked, mode

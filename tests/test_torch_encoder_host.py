@@ -11,6 +11,7 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 from selkies_tpu.models.h264.encoder import TPUH264Encoder
 from selkies_tpu_torch.models.h264 import native
@@ -25,8 +26,15 @@ def _pin_env(monkeypatch):
     for k in ("SELKIES_TILE_CACHE", "SELKIES_PACK_DENSITY", "SELKIES_BANDS",
               "SELKIES_FRONTEND_WORKERS", "SELKIES_PARALLEL_FRONTEND",
               "SELKIES_DAMAGE_FULL_SCAN", "SELKIES_ENTROPY_CODER", "SELKIES_DEVICE_ENTROPY",
-              "SELKIES_BITS_MIN_MBS", "SELKIES_SPARSE_NATIVE"):
+              "SELKIES_BITS_MIN_MBS", "SELKIES_SPARSE_NATIVE", "SELKIES_PACK_WORKERS"):
         monkeypatch.delenv(k, raising=False)
+    # one torch intra-op thread: the encoder issues many small CPU ops, and
+    # under pytest-xdist several workers' OpenMP teams spin-wait against
+    # each other for the same cores (the integer results do not change)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _jax_encoder(w=W, h=H, **kw):
@@ -38,7 +46,10 @@ def _jax_encoder(w=W, h=H, **kw):
 
 
 def _port_encoder(w=W, h=H, **kw):
-    return TorchH264Encoder(w, h, scene_qp_boost=BOOST, device="cpu", **kw)
+    """The port at depth 0, ungrouped, LTR off: each submit returns its frame."""
+    cfg = dict(frame_batch=1, pipeline_depth=0, ltr_scenes=False)
+    cfg.update(kw)
+    return TorchH264Encoder(w, h, scene_qp_boost=BOOST, device="cpu", **cfg)
 
 
 def host_trace(w=W, h=H, seed=1):
@@ -231,9 +242,7 @@ def test_load_jax_state_continues_a_host_stream():
     assert [r[1] for r in got][0] == "delta" and got[0][6] == 1.0
 
 
-@pytest.mark.parametrize("knob", [
-    {"frame_batch": 4}, {"pipeline_depth": 2}, {"ltr_scenes": True},
-    {"device_entropy": True}, {"entropy_coder": "cabac"}])
+@pytest.mark.parametrize("knob", [{"device_entropy": True}, {"entropy_coder": "cabac"}])
 def test_unsupported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         TorchH264Encoder(W, H, device="cpu", **knob)
@@ -248,3 +257,17 @@ def test_env_defaults_match_jax(monkeypatch):
     enc = TorchH264Encoder(W, H, device="cpu", tile_cache=16)
     assert enc.tile_cache_slots == 16 and enc._density is None
     assert TorchH264Encoder(W, H, device="cpu", pack_density=60)._density is None
+
+
+def test_forced_idr_on_a_scene_cut_matches_jax():
+    """A keyframe forced on a full-frame change after a delta: the QP is
+    boosted, and FrameStats.scene_cut is False on the IDR, as in the JAX
+    encoder (only P frames carry the scene-cut flag)."""
+    trace = host_trace(seed=8)
+    trace = trace[:3] + [(trace[3][0], "idr", None, "")] + trace[4:6]
+    jax_enc = _jax_encoder()
+    want = _drive(jax_enc, trace)
+    jax_enc.close()
+    got = _drive(_port_encoder(), trace)
+    assert got == want
+    assert got[3][2] and got[3][3] == 28 + BOOST and not got[3][4]

@@ -294,7 +294,8 @@ def test_host_encoder_cuda_matches_cpu_at_1080p():
     trace = _host_trace_1080p()
 
     def drive(dev):
-        enc = TorchH264Encoder(1920, 1080, scene_qp_boost=6, device=dev)
+        enc = TorchH264Encoder(1920, 1080, scene_qp_boost=6, frame_batch=1, pipeline_depth=0,
+                               ltr_scenes=False, device=dev)
         out = []
         for frame, op in trace:
             if op == "idr":
@@ -313,3 +314,41 @@ def test_host_encoder_cuda_matches_cpu_at_1080p():
     assert got[0][5][3] == 1.0 and 0.0 < got[0][7][3] < 1.0
     assert launched == 5  # the non-static P frames
     assert packed >= 1  # the sparse-wire packer (a dense fallback skips it)
+
+
+@pytest.mark.gpu
+def test_registry_row_cuda_matches_cpu_at_1080p():
+    """The registry row (groups of 4, pipeline depth 2, the LTR scene cache)
+    on the card against the CPU, AU by AU: IDR, four typing deltas (one
+    group), a window switch, a typed line in the window, the switch back
+    (an LTR restore)."""
+    _need_card()
+    trace = _host_trace_1080p()
+    a, win = trace[0][0], trace[3][0]
+    rng = np.random.default_rng(12)
+    lines = [a]
+    for k in range(4):
+        f = lines[-1].copy()
+        f[600 + 16 * k:616 + 16 * k, 200:600, :3] = rng.integers(0, 255, (16, 400, 3), np.uint8)
+        lines.append(f)
+    win_typed = win.copy()
+    win_typed[400:416, 500:900, :3] = rng.integers(0, 255, (16, 400, 3), np.uint8)
+    frames = lines + [win, win_typed, lines[-1]]
+
+    def drive(dev):
+        enc = TorchH264Encoder(1920, 1080, scene_qp_boost=6, device=dev)
+        outs = []
+        for i, f in enumerate(frames):
+            outs += enc.submit(f, meta=i)
+        outs += enc.flush()
+        enc.close()
+        assert [m for *_, m in outs] == list(range(len(frames)))
+        return ([(hashlib.sha256(au).hexdigest(), st.upload_kind, st.idr) for au, st, _ in outs],
+                enc.ltr_restores, dict(enc.group_sizes))
+
+    before = me_mc.launches
+    got = drive("cuda")
+    launched = me_mc.launches - before
+    assert got == drive("cpu")
+    assert got[1] == 1 and got[2].get(4) == 1
+    assert launched == sum(1 for _, kind, idr in got[0] if not idr and kind != "static")
