@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-6 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-7 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -48,7 +48,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    with ltr_restores >= 2, a group of 4 and one of 2 dispatched, K1 launched
    once per non-static P frame, the native sparse packer run and the up_*
    link bytes equal to the CPU run's;
-7. time the kernel with CUDA events over 50 launches queued behind a spin
+7. the entropy plane at 1920x1080, qp 28, on the card, over a short seeded
+   trace (IDR, a quiet typed line, a scene cut, two busy window scrolls, an
+   LTR restore, a static frame, an entropy retune before a static frame and
+   a typed line): (a) the registry row with device_entropy=True,
+   bits_min_mbs=64 must give the registry row's own CAVLC AUs; (c) the row
+   with entropy_coder="cabac", device_entropy=True must give (b)'s, the row
+   with the host CABAC coder; (b) and (d), the device-conversion path with
+   CABAC, must equal their CPU runs; the busy frames ship "bits" in (a) and
+   "cabac" in (c), the quiet one "coeff"; the retune to CAVLC forces an IDR
+   in (b) and (c); K1 launched once per non-static P frame in every card
+   run and the native CABAC engine ran;
+8. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
    host-conversion encoder's median FrameStats split per frame kind
@@ -59,8 +70,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    turns, twice each): frames per second, median
    and p95 latency from a frame's submit() call to the return of the call
    that hands back its AU, the FrameStats split, and the device idle share
-   over 8 grouped typing deltas;
-8. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   over 8 grouped typing deltas; for each coder with device entropy off
+   and on, the FrameStats split and down bytes of 1080p full-P and
+   window-scroll delta frames, the device-entropy downlink alone by CUDA
+   events at the top bucket and at the smallest bucket that holds the
+   frame, and the device op count and idle share of those frames
+   (torch.profiler);
+9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -400,6 +416,164 @@ def _time_typing(cfg: dict, frames, warm: int) -> dict:
     return out
 
 
+def _overlay(base, lift: int = 24):
+    """``base`` under a dialog backdrop that lightens a 1280x432 region by
+    ``lift``: 270 dirty tiles, over the delta budget, so a full P frame
+    whose coded slice stays within the token cap."""
+    w = base.copy()
+    w[224:656, 320:1600, :3] = np.clip(base[224:656, 320:1600, :3].astype(np.int16) + lift,
+                                       0, 255).astype(np.uint8)
+    return w
+
+
+def _scroll_window(frame, rng):
+    """The backdrop region of ``frame`` scrolled up 16 rows, a new row of
+    16x16 blocks at its bottom."""
+    s = frame.copy()
+    s[224:640, 320:1600] = frame[240:656, 320:1600]
+    s[640:656, 320:1600] = np.kron(rng.integers(30, 250, (1, 80, 4), np.uint8),
+                                   np.ones((16, 16, 1), np.uint8))
+    return s
+
+
+def _block_wallpaper(rng):
+    """A 1080p wallpaper of flat 16x16 blocks: its IDR leaves no
+    quantisation tail for the next P frames to re-code."""
+    return np.kron(rng.integers(30, 220, (68, 120, 4), np.uint8), np.ones((16, 16, 1), np.uint8))[:H]
+
+
+def _entropy_trace():
+    """-> [(frame, op)], 10 frames at 1080p: desktop A (IDR), two typed
+    lines (quiet deltas), a dialog backdrop over A (a full-P scene cut),
+    two 16-row scrolls of the backdrop region (busy deltas), back to the
+    typed A (an LTR restore), a static frame, then ("switch": flush and
+    retune the entropy knobs first) the static screen again and a third
+    typed line."""
+    rng = np.random.default_rng(2031)
+    a = _block_wallpaper(rng)
+    a1 = _type(a, rng, 304, 208)  # MB-aligned lines of 25 MBs
+    a2 = _type(a1, rng, 352, 208)
+    scrolls = [_overlay(a2)]
+    for _ in range(2):
+        scrolls.append(_scroll_window(scrolls[-1], rng))
+    return [(a, None), (a1, None), (a2, None), (scrolls[0], None), (scrolls[1], None),
+            (scrolls[2], None), (a2, None), (a2.copy(), None), (a2.copy(), "switch"),
+            (_type(a2, rng, 400, 208), None)]
+
+
+def _drive_entropy(enc, trace, switch: dict):
+    """Every AU of the trace, collected across submit() and flush(); before
+    a "switch" frame the encoder is flushed and ``retune_entropy(**switch)``
+    called. -> ([(sha256, FrameStats)] in frame order, the retune's answer,
+    K1 launches, LTR restores)."""
+    from selkies_tpu_torch.models.h264 import me_mc
+
+    me_mc.launches = 0
+    outs, answer = [], None
+    for i, (frame, op) in enumerate(trace):
+        if op == "switch":
+            outs += enc.flush()
+            answer = enc.retune_entropy(**switch)
+        outs += enc.submit(frame, meta=i)
+    outs += enc.flush()
+    launches = me_mc.launches
+    enc.close()
+    if [m for *_, m in outs] != list(range(len(trace))):
+        _fail(f"entropy path returned frames {[m for *_, m in outs]}")
+    if not all(au.startswith(b"\x00\x00\x00\x01") for au, *_ in outs):
+        _fail("entropy path: an access unit is not Annex-B")
+    rows = [(hashlib.sha256(au).hexdigest(), st) for au, st, _ in outs]
+    p = sum(1 for _, st in rows if not st.idr and st.upload_kind != "static")
+    if enc.device.type == "cuda" and launches != p:  # the CPU runs the plain version
+        _fail(f"me_mc launched {launches} times for {p} non-static P frames (entropy path)")
+    return rows, answer, launches, enc.ltr_restores
+
+
+def _entropy_timing_frames(rounds: int):
+    """A block wallpaper (a cheap IDR), then per round a dialog backdrop
+    over it, lightening and darkening in turn (a full P frame), and its
+    region scrolled by 16 rows with a new row of blocks (a delta with
+    remaps and a busy slice)."""
+    rng = np.random.default_rng(2040)
+    a = _block_wallpaper(rng)
+    trace = [(a, None, None, "")]
+    for r in range(rounds):
+        win = _overlay(a, (24 + 8 * r) * (-1) ** r)  # a new backdrop every round
+        trace += [(win, None, None, ""), (_scroll_window(win, rng), None, None, "")]
+    return trace
+
+
+def _time_entropy(coder: str, device_entropy: bool, rounds: int = 3) -> dict:
+    """Median FrameStats split and down bytes of the full-P and scroll-delta
+    frames of ``_entropy_timing_frames`` (the first round warms up) on a
+    flat encoder of this coder and device-entropy setting, and the device
+    busy and idle share of two more rounds under torch.profiler."""
+    from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
+
+    trace = _entropy_timing_frames(rounds + 2)
+    enc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda", frame_batch=1,
+                           pipeline_depth=0, ltr_scenes=False, entropy_coder=coder,
+                           device_entropy=device_entropy, bits_min_mbs=64)
+    rows = _drive_host(enc, trace[:1 + 2 * rounds])[3:]
+    out = {}
+    for kind_name in ("full", "delta"):
+        sel = [r for r in rows if r[1].upload_kind == kind_name]
+        if not sel:
+            _fail(f"entropy timing {coder} {device_entropy}: kinds "
+                  f"{[r[1].upload_kind for r in rows]}")
+        med = {k: statistics.median(getattr(r[1], k) for r in sel) for k in (
+            "step_ms", "fetch_ms", "unpack_ms", "cavlc_ms", "pack_ms", "device_ms", "bytes")}
+        med["down_bytes"] = statistics.median(r[4] for r in sel)
+        med["downlink_mode"] = sorted({r[1].downlink_mode for r in sel})
+        med["frames"] = len(sel)
+        out[kind_name] = med
+    tail = trace[1 + 2 * rounds:]
+    out["profile"] = _profile_frames(enc, [], False, len(tail), feed=lambda i: tail[i][0])
+    enc.close()
+    return out
+
+
+def _time_entropy_downlink(dev) -> dict:
+    """The device-entropy delta downlink alone (CUDA events, the host
+    issuing the calls): ``pack_p_sparse_entropy`` with the encoder's
+    consts at the top bucket, and each coder at the smallest bucket that
+    holds the frame, on the encode outputs of a 1080p window scroll (a busy
+    delta) and of a new window (a full-P frame)."""
+    import torch
+    from selkies_tpu_torch.models.h264 import encoder as enc_mod
+    from selkies_tpu_torch.models.h264.device_cabac import pack_p_slice_tokens_active
+    from selkies_tpu_torch.models.h264.device_cavlc import (
+        bits_buckets, pack_p_slice_bits_active, resolve_entropy)
+    from selkies_tpu_torch.models.h264.encoder_core import (
+        encode_frame_p_planes, pack_p_sparse_entropy, pack_p_sparse_packed)
+
+    trace = _entropy_timing_frames(1)
+    a, win, scrolled = (enc_mod._convert_pad(torch.from_numpy(f).to(dev), pad_h=1088,
+                                             pad_w=W, channels=4) for f, *_ in trace)
+    m = 68 * 120
+    res = {}
+    for name, cur, ref in (("scroll_delta", scrolled, win), ("full_p", win, a)):
+        out = encode_frame_p_planes(*cur, *ref, 28)
+        ns = int((~out["skip"]).sum())
+        small = next(b for b in bits_buckets(m) if b >= ns)
+        row = {"coded_mbs": ns, "smallest_bucket": small, "top_bucket": m}
+        row["sparse_packed_ms"] = _time_cuda(
+            lambda: pack_p_sparse_packed(out, enc_mod.NSCAP, enc_mod.CAP_ROWS_DELTA, 75),
+            iters=10)
+        for coder, fn in (("cavlc", pack_p_slice_bits_active),
+                          ("cabac", pack_p_slice_tokens_active)):
+            _, _, words, consts = resolve_entropy(m, True, 64, coder)
+            row[f"{coder}_downlink_top_ms"] = _time_cuda(
+                lambda: pack_p_sparse_entropy(out, enc_mod.NSCAP, enc_mod.CAP_ROWS_DELTA, 75,
+                                              *consts), iters=10)
+            row[f"{coder}_coder_top_ms"] = _time_cuda(
+                lambda: fn(out, words, consts[2]), iters=10)
+            row[f"{coder}_coder_smallest_ms"] = _time_cuda(
+                lambda: fn(out, words, consts[2], bucket=small), iters=10)
+        res[name] = row
+    return res
+
+
 def _time_cuda(fn, iters: int, warmup: int = 3, hold: bool = False) -> float:
     """Milliseconds per call by CUDA events around ``iters`` calls. With
     ``hold`` the stream first runs a ~10 ms spin kernel, so the host queues
@@ -681,12 +855,79 @@ def main() -> int:
         "bytes": [st.bytes for _, st in rgpu], "qp": [st.qp for _, st in rgpu],
         "sha256": [g for g, _ in rgpu], "cuda_s": reg_s, "flat_cuda_s": flat_s,
         "cpu_s": rcpu_s}
-    print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s")
+
+    # -- 7. the entropy plane: device CAVLC, host CABAC, device CABAC tokens
+    etrace = _entropy_trace()
+    de = dict(device_entropy=True, bits_min_mbs=64)
+    t0 = time.perf_counter()
+    native.cabac_calls = 0
+
+    def row_enc(dev, **kw):
+        return TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device=dev, **kw)
+
+    ref_rows, ref_ans, ref_k1, ref_ltr = _drive_entropy(row_enc("cuda"), etrace, {"device_entropy": False})
+    a_rows, a_ans, a_k1, a_ltr = _drive_entropy(row_enc("cuda", **de), etrace, {"device_entropy": False})
+    b_rows, b_ans, b_k1, b_ltr = _drive_entropy(row_enc("cuda", entropy_coder="cabac"), etrace,
+                                         {"entropy_coder": "cavlc"})
+    c_rows, c_ans, c_k1, c_ltr = _drive_entropy(row_enc("cuda", entropy_coder="cabac", **de), etrace,
+                                         {"entropy_coder": "cavlc"})
+    dtrace = etrace[:2] + etrace[3:5] + etrace[8:9]  # ends with the (refused) switch
+    flat_d = dict(flat, host_convert=False, entropy_coder="cabac")
+    d_rows, d_ans, d_k1, d_ltr = _drive_entropy(row_enc("cuda", **flat_d), dtrace,
+                                         {"entropy_coder": "cavlc"})
+    cabac_engine = native.cabac_calls
+    ent_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b_cpu, *_ = _drive_entropy(row_enc("cpu", entropy_coder="cabac"), etrace,
+                                 {"entropy_coder": "cavlc"})
+    d_cpu, *_ = _drive_entropy(row_enc("cpu", **flat_d), dtrace, {"entropy_coder": "cavlc"})
+    ent_cpu_s = time.perf_counter() - t0
+    shas = {k: [h for h, _ in r] for k, r in (("ref", ref_rows), ("a", a_rows), ("b", b_rows),
+                                              ("c", c_rows), ("d", d_rows), ("b_cpu", b_cpu),
+                                              ("d_cpu", d_cpu))}
+    for x, y in (("a", "ref"), ("c", "b"), ("b", "b_cpu"), ("d", "d_cpu")):
+        bad = [i for i, (p, q) in enumerate(zip(shas[x], shas[y])) if p != q]
+        if bad or len(shas[x]) != len(shas[y]):
+            _fail(f"entropy path: ({x}) AUs differ from ({y}) at frames {bad}")
+    modes = {k: [st.downlink_mode for _, st in r] for k, r in (
+        ("a", a_rows), ("b", b_rows), ("c", c_rows), ("d", d_rows))}
+    # frames 1 and 2 are the quiet typed lines; 3 the scene cut, 4 and 5
+    # the busy scrolls
+    for k, coded in (("a", "bits"), ("c", "cabac"), ("b", "coeff")):
+        if modes[k][1:3] != ["coeff"] * 2 or modes[k][3:6] != [coded] * 3:
+            _fail(f"entropy path ({k}): downlink modes {modes[k]}")
+    if (a_ans, ref_ans, b_ans, c_ans, d_ans) != (True, False, True, True, False):
+        _fail(f"retune answers a {a_ans} ref {ref_ans} b {b_ans} c {c_ans} d {d_ans}")
+    if not (b_rows[8][1].idr and c_rows[8][1].idr) or a_rows[8][1].idr:
+        _fail("the coder switch must force an IDR in (b) and (c), and nothing in (a)")
+    if cabac_engine <= 0:
+        _fail("the native CABAC engine never ran")
+    if min(ref_ltr, a_ltr, b_ltr, c_ltr) < 1:
+        _fail(f"entropy path: LTR restores ref {ref_ltr} a {a_ltr} b {b_ltr} c {c_ltr}")
+    idr_pack = {"cabac_host_ms": b_rows[0][1].pack_ms, "cavlc_ms": ref_rows[0][1].pack_ms,
+                "cabac_bytes": b_rows[0][1].bytes, "cavlc_bytes": ref_rows[0][1].bytes}
+    ekinds = "".join("I" if st.idr else {"static": "S", "full": "F", "delta": "D"}[st.upload_kind]
+                     for _, st in a_rows)
+    print(f"entropy path 1920x1080 (registry row; {len(etrace)} frames {ekinds}): (a) device "
+          f"CAVLC AUs equal the row's own CAVLC AUs, (c) device CABAC tokens equal (b) host "
+          f"CABAC, (b) and (d) device conversion CABAC equal their cpu runs; modes "
+          f"{json.dumps(modes)}; me_mc launches a {a_k1} b {b_k1} c {c_k1} d {d_k1} ref {ref_k1} "
+          f"(= non-static P frames); native CABAC engine runs {cabac_engine}; ltr_restores "
+          f"{[ref_ltr, a_ltr, b_ltr, c_ltr]}; IDR pack {json.dumps(idr_pack)}; bytes cavlc "
+          f"{[st.bytes for _, st in a_rows]} cabac {[st.bytes for _, st in c_rows]}; cuda runs "
+          f"{ent_s:.2f} s, cpu runs {ent_cpu_s:.2f} s")
+    record["entropy_path"] = {
+        "kinds": ekinds, "modes": modes, "sha256": shas, "idr_pack": idr_pack,
+        "me_mc_launches": {"a": a_k1, "b": b_k1, "c": c_k1, "d": d_k1, "ref": ref_k1},
+        "cabac_engine_runs": cabac_engine, "bytes": {
+            k: [st.bytes for _, st in r] for k, r in (("a", a_rows), ("c", c_rows))},
+        "cuda_s": ent_s, "cpu_s": ent_cpu_s}
+    print(f"phases 1-7: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
-    # -- 6. timing
+    # -- 8. timing
     args = _me_inputs(cases["uniform"], dev)
     ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50, hold=True)
     issued_ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50)
@@ -771,6 +1012,22 @@ def main() -> int:
     print(f"profile of 8 grouped typing deltas, registry row ({card}, {power_limit}): "
           + json.dumps(prof_reg))
 
+    # the entropy plane: per coder, device entropy off and on
+    ent_t = {f"{coder}_{'device' if on else 'host'}": _time_entropy(coder, on)
+             for coder in ("cavlc", "cabac") for on in (False, True)}
+    ent_t["downlink"] = _time_entropy_downlink(dev)
+    # an IDR of the phase-5 desktop (a wallpaper dotted with glyph noise):
+    # the host coders' pack time, CABAC (Python per MB) against CAVLC (C++)
+    noisy = _host_frames(2027)[0]
+    for coder in ("cavlc", "cabac"):
+        ienc = TorchH264Encoder(W, H, qp=28, device="cuda", entropy_coder=coder, **flat_host)
+        (_, st, _), = ienc.submit(noisy)
+        ienc.close()
+        ent_t[f"idr_{coder}"] = {k: getattr(st, k) for k in (
+            "step_ms", "unpack_ms", "cavlc_ms", "pack_ms", "bytes")}
+    record["entropy_timing"] = ent_t
+    print(f"entropy plane at 1080p ({card}, {power_limit}): " + json.dumps(ent_t))
+
     kernels = [{
         "name": "me_mc", "route": "cuda", "source": "selkies_tpu_torch/csrc/me_mc.cu",
         "replaces": me_mc.REPLACES, "launches": launches, "max_abs_err": max_err,
@@ -785,6 +1042,8 @@ def main() -> int:
         "launches_per_p_frame_host_path": host_launches / host_p,
         "launches_registry_path": reg_launches,
         "launches_per_p_frame_registry_path": reg_launches / reg_p,
+        "launches_entropy_path": a_k1 + b_k1 + c_k1 + d_k1,
+        "launches_entropy_path_per_run": {"a": a_k1, "b": b_k1, "c": c_k1, "d": d_k1},
         "card": card, "power_limit": power_limit,
     }]
     record["kernels"] = kernels

@@ -1,8 +1,9 @@
 """Host-side unpack of the compact and sparse downlinks.
 
 Counterpart of ``selkies_tpu/models/h264/compact.py``: the dense compact
-layout (``encoder_core.pack_*_compact``) and the two sparse P layouts of
-the delta path (``pack_p_sparse_var``, ``pack_p_sparse_packed``). Scatters
+layout (``encoder_core.pack_*_compact``), the two sparse P layouts of the
+delta path (``pack_p_sparse_var``, ``pack_p_sparse_packed``) and the
+device-entropy wrapper around them (``pack_p_sparse_entropy``). Scatters
 the fetched nonzero rows back into dense coefficient arrays and wraps them
 as FrameCoeffs / PFrameCoeffs, so the CAVLC packers get exactly the arrays
 the device computed; ``p_sparse_wire_views`` instead hands the sparse
@@ -180,6 +181,33 @@ def p_sparse_packed_need(fused16: np.ndarray, mbh: int, mbw: int, nscap: int,
     held = min(n, cap_rows)
     rows_words = 16 * held if dense else held + nw
     return 12 + 2 * sw + 4 * min(ns, nscap) + rows_words, n, ns
+
+
+ENTROPY_META16 = 16  # int16 words of the pack_p_sparse_entropy meta prefix
+
+
+def p_sparse_entropy_words(mbh: int, mbw: int, nscap: int, cap_rows: int, packed: bool,
+                           bits_words: int, entropy_coder: str = "cavlc") -> int:
+    """Total int16 length of the entropy-wrapped fused buffer
+    (encoder_core.pack_p_sparse_entropy): the 8-int32 meta prefix plus a
+    payload region sized for the larger of its two modes. For CABAC the
+    token payload also holds the skip bitmap and the per-coded-MB token
+    counts ahead of the token words."""
+    coeff = (p_sparse_packed_words(mbh, mbw, nscap, cap_rows) if packed
+             else p_sparse_var_words(mbh, mbw, nscap, cap_rows))
+    m = mbh * mbw
+    sw = (m + 31) // 32
+    bits = 2 * sw + m + 2 * bits_words if entropy_coder == "cabac" else 2 * bits_words
+    return ENTROPY_META16 + max(coeff, bits)
+
+
+def p_sparse_entropy_meta(fused16: np.ndarray):
+    """(mode, nbits, trailing_skip, nskip, ns) of an entropy-wrapped fused
+    buffer. Mode 1: the payload is the slice-data bit words (CAVLC; for
+    CABAC nbits is the token count); mode 0: the unchanged sparse
+    coefficient layout starting at ENTROPY_META16."""
+    meta = np.ascontiguousarray(fused16[:ENTROPY_META16]).view(np.int32)
+    return int(meta[0]), int(meta[1]), int(meta[2]), int(meta[3]), int(meta[4])
 
 
 def _expand_packed_rows(bitmaps: np.ndarray, vals: np.ndarray) -> np.ndarray:

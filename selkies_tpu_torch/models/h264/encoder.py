@@ -1,8 +1,7 @@
 """TorchH264Encoder: frame in, Annex-B access unit out, on a CUDA card.
 
-Counterpart of ``selkies_tpu/models/h264/encoder.py``'s ``TPUH264Encoder``
-with ``entropy_coder="cavlc", device_entropy=False``, in its two
-configurations:
+Counterpart of ``selkies_tpu/models/h264/encoder.py``'s ``TPUH264Encoder``,
+in its two configurations:
 
 * **host conversion** (``host_convert=True``, the default, as the
   registry's row): BGRx->I420 on the host (``models/frameprep.py``); a
@@ -18,6 +17,14 @@ configurations:
   remembered window as a small delta against a long-term reference;
 * **device conversion** (``host_convert=False``): the whole packed frame is
   uploaded and converted on the device, with the dense compact downlink.
+
+The entropy coder is CAVLC (Baseline) or CABAC (Main, ``entropy_coder``);
+the host packs every slice unless ``device_entropy`` is on (host
+conversion only), where full P frames ship their slice bits (CAVLC,
+``device_cavlc.py``) or token stream (CABAC, ``device_cabac.py``) and each
+delta frame decides on the device whether to ship those or its sparse
+coefficients (busy frames, at least ``bits_min_mbs`` coded MBs, ship the
+coded slice). The bytes are the same either way.
 
 Both pipeline ``pipeline_depth`` device round trips: a frame's fetch and
 host pack run on a completion worker while the next frames dispatch. The
@@ -55,16 +62,30 @@ import torch
 from selkies_tpu_torch.device import resolve_device
 from selkies_tpu_torch.models.frameprep import FramePrep, delta_buckets_for, tile_width_for
 from selkies_tpu_torch.models.h264.bitstream import StreamParams, write_pps, write_sps
+from selkies_tpu_torch.models.h264.cabac import pack_slice_cabac, pack_slice_p_cabac
 from selkies_tpu_torch.models.h264.compact import (
     i_header_words,
     p_header_words,
+    p_sparse_entropy_words,
     p_sparse_packed_words,
     p_sparse_var_words,
     split_prefix,
     unpack_i_compact,
     unpack_p_compact,
 )
+from selkies_tpu_torch.models.h264.device_cabac import (
+    assemble_p_cabac_nal,
+    pack_p_slice_tokens_active,
+)
+from selkies_tpu_torch.models.h264.device_cavlc import WORD_CAP_DEFAULT as BITS_WORD_CAP
+from selkies_tpu_torch.models.h264.device_cavlc import (
+    assemble_p_nal,
+    entropy_coder_default,
+    pack_p_slice_bits_active,
+    resolve_entropy,
+)
 from selkies_tpu_torch.models.h264.encoder_core import (
+    _bitpack32,
     edge_pad,
     encode_frame_p_planes,
     encode_frame_planes,
@@ -72,6 +93,7 @@ from selkies_tpu_torch.models.h264.encoder_core import (
     last_writer,
     pack_i_compact,
     pack_p_compact,
+    pack_p_sparse_entropy,
     pack_p_sparse_packed,
     pack_p_sparse_var,
     scatter_tiles,
@@ -93,6 +115,13 @@ CAP_ROWS = 4096
 # bound the device buffer (the fetch is sized by the hint, PFX_SMALL).
 CAP_ROWS_DELTA = 4096
 NSCAP = 4096
+# Device-entropy full P frames: the prefix carries the first
+# BITS_PREFIX_WORDS words of the slice bits (a larger slice pays one more
+# fetch). CABAC's tokens are 16 bits, two per word, so its cap and prefix
+# are twice as large.
+BITS_PREFIX_WORDS = 1 << 16
+TOK_WORD_CAP = 1 << 18
+TOK_PREFIX_WORDS = 1 << 17
 
 
 def _convert_pad(frame, *, pad_h: int, pad_w: int, channels: int):
@@ -126,6 +155,37 @@ def _p_planes_step(y, u, v, qp: int, ref_y, ref_u, ref_v):
     return prefix, buf, out["recon_y"], out["recon_u"], out["recon_v"]
 
 
+def _p_bits_step(y, u, v, qp: int, ref_y, ref_u, ref_v):
+    """Full P with device CAVLC -> (prefix, bit words, dense header, rows
+    buf, recon y, u, v). prefix = [nbits, trailing_skip, nskip] ++ the first
+    BITS_PREFIX_WORDS words (int32 bit patterns); the dense header and rows
+    are the overflow fallback, fetched only when nbits > BITS_WORD_CAP*32."""
+    out = encode_frame_p_planes(y, u, v, ref_y, ref_u, ref_v, qp)
+    words, nbits, trailing, _ns = pack_p_slice_bits_active(out, BITS_WORD_CAP)
+    meta = torch.stack([nbits, trailing, out["skip"].sum(dtype=torch.int32)])
+    prefix = torch.cat([meta, words[:BITS_PREFIX_WORDS]])
+    header, buf = pack_p_compact(out)
+    return prefix, words, header, buf, out["recon_y"], out["recon_u"], out["recon_v"]
+
+
+def _p_toks_step(y, u, v, qp: int, ref_y, ref_u, ref_v):
+    """Full P with the device CABAC tokenizer -> (prefix, token words,
+    dense header, rows buf, recon y, u, v). prefix = [ntok, ns, nskip] ++
+    skip_words ++ the coded MBs' token counts (int16 pairs) ++ the first
+    TOK_PREFIX_WORDS token words; the host runs the arithmetic engine."""
+    out = encode_frame_p_planes(y, u, v, ref_y, ref_u, ref_v, qp)
+    words, ntok, counts, ns = pack_p_slice_tokens_active(out, TOK_WORD_CAP)
+    skip = out["skip"].reshape(-1)
+    cnt16 = counts.to(torch.int16)
+    if cnt16.shape[0] & 1:
+        cnt16 = torch.cat([cnt16, cnt16.new_zeros(1)])
+    meta = torch.stack([ntok, ns, skip.sum(dtype=torch.int32)])
+    prefix = torch.cat([meta, _bitpack32(skip), cnt16.view(torch.int32),
+                        words[:TOK_PREFIX_WORDS]])
+    header, buf = pack_p_compact(out)
+    return prefix, words, header, buf, out["recon_y"], out["recon_u"], out["recon_v"]
+
+
 def _i_resident_step(qp: int, sy, su, sv):
     """IDR over unchanged content (a forced keyframe on a static screen):
     no upload, encoded from the resident source planes."""
@@ -146,22 +206,28 @@ def _unpack_delta(packed, w: int):
     return yb, ub, vb, idx
 
 
-def _pack_sparse_p(out: dict, nscap: int, cap: int, density: int | None):
+def _pack_sparse_p(out: dict, nscap: int, cap: int, density: int | None, entropy=None):
     """Delta-P downlink: 16-lane rows (density None) or bit-packed rows with
-    that dense-fallback percentage."""
+    that dense-fallback percentage; ``entropy`` (bits_words, min_mbs,
+    buckets, coder) wraps either in the per-frame device-entropy decision
+    (encoder_core.pack_p_sparse_entropy)."""
+    if entropy is not None:
+        bits_words, min_mbs, buckets, coder = entropy
+        return pack_p_sparse_entropy(out, nscap, cap, density, bits_words, min_mbs, buckets,
+                                     entropy_coder=coder)
     if density is None:
         return pack_p_sparse_var(out, nscap, cap)
     return pack_p_sparse_packed(out, nscap, cap, density)
 
 
 def _p_scatter_step(packed, qp: int, sy, su, sv, ref_y, ref_u, ref_v, *, nscap: int,
-                    cap: int, tile_w: int, density: int | None = None):
+                    cap: int, tile_w: int, density: int | None = None, entropy=None):
     """Delta P without the tile cache: scatter the uploaded tiles into the
     source planes (in place), encode, pack the sparse downlink."""
     yb, ub, vb, idx = _unpack_delta(packed, tile_w)
     y, u, v = scatter_tiles(sy, su, sv, yb, ub, vb, idx, tile_w)
     out = encode_frame_p_planes(y, u, v, ref_y, ref_u, ref_v, qp)
-    prefix, dense, buf = _pack_sparse_p(out, nscap, cap, density)
+    prefix, dense, buf = _pack_sparse_p(out, nscap, cap, density, entropy)
     return prefix, dense, buf, out["recon_y"], out["recon_u"], out["recon_v"], y, u, v
 
 
@@ -244,11 +310,11 @@ def _pool_seed_step(pairs, sy, su, sv, py, pu, pv, *, tile_w: int, sbucket: int)
 
 def _p_scatter_step2(packed, qp: int, sy, su, sv, py, pu, pv, ref_y, ref_u, ref_v, *,
                      nscap: int, cap: int, tile_w: int, bucket: int, cbucket: int,
-                     density: int | None):
+                     density: int | None, entropy=None):
     y, u, v, qy, qu, qv = _apply_tiles2(sy, su, sv, py, pu, pv, packed, tile_w=tile_w,
                                         bucket=bucket, cbucket=cbucket)
     out = encode_frame_p_planes(y, u, v, ref_y, ref_u, ref_v, qp)
-    prefix, dense, buf = _pack_sparse_p(out, nscap, cap, density)
+    prefix, dense, buf = _pack_sparse_p(out, nscap, cap, density, entropy)
     return (prefix, dense, buf, out["recon_y"], out["recon_u"], out["recon_v"],
             y, u, v, qy, qu, qv)
 
@@ -261,7 +327,7 @@ def _i_scatter_step2(packed, qp: int, sy, su, sv, py, pu, pv, *, tile_w: int, bu
 
 
 def _p_scatter_multi_step(packed, qps, sy, su, sv, ref_y, ref_u, ref_v, *, nscap: int,
-                          cap: int, tile_w: int, density: int | None):
+                          cap: int, tile_w: int, density: int | None, entropy=None):
     """K delta frames in one dispatch: row k of ``packed`` (K, F) is frame
     k's tile upload, ``qps[k]`` its QP. The source planes (written in
     place) and the recon chain carry from frame k-1 to frame k, as the JAX
@@ -272,7 +338,8 @@ def _p_scatter_multi_step(packed, qps, sy, su, sv, ref_y, ref_u, ref_v, *, nscap
     y, u, v, ry, ru, rv = sy, su, sv, ref_y, ref_u, ref_v
     for pk, qp in zip(packed, qps):
         prefix, dense, buf, ry, ru, rv, y, u, v = _p_scatter_step(
-            pk, qp, y, u, v, ry, ru, rv, nscap=nscap, cap=cap, tile_w=tile_w, density=density)
+            pk, qp, y, u, v, ry, ru, rv, nscap=nscap, cap=cap, tile_w=tile_w, density=density,
+            entropy=entropy)
         outs.append((prefix, dense, buf))
     prefixes, denses, bufs = (torch.stack(t) for t in zip(*outs))
     return prefixes, denses, bufs, ry, ru, rv, y, u, v
@@ -280,7 +347,7 @@ def _p_scatter_multi_step(packed, qps, sy, su, sv, ref_y, ref_u, ref_v, *, nscap
 
 def _p_scatter_multi_step2(packed, qps, sy, su, sv, py, pu, pv, ref_y, ref_u, ref_v, *,
                            nscap: int, cap: int, tile_w: int, bucket: int, cbucket: int,
-                           density: int | None):
+                           density: int | None, entropy=None):
     """Grouped ``_p_scatter_step2``: the slot pool carries too, so frame k's
     remaps may read slots that frame k-1's uploads inserted (the host
     cache's split() ran in frame order)."""
@@ -289,7 +356,7 @@ def _p_scatter_multi_step2(packed, qps, sy, su, sv, py, pu, pv, ref_y, ref_u, re
     for pk, qp in zip(packed, qps):
         prefix, dense, buf, ry, ru, rv, y, u, v, py, pu, pv = _p_scatter_step2(
             pk, qp, y, u, v, py, pu, pv, ry, ru, rv, nscap=nscap, cap=cap, tile_w=tile_w,
-            bucket=bucket, cbucket=cbucket, density=density)
+            bucket=bucket, cbucket=cbucket, density=density, entropy=entropy)
         outs.append((prefix, dense, buf))
     prefixes, denses, bufs = (torch.stack(t) for t in zip(*outs))
     return prefixes, denses, bufs, ry, ru, rv, y, u, v, py, pu, pv
@@ -334,7 +401,9 @@ class _Fetch:
 class _Pending:
     """One frame in the encode pipeline."""
 
-    kind: str  # "static" | "i" | "p" (full P, dense downlink) | "pd" (delta P, sparse downlink)
+    # "static" | "i" | "p" (full P, dense downlink) | "pd" (delta P, sparse
+    # downlink) | "pb" (full P, device-entropy downlink)
+    kind: str
     frame_index: int
     qp: int
     frame_num: int
@@ -345,7 +414,8 @@ class _Pending:
     au: bytes | None = None  # static only
     prefix_d: object = None
     buf_d: object = None
-    hdr_d: object = None  # pd: dense header for the ns > nscap fallback
+    hdr_d: object = None  # pd: dense header for the ns > nscap fallback; pb: for the overflow
+    words_d: object = None  # pb: the whole bit / token word buffer (spill fetch)
     fetch: _Fetch | None = None  # the downlink copy, enqueued at dispatch (not grouped)
     future: object = None  # completion future (fetch + unpack + pack on a worker)
     batch_slot: int = -1  # >= 0: index into a shared group future's result list
@@ -365,21 +435,18 @@ class _Pending:
     mmco_evict: tuple = ()  # MMCO 1 differences for stale short-term frames
 
 
-def _unsupported(knob: str, item: str):
-    return NotImplementedError(
-        f"TorchH264Encoder does not support {knob} yet (ROADMAP queue 1: {item})")
-
-
 class TorchH264Encoder:
     """Stateful per-stream encoder: frame in, Annex-B access unit out.
 
     ``device=None`` means ``cuda`` and raises without a card; pass
     ``device="cpu"`` to run on the CPU. Keyword names, defaults and env
     defaults (``SELKIES_TILE_CACHE``, ``SELKIES_PACK_DENSITY``,
-    ``SELKIES_PACK_WORKERS`` and FramePrep's) are the JAX encoder's;
-    ``device_entropy=True`` and ``entropy_coder="cabac"`` raise
-    NotImplementedError. ``submit`` returns the frames that completed,
-    oldest first; ``flush`` completes the rest."""
+    ``SELKIES_PACK_WORKERS``, ``SELKIES_DEVICE_ENTROPY``,
+    ``SELKIES_BITS_MIN_MBS``, ``SELKIES_ENTROPY_CODER`` and FramePrep's) are
+    the JAX encoder's; the AUTO values resolve as on the JAX encoder's CPU
+    backend (device entropy off, CAVLC). The device-conversion path keeps
+    the coder but never device entropy. ``submit`` returns the frames that
+    completed, oldest first; ``flush`` completes the rest."""
 
     # submit() takes capture-layer damage-rect hints (FramePrep.scan)
     accepts_damage = True
@@ -390,16 +457,13 @@ class TorchH264Encoder:
     def __init__(self, width: int, height: int, qp: int = 28, fps: int = 60,
                  channels: int = 4, keyframe_interval: int = 0, host_convert: bool = True,
                  pipeline_depth: int = 2, frame_batch: int = 4, scene_qp_boost: int = 0,
-                 device_entropy: bool = False, entropy_coder: str = "cavlc",
-                 ltr_scenes: bool = True, tile_cache: int | None = None,
+                 device_entropy: bool | None = None, bits_min_mbs: int | None = None,
+                 entropy_coder: str | None = None, ltr_scenes: bool = True,
+                 tile_cache: int | None = None,
                  packed_downlink: bool | None = None, pack_density: int | None = None,
                  device=None):
         if channels not in (3, 4):
             raise ValueError(f"channels must be 3 (RGB) or 4 (BGRx), got {channels}")
-        if device_entropy:
-            raise _unsupported("device_entropy=True", "device CAVLC/CABAC")
-        if entropy_coder not in (None, "cavlc"):
-            raise _unsupported(f"entropy_coder={entropy_coder!r}", "device CAVLC/CABAC")
         self.device = resolve_device(device)
         self.width = width
         self.height = height
@@ -408,7 +472,11 @@ class TorchH264Encoder:
         self.keyframe_interval = int(keyframe_interval)  # 0 = infinite GOP
         self.scene_qp_boost = int(scene_qp_boost)
         self.set_qp(qp)
-        self.params = StreamParams(width=width, height=height, qp=self.qp, fps=fps)
+        # CAVLC (Baseline) or CABAC (Main): PPS-scoped, so every slice of the
+        # stream uses the same coder
+        self._coder = entropy_coder_default(entropy_coder)
+        self.params = StreamParams(width=width, height=height, qp=self.qp, fps=fps,
+                                   entropy_coder=self._coder)
         self._headers = write_sps(self.params) + write_pps(self.params)
         self._pad_h = (height + 15) // 16 * 16
         self._pad_w = (width + 15) // 16 * 16
@@ -433,6 +501,14 @@ class TorchH264Encoder:
         self._prep = (FramePrep(width, height, self._pad_w, self._pad_h,
                                 nslots=self.pipeline_depth + 2)
                       if host_convert and channels == 4 else None)
+        # device entropy: full P frames ship their coded slice; delta frames
+        # decide per frame on the device (host conversion only). ``_entropy``
+        # is the (bits_words, min_mbs, buckets, coder) the delta steps take
+        (self.device_entropy, self.bits_min_mbs, self._bits_words,
+         self._entropy) = resolve_entropy(self._mbh * self._mbw, device_entropy, bits_min_mbs,
+                                          entropy_coder=self._coder)
+        if self._prep is None:
+            self.device_entropy, self._entropy = False, None
         ntx = self._pad_w // self._tile_w
         self._ntiles = self._mbh * ntx
         self._delta_buckets = delta_buckets_for(width, height)
@@ -480,11 +556,9 @@ class TorchH264Encoder:
                            if self.frame_batch > 1 else None)
         # the delta-downlink fetch hint (int16 words), from recent frames;
         # completion workers update it, the submit thread reads it
-        self._pfx_total = (p_sparse_var_words if self._density is None else p_sparse_packed_words)(
-            self._mbh, self._mbw, self._nscap, self._cap_delta)
-        self._pfx_hint = min(self.PFX_SMALL, self._pfx_total)
         self._pfx_recent: deque = deque(maxlen=8)
         self._pfx_lock = threading.Lock()
+        self._size_downlink()
         self._ref: tuple | None = None  # recon planes: the next P frame's reference
         self._src: tuple | None = None  # resident source planes: the delta base
         self._prev_frame: np.ndarray | None = None  # device-conversion mode only
@@ -521,6 +595,68 @@ class TorchH264Encoder:
 
     def force_keyframe(self) -> None:
         self._force_idr = True
+
+    @property
+    def entropy_coder(self) -> str:
+        """The stream's entropy coder, "cavlc" or "cabac"."""
+        return self._coder
+
+    @property
+    def h264_profile(self) -> str:
+        """The profile the SPS declares: "main" (CABAC) or "baseline"."""
+        return "main" if self._coder == "cabac" else "baseline"
+
+    def retune_entropy(self, device_entropy: bool | None = None,
+                       bits_min_mbs: int | None = None,
+                       entropy_coder: str | None = None) -> bool:
+        """Re-resolve the device-entropy knobs at run time; returns True when
+        anything changed. The downlink knobs change no byte, only what
+        crosses the link, and the downlink sizing follows them (refused
+        while frames are in flight, whose completion reads that sizing,
+        unless the delta steps' consts stay the same). ``entropy_coder``
+        switches the stream's coder, which changes the bitstream: refused
+        with frames in flight; new SPS/PPS go out with a forced IDR. The
+        device-conversion path has no device entropy and returns False."""
+        if self._prep is None:
+            return False
+        coder = self._coder if entropy_coder is None else entropy_coder_default(entropy_coder)
+        de, bm, bw, ent = resolve_entropy(self._mbh * self._mbw, device_entropy, bits_min_mbs,
+                                          entropy_coder=coder)
+        if de == self.device_entropy and bm == self.bits_min_mbs and coder == self._coder:
+            return False
+        if coder == self._coder and ent == self._entropy and bw == self._bits_words:
+            # only the threshold with the device coder off: nothing to resize
+            self.device_entropy, self.bits_min_mbs = de, bm
+            return True
+        if self._inflight or self._batch_pend:
+            raise RuntimeError("retune_entropy with frames in flight; flush first")
+        self.device_entropy, self.bits_min_mbs = de, bm
+        self._bits_words, self._entropy = bw, ent
+        if coder != self._coder:
+            self._coder = coder
+            self.params = StreamParams(width=self.width, height=self.height, qp=self.qp,
+                                       fps=self.fps, entropy_coder=coder)
+            self._headers = write_sps(self.params) + write_pps(self.params)
+            # the decoder must see the new PPS before a slice of the other coder
+            self.force_keyframe()
+        self._size_downlink()
+        return True
+
+    def _size_downlink(self) -> None:
+        """The delta downlink's full length and a fresh fetch hint, for the
+        current layout (sparse, bit-packed, entropy-wrapped)."""
+        if self._entropy is not None:
+            total = p_sparse_entropy_words(self._mbh, self._mbw, self._nscap, self._cap_delta,
+                                           self._density is not None, self._bits_words,
+                                           entropy_coder=self._coder)
+        elif self._density is not None:
+            total = p_sparse_packed_words(self._mbh, self._mbw, self._nscap, self._cap_delta)
+        else:
+            total = p_sparse_var_words(self._mbh, self._mbw, self._nscap, self._cap_delta)
+        with self._pfx_lock:
+            self._pfx_total = total
+            self._pfx_recent.clear()
+            self._pfx_hint = min(self.PFX_SMALL, total)
 
     def set_batch_cap(self, cap: int) -> bool:
         """Cap the grouped-dispatch size; returns True when it changed. The
@@ -697,6 +833,9 @@ class TorchH264Encoder:
                 qp=self.qp,
             )
         self._allskip.qp = self.qp
+        if self._coder == "cabac":
+            return pack_slice_p_cabac(self._allskip, self.params, frame_num, mark_ltr=mark_ltr,
+                                      mmco_evict=mmco_evict)
         return pack_slice_p_fast(self._allskip, self.params, frame_num=frame_num,
                                  mark_ltr=mark_ltr, mmco_evict=mmco_evict)
 
@@ -758,15 +897,23 @@ class TorchH264Encoder:
         return _i_planes_step(*self._device_planes(frame_t), self.qp)
 
     def _run_step_p(self, frame: np.ndarray):
+        """Full P -> (kind, prefix, words or None, dense header or None, rows
+        buf, recon y, u, v): kind "pb" with device entropy, else "p"."""
         if self._prep is not None:
             y, u, v = self._upload_planes(frame)
             self._t_disp0 = time.perf_counter()
+            if self.device_entropy:
+                step = _p_toks_step if self._coder == "cabac" else _p_bits_step
+                out = step(y, u, v, self.qp, *self._ref)
+                self._src = (y, u, v)
+                return ("pb", *out)
             out = _p_planes_step(y, u, v, self.qp, *self._ref)
             self._src = (y, u, v)
-            return out
+            return ("p", out[0], None, None, *out[1:])
         frame_t = self._upload_frame(frame)
         self._t_disp0 = time.perf_counter()
-        return _p_planes_step(*self._device_planes(frame_t), self.qp, *self._ref)
+        out = _p_planes_step(*self._device_planes(frame_t), self.qp, *self._ref)
+        return ("p", out[0], None, None, *out[1:])
 
     # -- delta uploads and the tile cache --
 
@@ -839,7 +986,7 @@ class TorchH264Encoder:
 
     def _p_consts(self) -> dict:
         return dict(nscap=self._nscap, cap=self._cap_delta, tile_w=self._tile_w,
-                    density=self._density)
+                    density=self._density, entropy=self._entropy)
 
     def _pack_uploads(self, frames: list, batch: bool):
         """Pack each frame's converted tiles (``_delta_tiles``) into an
@@ -1200,7 +1347,7 @@ class TorchH264Encoder:
         reference."""
         t_d0 = time.perf_counter()
         self._t_conv_ms = self._t_h2d_ms = self._t_disp0 = 0.0
-        hdr_d = None
+        hdr_d = words_d = None
         if idr:
             if kind == "delta":
                 prefix_d, hdr_d, buf_d, ry, ru, rv = self._step_tiles(
@@ -1238,15 +1385,14 @@ class TorchH264Encoder:
                 else:
                     n_up = len(payload)
             else:
-                prefix_d, buf_d, ry, ru, rv = self._run_step_p(frame)
-                pk = "p"
+                pk, prefix_d, words_d, hdr_d, buf_d, ry, ru, rv = self._run_step_p(frame)
             rec = _Pending(kind=pk, frame_index=self.frame_index, qp=self.qp,
                            frame_num=self._frames_since_idr % 256, idr_pic_id=0, t0=t0,
                            meta=meta, scene_cut=scene_cut, n_up=n_up, n_remap=n_remap,
                            ltr_ref=ltr_ref, mark_ltr=mark_ltr, mmco_evict=mmco_evict)
             rec.fetch = _Fetch(self._pfx_slice(prefix_d) if pk == "pd" else prefix_d)
         self._ref = (ry, ru, rv)
-        rec.prefix_d, rec.buf_d, rec.hdr_d = prefix_d, buf_d, hdr_d
+        rec.prefix_d, rec.buf_d, rec.hdr_d, rec.words_d = prefix_d, buf_d, hdr_d, words_d
         rec.t_disp = self._t_disp0 or time.perf_counter()
         rec.classify_ms, rec.convert_ms, rec.h2d_ms = classify_ms, self._t_conv_ms, self._t_h2d_ms
         rec.up_ms = classify_ms + (rec.t_disp - t_d0) * 1e3
@@ -1333,9 +1479,10 @@ class TorchH264Encoder:
             fused, mbh=self._mbh, mbw=self._mbw, nscap=self._nscap,
             cap_rows=self._cap_delta, qp=rec.qp, frame_num=rec.frame_num,
             params=self.params, packed=self._density is not None,
-            full_d=full_d, buf_d=buf_d, dense_d=dense_d, link_bytes=self.link_bytes,
-            prefix_bytes=fused.nbytes, note_need=self._note_need, ltr_ref=rec.ltr_ref,
-            mark_ltr=rec.mark_ltr, mmco_evict=rec.mmco_evict)
+            device_bits=self._entropy is not None, full_d=full_d, buf_d=buf_d,
+            dense_d=dense_d, link_bytes=self.link_bytes, prefix_bytes=fused.nbytes,
+            note_need=self._note_need, ltr_ref=rec.ltr_ref, mark_ltr=rec.mark_ltr,
+            mmco_evict=rec.mmco_evict, entropy_coder=self._coder)
         return au, skipped, t1, tu, time.perf_counter(), mode
 
     def _complete_batch(self, recs, fetch: _Fetch, rows_d, denses_d, bufs_d):
@@ -1359,6 +1506,9 @@ class TorchH264Encoder:
         unpack and pack. -> (au, skipped_mbs, t_start, t_unpacked, t_done,
         mode, step_ms, fetch_ms)."""
         fused, step_ms, fetch_ms = rec.fetch.wait(rec.t_disp or rec.t0)
+        if rec.kind == "pb":
+            complete = self._complete_toks if self._coder == "cabac" else self._complete_bits
+            return (*complete(rec, fused), step_ms, fetch_ms)
         if rec.kind == "pd":
             out = self._complete_sparse_p(fused, rec.prefix_d, rec.hdr_d, rec.buf_d, rec)
             self._update_pfx_hint()
@@ -1375,18 +1525,86 @@ class TorchH264Encoder:
         if rec.kind == "i":
             fc = unpack_i_compact(header, data, rec.qp)
             tu = time.perf_counter()
-            au = self._headers + pack_slice_fast(fc, self.params, frame_num=0, idr=True,
-                                                 idr_pic_id=rec.idr_pic_id)
-            mode = ""
+            pack_i = pack_slice_cabac if self._coder == "cabac" else pack_slice_fast
+            au = self._headers + pack_i(fc, self.params, frame_num=0, idr=True,
+                                        idr_pic_id=rec.idr_pic_id)
+            mode = ""  # a P-frame label: keyframes never ship device bits
         else:
             pfc = unpack_p_compact(header, data, rec.qp)
             tu = time.perf_counter()
             skipped = int(pfc.skip.sum())
-            au = pack_slice_p_fast(pfc, self.params, frame_num=rec.frame_num,
-                                   ltr_ref=rec.ltr_ref, mark_ltr=rec.mark_ltr,
-                                   mmco_evict=rec.mmco_evict)
+            au = self._pack_p(pfc, rec)
             mode = "coeff"
         return au, skipped, t1, tu, time.perf_counter(), mode, step_ms, fetch_ms
+
+    def _pack_p(self, pfc: PFrameCoeffs, rec: _Pending) -> bytes:
+        """A P slice's coefficients -> NAL with the stream's coder."""
+        if self._coder == "cabac":
+            return pack_slice_p_cabac(pfc, self.params, rec.frame_num, ltr_ref=rec.ltr_ref,
+                                      mark_ltr=rec.mark_ltr, mmco_evict=rec.mmco_evict)
+        return pack_slice_p_fast(pfc, self.params, frame_num=rec.frame_num, ltr_ref=rec.ltr_ref,
+                                 mark_ltr=rec.mark_ltr, mmco_evict=rec.mmco_evict)
+
+    def _dense_fallback(self, rec: _Pending):
+        """A device-entropy full P frame whose coded slice overflowed its
+        word cap: fetch the dense header and rows and pack on the host.
+        -> (au, skipped_mbs, t_start, t_unpacked, t_done, "dense")."""
+        header = host(rec.hdr_d)
+        data = fetch_rest(rec.buf_d, int(header[0]), 0)
+        self.link_bytes.add("down_spill", header.nbytes + data.nbytes)
+        t1 = time.perf_counter()
+        pfc = unpack_p_compact(header, data, rec.qp)
+        tu = time.perf_counter()
+        au = self._pack_p(pfc, rec)
+        return au, int(pfc.skip.sum()), t1, tu, time.perf_counter(), "dense"
+
+    def _spill_words(self, rec: _Pending, words: np.ndarray, need: int, held: int):
+        """The words past the prefix's ``held`` when the slice needs
+        ``need``: one more fetch from the whole word buffer."""
+        if need <= held:
+            return words
+        rest = fetch_rest(rec.words_d, need, held)
+        self.link_bytes.add("down_bits_spill", rest.nbytes)
+        return np.concatenate([words, rest])
+
+    def _complete_bits(self, rec: _Pending, arr: np.ndarray):
+        """A device-CAVLC full P frame: [nbits, trailing, nskip] ++ bit words
+        -> the slice, with the header spliced on. -> (au, skipped_mbs,
+        t_start, t_unpacked, t_done, mode)."""
+        self.link_bytes.add("down_bits", arr.nbytes)
+        nbits, trailing, skipped = int(arr[0]), int(arr[1]), int(arr[2])
+        if nbits > BITS_WORD_CAP * 32:
+            return self._dense_fallback(rec)
+        need = (nbits + 31) // 32
+        words = self._spill_words(rec, arr[3:3 + min(need, BITS_PREFIX_WORDS)], need,
+                                  BITS_PREFIX_WORDS)
+        t1 = time.perf_counter()
+        au = assemble_p_nal(words, nbits, trailing, self.params, rec.frame_num, rec.qp,
+                            ltr_ref=rec.ltr_ref, mark_ltr=rec.mark_ltr, mmco_evict=rec.mmco_evict)
+        return au, skipped, t1, t1, time.perf_counter(), "bits"
+
+    def _complete_toks(self, rec: _Pending, arr: np.ndarray):
+        """A device-CABAC full P frame: [ntok, ns, nskip] ++ skip bitmap ++
+        token counts ++ token words -> the slice, through the host engine."""
+        self.link_bytes.add("down_bits", arr.nbytes)
+        ntok, ns, skipped = int(arr[0]), int(arr[1]), int(arr[2])
+        if ntok > 2 * TOK_WORD_CAP:
+            return self._dense_fallback(rec)
+        m = self._mbh * self._mbw
+        sw, cw = (m + 31) // 32, (m + 1) // 2
+        skip_words = np.ascontiguousarray(arr[3:3 + sw]).view(np.uint32).astype(np.int64)
+        skip = (((skip_words[:, None] >> np.arange(32)) & 1).astype(bool).reshape(-1)[:m]
+                .reshape(self._mbh, self._mbw))
+        counts = np.ascontiguousarray(arr[3 + sw:3 + sw + cw]).view(np.int16)[:ns].astype(np.int64)
+        base = 3 + sw + cw
+        need = (ntok + 1) // 2
+        words = self._spill_words(rec, arr[base:base + min(need, TOK_PREFIX_WORDS)], need,
+                                  TOK_PREFIX_WORDS)
+        t1 = time.perf_counter()
+        au = assemble_p_cabac_nal(words, ntok, counts, skip, self.params, rec.frame_num, rec.qp,
+                                  ltr_ref=rec.ltr_ref, mark_ltr=rec.mark_ltr,
+                                  mmco_evict=rec.mmco_evict)
+        return au, skipped, t1, t1, time.perf_counter(), "cabac"
 
     def encode_frame(self, frame: np.ndarray, qp: int | None = None) -> bytes:
         """Synchronous encode: complete Annex-B access unit out (SPS/PPS

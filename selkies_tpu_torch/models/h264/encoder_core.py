@@ -3,8 +3,10 @@
 Counterpart of ``selkies_tpu/models/h264/encoder_core.py``: intra
 prediction, the forward/inverse 4x4 transforms, the Hadamard DC paths,
 quantization, hierarchical motion estimation + compensation, the P-frame
-transform tail and the compact coefficient downlink. Entropy coding stays
-on the host (``cavlc.py`` / ``native.py``).
+transform tail, the compact coefficient downlink and the device-entropy
+wrapper of the sparse downlink (``pack_p_sparse_entropy``, whose coders
+are ``device_cavlc.py`` and ``device_cabac.py``). Otherwise entropy coding
+stays on the host (``native.py``, ``cabac.py``).
 
 Every function works on tensors of one device (CPU or CUDA) and returns
 tensors on it. Arithmetic is int32 throughout: uint8 inputs are widened
@@ -32,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from selkies_tpu_torch.device import constant_tables
 from selkies_tpu_torch.models.h264 import me_mc, tables
 from selkies_tpu_torch.models.h264.numpy_ref import (
     COARSE_DS,
@@ -323,6 +326,14 @@ def _me_candidates(search: int) -> np.ndarray:
     return np.array(cands, np.int32)
 
 
+# the search's host-made tables, on the card once (``device.constant_tables``)
+_const = constant_tables({
+    "coarse_cands": _me_candidates(COARSE_R),
+    "refine_grid": np.array([(dx, dy) for dy in range(-REFINE_R, REFINE_R + 1)
+                             for dx in range(-REFINE_R, REFINE_R + 1)], np.int32),
+})
+
+
 def _downsample4(plane):
     """4x4 box downsample, round-half-up (mirrors numpy_ref.downsample4)."""
     h, w = plane.shape
@@ -354,18 +365,21 @@ def coarse_votes(cur, rd):
         cost = (sads * scale + ranks[c0:c0 + len(chunk), None, None]).amin(dim=0)
         best = cost if best is None else torch.minimum(best, cost)
     best_rank = best & (scale - 1)  # cost = sad*scale + rank
-    return torch.bincount(best_rank.reshape(-1).long(), minlength=n).to(_I32)
+    # an add, not torch.bincount: on the card bincount reads the largest
+    # rank back to the host to size its output, a stream sync per frame
+    votes = torch.zeros(n, dtype=_I32, device=cur.device)
+    return votes.index_add_(0, best_rank.reshape(-1).long(), torch.ones_like(best_rank.reshape(-1)))
 
 
 def select_coarse(votes):
     """Vote histogram -> (TOPK, 2) int32 coarse candidates, in the golden
     model's order (votes desc, then rank asc). The scores are unique, so
     topk's order is the same as JAX's."""
-    cands = _me_candidates(COARSE_R)
+    cands = _const("coarse_cands", votes.device)
     idx = torch.arange(len(cands), device=votes.device, dtype=_I32)
     score = votes.to(_I32) * 512 + (511 - idx)  # vote count <= mbh*mbw < 2^22
     top_idx = torch.topk(score, TOPK).indices
-    return torch.from_numpy(cands).to(votes.device)[top_idx]
+    return cands[top_idx]
 
 
 def coarse_vote_candidates(cur, ref):
@@ -389,9 +403,7 @@ def _refine_cands(coarse, dy_max: int | None = None, dx_max: int | None = None):
     if dx_max is not None:
         cmax = max(0, (int(dx_max) - REFINE_R) // COARSE_DS)
         coarse[:, 0] = coarse[:, 0].clamp(-cmax, cmax)
-    r = range(-REFINE_R, REFINE_R + 1)
-    grid = torch.tensor([(dx, dy) for dy in r for dx in r], dtype=_I32,
-                        device=coarse.device)  # raster, dy outer
+    grid = _const("refine_grid", coarse.device)  # raster, dy outer
     cands = (coarse[:, None, :] * COARSE_DS + grid[None]).reshape(-1, 2)
     return torch.cat([torch.zeros((1, 2), dtype=_I32, device=coarse.device), cands])
 
@@ -713,6 +725,89 @@ def pack_p_sparse_packed(out: dict, nscap: int, cap_rows: int, density_pct: int 
     fused = torch.where(dense_flag, with_rows, fused)
     dense = torch.cat([_meta(n, mbh, mbw), mv_words, mbinfo, skip_words])
     return fused, dense, buf
+
+
+def pack_p_sparse_entropy(out: dict, nscap: int, cap_rows: int, density_pct: int | None,
+                          bits_words: int, min_mbs: int, buckets: tuple[int, ...],
+                          entropy_coder: str = "cavlc"):
+    """Device-entropy delta downlink -> (fused, dense, buf): busy frames
+    ship their final slice bits (CAVLC) or their token stream (CABAC),
+    quiet frames the sparse coefficients, decided per frame on the device.
+
+    Wraps the sparse layouts (pack_p_sparse_var / pack_p_sparse_packed,
+    unchanged) and the device coder (device_cavlc.pack_p_slice_bits_active
+    over the top bucket). The fused buffer gains an 8-int32 meta prefix
+
+      [mode, nbits, trailing_skip, nskip, ns, 0, 0, 0]   (16 int16)
+      ++ mode 0: the sparse layout; mode 1: the bit words
+
+    Mode 1 is chosen when the frame is busy enough (ns >= min_mbs), fits
+    the top bucket and its bits fit ``bits_words`` (else the coefficient
+    downlink: the word-cap overflow fallback). Both payloads are built and
+    one is selected with torch.where, so the host reads nothing before its
+    fetch. ``dense`` and ``buf`` are the coefficient mode's fallbacks, as
+    in the wrapped packers. Host half:
+    sparse_complete.complete_sparse_slice(device_bits=True).
+
+    With entropy_coder="cabac" mode 1 carries the 16-bit token IR
+    (device_cabac.pack_p_slice_tokens_active); the host still runs the
+    arithmetic engine. Its payload (meta [1, ntok, 0, nskip, ns, 0, 0, 0]):
+    the skip bitmap (2*sw int16), the per-coded-MB token counts (an
+    A_max block, int16), then the token words at offset 2*sw + ns, over
+    the counts' dead tail."""
+    if entropy_coder == "cabac":
+        return _pack_p_sparse_cabac(out, nscap, cap_rows, density_pct, bits_words, min_mbs,
+                                    buckets)
+    from selkies_tpu_torch.models.h264.device_cavlc import pack_p_slice_bits_active
+
+    fused, dense, buf = (pack_p_sparse_var(out, nscap, cap_rows) if density_pct is None
+                         else pack_p_sparse_packed(out, nscap, cap_rows, density_pct))
+    words, nbits, trailing, ns = pack_p_slice_bits_active(out, word_cap=bits_words,
+                                                          buckets=buckets)
+    nskip = out["skip"].sum(dtype=_I32)
+    use_bits = (ns >= min_mbs) & (ns <= buckets[-1]) & (nbits <= 32 * bits_words)
+    zero = ns.new_zeros(())
+    head16 = torch.stack([use_bits.to(_I32), nbits, trailing, nskip, ns, zero, zero,
+                          zero]).to(_I32).view(torch.int16)
+    total16 = 16 + max(int(fused.shape[0]), 2 * bits_words)
+    with_coeff = fused.new_zeros(total16)
+    _dus(with_coeff, fused, 16)
+    with_bits = fused.new_zeros(total16)
+    _dus(with_bits, words.view(torch.int16), 16)
+    fused2 = torch.where(use_bits, with_bits, with_coeff)
+    _dus(fused2, head16, 0)
+    return fused2, dense, buf
+
+
+def _pack_p_sparse_cabac(out: dict, nscap: int, cap_rows: int, density_pct: int | None,
+                         bits_words: int, min_mbs: int, buckets: tuple[int, ...]):
+    """The CABAC arm of pack_p_sparse_entropy (layout documented there)."""
+    from selkies_tpu_torch.models.h264.device_cabac import pack_p_slice_tokens_active
+
+    fused, dense, buf = (pack_p_sparse_var(out, nscap, cap_rows) if density_pct is None
+                         else pack_p_sparse_packed(out, nscap, cap_rows, density_pct))
+    words, ntok, counts, ns = pack_p_slice_tokens_active(out, word_cap=bits_words,
+                                                         buckets=buckets)
+    skip = out["skip"].reshape(-1)
+    skip_words = _bitpack32(skip)
+    sw = skip_words.shape[0]
+    nskip = skip.sum(dtype=_I32)
+    a_max = buckets[-1]
+    use_toks = (ns >= min_mbs) & (ns <= a_max) & (ntok <= 2 * bits_words)
+    zero = ns.new_zeros(())
+    head16 = torch.stack([use_toks.to(_I32), ntok, zero, nskip, ns, zero, zero,
+                          zero]).to(_I32).view(torch.int16)
+    base = 16 + 2 * sw
+    total16 = 16 + max(int(fused.shape[0]), 2 * sw + a_max + 2 * bits_words)
+    with_coeff = fused.new_zeros(total16)
+    _dus(with_coeff, fused, 16)
+    with_toks = fused.new_zeros(total16)
+    _dus(with_toks, skip_words.view(torch.int16), 16)
+    _dus(with_toks, counts.to(torch.int16), base)
+    _dus(with_toks, words.view(torch.int16), base + ns.clamp(0, a_max))
+    fused2 = torch.where(use_toks, with_toks, with_coeff)
+    _dus(fused2, head16, 0)
+    return fused2, dense, buf
 
 
 def pack_i_compact(out: dict):

@@ -1,4 +1,5 @@
-"""ctypes binding for the repo's C++ CAVLC packer (``native/cavlc_pack.cc``).
+"""ctypes binding for the repo's C++ CAVLC packer (``native/cavlc_pack.cc``)
+and CABAC arithmetic engine (``native/cabac_pack.cc``).
 
 The port builds ``native/cavlc_pack.cc`` + ``native/cabac_pack.cc`` with
 ``g++`` at first use into ``build/torch_kernels/`` (see
@@ -9,7 +10,9 @@ is no quiet fallback to the Python packer.
 
 ``calls`` counts native packer calls, so a run can show that the native
 packer (and not the Python oracle) packed its slices; ``sparse_calls``
-counts the sparse-wire P packer (``pack_slice_p_sparse_native``) alone.
+counts the sparse-wire P packer (``pack_slice_p_sparse_native``) alone,
+and ``cabac_calls`` the CABAC arithmetic engine (``cabac_encode_tokens``),
+which every CABAC slice goes through.
 The encoder's completion workers pack on several threads at once (ctypes
 releases the GIL), so the counts advance under a lock.
 """
@@ -41,6 +44,7 @@ _COMMAND = ["g++", "-O2", "-Wall", "-fPIC", "-std=c++17", "-shared",
 
 calls = 0  # native slice packs (all three packers)
 sparse_calls = 0  # pack_slice_p_sparse_native packs
+cabac_calls = 0  # cabac_encode_tokens runs
 
 _lib: ctypes.CDLL | None = None
 _build: BuildResult | None = None
@@ -93,6 +97,10 @@ def _load() -> ctypes.CDLL:
             lib.emulation_prevent.argtypes = [_U8P, ctypes.c_int64, _U8P, ctypes.c_int64]
             lib.derive_skip_mvs.restype = None
             lib.derive_skip_mvs.argtypes = [_I32P, _U8P, ctypes.c_int, ctypes.c_int]
+            # a library without the CABAC engine fails here, at load
+            lib.cabac_encode_tokens.restype = ctypes.c_int64
+            lib.cabac_encode_tokens.argtypes = [
+                _U8P, ctypes.POINTER(ctypes.c_uint16), ctypes.c_int64, _U8P, ctypes.c_int64]
             _build, _lib = res, lib
     return _lib
 
@@ -103,6 +111,12 @@ def _count(sparse: bool = False) -> None:
         calls += 1
         if sparse:
             sparse_calls += 1
+
+
+def _count_cabac() -> None:
+    global cabac_calls
+    with _count_lock:
+        cabac_calls += 1
 
 
 def _ptr(a: np.ndarray, ptype):
@@ -247,3 +261,25 @@ def pack_slice_p_sparse_native(wire, p: StreamParams, frame_num: int, qp: int,
             raise RuntimeError("pack_slice_p_sparse_rbsp overflow beyond 1 GiB")
     _count(sparse=True)
     return _finish_nal(s["rbsp"], n, NAL_SLICE_NON_IDR)
+
+
+def cabac_encode_tokens(states: np.ndarray, tokens: np.ndarray) -> bytes:
+    """Run a slice's token stream (``cabac.py``'s uint16 IR) through the
+    native arithmetic engine from the given context states. Byte-identical
+    to ``cabac.encode_tokens_py``."""
+    lib = _load()
+    st = np.ascontiguousarray(states, np.uint8)
+    tok = np.ascontiguousarray(tokens, np.uint16)
+    cap = int(len(tok)) + 64  # ~1 bit per bin; one byte per token is generous
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.cabac_encode_tokens(_ptr(st, _U8P), tok.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_uint16)), len(tok), _ptr(out, _U8P), cap)
+        if n == -2:
+            raise ValueError("token stream did not end in a TERM(1) flush")
+        if n >= 0:
+            _count_cabac()
+            return out[:n].tobytes()
+        cap *= 2  # RUN/BYP tokens can expand past one byte per token
+        if cap > (1 << 30):
+            raise RuntimeError("cabac_encode_tokens overflow beyond 1 GiB")

@@ -1,7 +1,6 @@
 """Per-slice sparse P completion: fused downlink words -> slice NAL.
 
-Counterpart of ``selkies_tpu/models/h264/sparse_complete.py`` (its
-coefficient arms; the device-bits and CABAC arms are not ported). A delta
+Counterpart of ``selkies_tpu/models/h264/sparse_complete.py``. A delta
 frame's fused sparse downlink is finished in four steps:
 
   1. read the fetched prefix's need/row/non-skip counts
@@ -10,9 +9,17 @@ frame's fused sparse downlink is finished in four steps:
   3. fetch the row spill past the fused cap (``fetch_rest``);
   4. hand the wire regions straight to the native sparse packer
      (``p_sparse_wire_views`` + ``pack_slice_p_sparse_native``), or when
-     ns > nscap (or ``native_wire=False``) expand the rows on the host
-     (``unpack_p_sparse_*``, with the dense-header fallback fetch) and
-     pack with the native dense packer.
+     ns > nscap (or ``native_wire=False``, or the stream is CABAC) expand
+     the rows on the host (``unpack_p_sparse_*``, with the dense-header
+     fallback fetch) and pack with the native dense packer or the host
+     CABAC coder.
+
+With ``device_bits=True`` the buffer is the entropy-wrapped layout
+(encoder_core.pack_p_sparse_entropy): its meta says whether the payload
+is the sparse layout above (at an offset) or the frame's device-coded
+slice -- its final bits (CAVLC: the host splices the header,
+``assemble_p_nal``) or its token stream (CABAC: the host interleaves the
+skip and terminate bins and runs the engine, ``assemble_p_cabac_nal``).
 
 Device buffers are torch tensors. The prefix arrives already fetched;
 each refetch, spill or dense-fallback fetch here is one blocking
@@ -28,7 +35,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from selkies_tpu_torch.models.h264.cabac import pack_slice_p_cabac
 from selkies_tpu_torch.models.h264.compact import (
+    ENTROPY_META16,
+    p_sparse_entropy_meta,
     p_sparse_packed_need,
     p_sparse_var_need,
     p_sparse_wire_views,
@@ -36,6 +46,8 @@ from selkies_tpu_torch.models.h264.compact import (
     unpack_p_sparse_packed,
     unpack_p_sparse_var,
 )
+from selkies_tpu_torch.models.h264.device_cabac import assemble_p_cabac_nal
+from selkies_tpu_torch.models.h264.device_cavlc import assemble_p_nal
 from selkies_tpu_torch.models.h264.native import pack_slice_p_fast, pack_slice_p_sparse_native
 
 __all__ = ["complete_sparse_slice", "fetch_rest", "host"]
@@ -44,6 +56,21 @@ __all__ = ["complete_sparse_slice", "fetch_rest", "host"]
 def host(a) -> np.ndarray:
     """One device-to-host copy of a tensor (numpy arrays pass through)."""
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _settle_device_bits(fused, need: int, note_need, link_bytes, prefix_bytes: int, full_d):
+    """The device-coded payload's shared plumbing, for both coders: the
+    hint feedback, the ``down_bits`` accounting and the refetch when the
+    hint-sized prefix fell short. -> the (possibly refetched) buffer."""
+    if note_need is not None:
+        note_need(need)
+    if link_bytes is not None and prefix_bytes:
+        link_bytes.add("down_bits", prefix_bytes)
+    if need > len(fused):  # hint too small: refetch
+        fused = host(full_d)
+        if link_bytes is not None:
+            link_bytes.add("down_bits_refetch", fused.nbytes)
+    return fused
 
 
 def fetch_rest(buf, n: int, base: int = 4096) -> np.ndarray:
@@ -69,6 +96,7 @@ def complete_sparse_slice(
     frame_num: int,
     params,
     packed: bool = False,
+    device_bits: bool = False,
     full_d=None,
     buf_d=None,
     dense_d=None,
@@ -79,6 +107,7 @@ def complete_sparse_slice(
     ltr_ref: int | None = None,
     mark_ltr: int | None = None,
     mmco_evict: tuple = (),
+    entropy_coder: str = "cavlc",
 ) -> tuple[bytes, int, float, str]:
     """One P slice's fetched sparse prefix -> (nal, skipped_mbs,
     t_unpacked, downlink_mode).
@@ -86,18 +115,54 @@ def complete_sparse_slice(
     ``full_d`` is the full fused buffer on the device (shortfall refetch),
     ``buf_d`` the row buffer (spill), ``dense_d`` the dense header (the
     ns > nscap fallback). ``prefix_bytes`` is the size of the fetched
-    prefix, counted as ``down_prefix``. ``downlink_mode`` is "coeff", or
-    "dense" when the dense-header fallback ran. ``ltr_ref``, ``mark_ltr``
-    and ``mmco_evict`` go to the slice header (the LTR scene cache)."""
+    prefix, counted as ``down_bits`` when it carried a device-coded slice,
+    else ``down_prefix``. ``downlink_mode`` is "bits" / "cabac" (the
+    device-coded payload), "coeff", or "dense" when the dense-header
+    fallback ran. ``ltr_ref``, ``mark_ltr`` and ``mmco_evict`` go to the
+    slice header (the LTR scene cache)."""
+    off = 0
+    if device_bits:
+        mode, nbits, trailing, nskip, ns = p_sparse_entropy_meta(fused)
+        if mode == 1 and entropy_coder == "cabac":
+            ntok = nbits  # the nbits slot carries the token count
+            m = mbh * mbw
+            sw = (m + 31) // 32
+            nw = (ntok + 1) // 2
+            base = ENTROPY_META16 + 2 * sw
+            fused = _settle_device_bits(fused, base + ns + 2 * nw, note_need, link_bytes,
+                                        prefix_bytes, full_d)
+            skip_words = np.ascontiguousarray(fused[ENTROPY_META16:base]).view(np.uint32)
+            skip = (((skip_words[:, None].astype(np.int64) >> np.arange(32)) & 1)
+                    .astype(bool).reshape(-1)[:m].reshape(mbh, mbw))
+            counts = fused[base:base + ns].astype(np.int64)
+            words = np.ascontiguousarray(fused[base + ns:base + ns + 2 * nw]).view(np.uint32)
+            t_unpacked = time.perf_counter()
+            nal = assemble_p_cabac_nal(words, ntok, counts, skip, params, frame_num, qp,
+                                       ltr_ref=ltr_ref, mark_ltr=mark_ltr,
+                                       mmco_evict=mmco_evict)
+            return nal, nskip, t_unpacked, "cabac"
+        if mode == 1:
+            nw = (nbits + 31) // 32
+            fused = _settle_device_bits(fused, ENTROPY_META16 + 2 * nw, note_need, link_bytes,
+                                        prefix_bytes, full_d)
+            words = np.ascontiguousarray(fused[ENTROPY_META16:ENTROPY_META16 + 2 * nw]).view(
+                np.uint32)
+            t_unpacked = time.perf_counter()
+            nal = assemble_p_nal(words, nbits, trailing, params, frame_num, qp, ltr_ref=ltr_ref,
+                                 mark_ltr=mark_ltr, mmco_evict=mmco_evict)
+            return nal, nskip, t_unpacked, "bits"
+        # mode 0: the sparse coefficient layout at an offset
+        off = ENTROPY_META16
+        fused = fused[off:]
     if link_bytes is not None and prefix_bytes:
         link_bytes.add("down_prefix", prefix_bytes)
     mode = "coeff"
     need_fn = p_sparse_packed_need if packed else p_sparse_var_need
     need, n, ns = need_fn(fused, mbh, mbw, nscap, cap_rows)
     if note_need is not None:
-        note_need(need)
+        note_need(need + off)
     if need > len(fused):  # hint too small: refetch the live content
-        fused = host(full_d)
+        fused = host(full_d)[off:]
         if link_bytes is not None:
             link_bytes.add("down_refetch", fused.nbytes)
     extra = None
@@ -106,7 +171,7 @@ def complete_sparse_slice(
         if link_bytes is not None:
             link_bytes.add("down_spill", extra.nbytes)
     wire = pfc = None
-    if ns <= nscap and native_wire:
+    if ns <= nscap and native_wire and entropy_coder == "cavlc":
         wire = p_sparse_wire_views(fused, mbh, mbw, nscap, cap_rows, packed, extra)
     if wire is None:
         unpack = unpack_p_sparse_packed if packed else unpack_p_sparse_var
@@ -124,6 +189,13 @@ def complete_sparse_slice(
         nal = pack_slice_p_sparse_native(wire, params, frame_num, qp, ltr_ref=ltr_ref,
                                          mark_ltr=mark_ltr, mmco_evict=mmco_evict)
         skipped = mbh * mbw - wire.ns
+    elif entropy_coder == "cabac":
+        # a Main-profile stream cannot carry CAVLC slices (the PPS sets
+        # entropy_coding_mode_flag): coefficients go through the host CABAC
+        # coder
+        nal = pack_slice_p_cabac(pfc, params, frame_num, ltr_ref=ltr_ref, mark_ltr=mark_ltr,
+                                 mmco_evict=mmco_evict)
+        skipped = int(pfc.skip.sum())
     else:
         nal = pack_slice_p_fast(pfc, params, frame_num=frame_num, ltr_ref=ltr_ref,
                                 mark_ltr=mark_ltr, mmco_evict=mmco_evict)

@@ -242,10 +242,34 @@ def test_load_jax_state_continues_a_host_stream():
     assert [r[1] for r in got][0] == "delta" and got[0][6] == 1.0
 
 
-@pytest.mark.parametrize("knob", [{"device_entropy": True}, {"entropy_coder": "cabac"}])
-def test_unsupported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TorchH264Encoder(W, H, device="cpu", **knob)
+@pytest.mark.parametrize("knobs,env", [
+    ({"device_entropy": True}, {}),
+    ({"entropy_coder": "cabac"}, {}),
+    ({"device_entropy": True, "bits_min_mbs": 64, "entropy_coder": "cabac"}, {}),
+    ({}, {"SELKIES_DEVICE_ENTROPY": "1", "SELKIES_BITS_MIN_MBS": "64"}),
+    ({}, {"SELKIES_ENTROPY_CODER": "cabac", "SELKIES_BITS_MIN_MBS": "junk"}),
+    ({}, {"SELKIES_ENTROPY_CODER": "auto", "SELKIES_DEVICE_ENTROPY": "0"}),
+    ({"device_entropy": False, "entropy_coder": "cavlc"},
+     {"SELKIES_DEVICE_ENTROPY": "1", "SELKIES_ENTROPY_CODER": "cabac"}),
+    ({"host_convert": False, "device_entropy": True, "entropy_coder": "cabac"}, {}),
+], ids=["device_entropy", "cabac", "cabac_device", "env_device", "env_cabac", "env_auto",
+        "explicit_wins", "device_conversion"])
+def test_entropy_knobs_resolve_as_jax(monkeypatch, knobs, env):
+    """device_entropy and entropy_coder, as arguments or env values,
+    resolve as the JAX encoder's (AUTO as on its CPU backend): the same
+    device_entropy, bits_min_mbs, coder, profile, downlink consts and
+    SPS/PPS bytes."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    j = TPUH264Encoder(W, H, **knobs)
+    t = TorchH264Encoder(W, H, device="cpu", **knobs)
+    got = (t.device_entropy, t.bits_min_mbs, t.entropy_coder, t.h264_profile, t._entropy,
+           t._pfx_total, t._headers)
+    want = (j.device_entropy, j.bits_min_mbs, j.entropy_coder, j.h264_profile, j._entropy,
+            j._pfx_total, j._headers)
+    j.close()
+    t.close()
+    assert got == want
 
 
 def test_env_defaults_match_jax(monkeypatch):

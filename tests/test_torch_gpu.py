@@ -352,3 +352,138 @@ def test_registry_row_cuda_matches_cpu_at_1080p():
     assert got == drive("cpu")
     assert got[1] == 1 and got[2].get(4) == 1
     assert launched == sum(1 for _, kind, idr in got[0] if not idr and kind != "static")
+
+
+# -- the entropy plane: device CAVLC (K2) and the CABAC tokenizer (K3) ------
+
+
+def _entropy_out(mbh, mbw, seed, live_frac, dev):
+    """Seeded P-frame outputs (mvs, skip, coefficients) on ``dev``, about
+    ``live_frac`` of the MBs coded with a few coefficients each (a coded
+    slice within the encoder's word caps); skip MBs carry their derived
+    skip MV."""
+    rng = np.random.default_rng(seed)
+    skip = rng.random((mbh, mbw)) >= live_frac
+    mvs = rng.integers(-12, 13, (mbh, mbw, 2)).astype(np.int32)
+    native.derive_skip_mvs(mvs, skip)
+
+    def coeffs(shape, mag):
+        c = rng.integers(-mag, mag + 1, shape).astype(np.int32)
+        c[rng.random(shape) < 0.96] = 0
+        c[skip] = 0
+        return c
+
+    cac = coeffs((mbh, mbw, 2, 2, 2, 4, 4), 6)
+    cac[..., 0, 0] = 0
+    arrs = {"mvs": mvs, "skip": skip, "luma_ac": coeffs((mbh, mbw, 4, 4, 4, 4), 40),
+            "chroma_dc": coeffs((mbh, mbw, 2, 2, 2), 9), "chroma_ac": cac}
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrs.items()}
+
+
+_ENTROPY_GEOMS = {"1920x1088": (68, 120), "1368x776-ragged": (49, 86)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coder", ["cavlc", "cabac"])
+@pytest.mark.parametrize("geom", list(_ENTROPY_GEOMS))
+def test_device_entropy_downlink_on_card_equals_cpu(geom, coder):
+    """The delta step's entropy-wrapped downlink (top bucket, the encoder's
+    consts) and the full-P step's prefix, on the card and on the CPU, for a
+    busy (coded-slice) and a quiet (coefficient) frame."""
+    _need_card()
+    from selkies_tpu_torch.models.h264.device_cavlc import resolve_entropy
+    from selkies_tpu_torch.models.h264.encoder_core import pack_p_sparse_entropy
+
+    mbh, mbw = _ENTROPY_GEOMS[geom]
+    _, _, _, consts = resolve_entropy(mbh * mbw, True, 64, coder)
+    for seed, live, mode in ((1, 0.25, 1), (2, 0.004, 0)):
+        outs = [_entropy_out(mbh, mbw, seed, live, d) for d in ("cuda", "cpu")]
+        got, want = (pack_p_sparse_entropy(o, enc_mod.NSCAP, enc_mod.CAP_ROWS_DELTA, 75, *consts)
+                     for o in outs)
+        for name, g, w in zip(("fused", "dense", "buf"), got, want):
+            assert torch.equal(g.cpu(), w), (name, seed)
+        meta = want[0][:16].view(torch.int32).tolist()
+        assert meta[0] == mode, meta
+    step = enc_mod._p_toks_step if coder == "cabac" else enc_mod._p_bits_step
+    rng = np.random.default_rng(3)
+    h, w = 16 * mbh, 16 * mbw
+    planes = [rng.integers(0, 255, s, np.uint8) for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    ref = [np.roll(p, (2, -3), (0, 1)) for p in planes]
+    res = [step(*(torch.from_numpy(p).to(d) for p in planes), 30,
+                *(torch.from_numpy(p).to(d) for p in ref)) for d in ("cuda", "cpu")]
+    for k, (g, w) in enumerate(zip(*res)):
+        assert torch.equal(g.cpu(), w), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coder", ["cavlc", "cabac"])
+def test_top_bucket_equals_every_bucket_on_card(coder):
+    """The encoder always runs the top bucket (no host read of the coded
+    count); every bucket that holds the coded MBs gives the same output."""
+    _need_card()
+    from selkies_tpu_torch.models.h264.device_cabac import pack_p_slice_tokens_active
+    from selkies_tpu_torch.models.h264.device_cavlc import bits_buckets, pack_p_slice_bits_active
+
+    out = _entropy_out(68, 120, 4, 0.025, "cuda")  # ~200 coded MBs
+    ns = int((~out["skip"]).sum())
+    buckets = bits_buckets(68 * 120)
+    fn = pack_p_slice_tokens_active if coder == "cabac" else pack_p_slice_bits_active
+    runs = [fn(out, 1 << 17, buckets, bucket=b) for b in buckets if b >= ns]
+    assert len(runs) == len(buckets)
+    for other in runs[:-1]:
+        for g, w in zip(other, runs[-1]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coder", ["cavlc", "cabac"])
+def test_pipelined_device_entropy_submit_never_syncs(coder):
+    """No synchronising CUDA call on the submit thread of the registry row
+    with device entropy (groups, depth 2, LTR): torch's sync debug mode
+    warns on every such call, and a hook records the thread that made it.
+    The completion workers wait on events and may sync; they are not
+    counted."""
+    _need_card()
+    import threading
+    import traceback
+    import warnings
+
+    trace = _host_trace_1080p()
+    a, win = trace[0][0], trace[3][0]
+    rng = np.random.default_rng(21)
+    frames = [a]
+    for k in range(9):
+        f = frames[-1].copy()
+        f[200 + 16 * k:216 + 16 * k, 100:1700, :3] = rng.integers(0, 255, (16, 1600, 3), np.uint8)
+        frames.append(f)
+    frames += [win, frames[-1], trace[7][0]]
+    enc = TorchH264Encoder(1920, 1080, scene_qp_boost=6, device_entropy=True, bits_min_mbs=64,
+                           entropy_coder=coder, device="cuda")
+    for f in frames[:3]:  # warm-up: tables reach the card, the kernel builds
+        enc.submit(f)
+    enc.flush()
+    submit_thread = threading.get_ident()
+    seen = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        seen.append((threading.get_ident(), str(message),
+                     "".join(traceback.format_stack(limit=8)[:-1])))
+
+    outs = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for f in frames[3:]:
+                outs += enc.submit(f)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    outs += enc.flush()
+    enc.close()
+    on_submit = [st for tid, m, st in seen
+                 if tid == submit_thread and "called a synchronizing CUDA operation" in m]
+    assert not on_submit, f"{len(on_submit)} syncs; first at:\n" + "\n".join(
+        dict.fromkeys(on_submit))
+    assert len(outs) == len(frames) - 3
+    assert {"bits" if coder == "cavlc" else "cabac"} <= {st.downlink_mode for _, st, _ in outs}
