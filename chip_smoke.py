@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-7 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-8 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    sets its operation floor;
 3. hold the ME/MC kernel against its plain PyTorch version on the card at
    1920x1088 on three seeded cases (static, uniform motion, motion near the
-   search reach with noise), on a tile-clamped candidate list and at a
-   width whose last strip of 8 MBs is ragged (1376x768): every output
-   exactly equal;
+   search reach with noise), on a tile-clamped candidate list, at a
+   width whose last strip of 8 MBs is ragged (1376x768), and at the band
+   path's 4K shapes: a 720x1920 tile of the 3x2 grid and a 720x3840 band,
+   each on its reference slab, unclamped and clamped by 16-pixel halos,
+   and the whole 2160x3840 frame: every output exactly equal;
 4. the device-conversion path: TorchH264Encoder(1920, 1080,
    host_convert=False, pipeline_depth=0, frame_batch=1, device="cuda")
    over a seeded desktop-like trace
@@ -59,7 +61,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    "cabac" in (c), the quiet one "coeff"; the retune to CAVLC forces an IDR
    in (b) and (c); K1 launched once per non-static P frame in every card
    run and the native CABAC engine ran;
-8. time the kernel with CUDA events over 50 launches queued behind a spin
+8. band and tile slicing (TorchBandedH264Encoder, selkies_tpu_torch/
+   parallel/bands.py): (a) at 1920x1080 over a seeded full-motion trace
+   (IDR, two busy scrolls, a window, its drag across the band seams, a
+   static frame, a forced IDR), bands=4 (4 bands of 17 MB rows), bands=4
+   with cols=2, and bands=4 with entropy_coder="cabac", device_entropy=True
+   on light content: every AU's sha256 must equal the port's CPU run of the
+   trace, K1 must launch bands x cols times per non-static P frame; (b) at
+   3840x2160 on the card alone: cols=2, bands=3 (45x120-MB tiles) must give
+   the AUs of bands=3, bands=1 those of TorchH264Encoder(frame_batch=1,
+   pipeline_depth=0, ltr_scenes=False), and bands=4 must resolve to 3;
+9. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
    host-conversion encoder's median FrameStats split per frame kind
@@ -75,8 +87,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    window-scroll delta frames, the device-entropy downlink alone by CUDA
    events at the top bucket and at the smallest bucket that holds the
    frame, and the device op count and idle share of those frames
-   (torch.profiler);
-9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   (torch.profiler); on the 1080p full-motion trace, the median
+   FrameStats split per frame kind (step, per-band step min/max, fetch,
+   unpack, pack, AU, up and down bytes) of the flat solo encoder, bands=4,
+   a 2x2 grid and the 4K 3x2 grid, and the device ops and idle share of
+   solo and bands=4 P frames (torch.profiler);
+10. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -141,6 +157,42 @@ def _me_inputs(case, dev):
     pads = [core.edge_pad(p, core.MV_PAD) for p in (ref, cu, cv)]
     cands = core._refine_cands(core.coarse_vote_candidates(cur, ref), **clamp)
     return (cands, cur, *pads)
+
+
+def _slab_me_inputs(case, dev):
+    """case: (seed, motion, noise, (fh, fw), (r0, c0, h, w), (halo, halo_cols)).
+    The kernel's inputs for the (h, w) tile at (r0, c0) of an (fh, fw)
+    frame as the band and tile steps build them (encode_tile_p_planes): a
+    reference slab of ``halo`` real rows and ``halo_cols`` real columns
+    round the tile (chroma: half; 0 takes the whole axis), clipped at the
+    picture's edges, edge-padded out to MV_PAD, and the candidate window
+    clamped to ``halo - 2`` on an axis whose halo is below the full reach."""
+    import torch
+
+    from selkies_tpu_torch.models.h264 import encoder_core as core
+
+    seed, motion, noise, (fh, fw), (r0, c0, h, w), (halo, hc) = case
+    cur, ref, cu, cv = _planes(fh, fw, seed, motion, noise, dev)
+
+    def axis(n, start, size, hv):
+        if hv == 0:
+            return torch.arange(n, device=dev)
+        return torch.arange(start - hv, start + size + hv, device=dev).clamp(0, n - 1)
+
+    def slab(p, s):
+        hv, hh = halo >> s, hc >> s
+        rows, cols = axis(p.shape[0], r0 >> s, h >> s, hv), axis(p.shape[1], c0 >> s, w >> s, hh)
+        sl = p.index_select(0, rows).index_select(1, cols)
+        vt, ht = core.MV_PAD - hv, core.MV_PAD - hh
+        return core.edge_pad(sl, vt, vt, ht, ht)
+
+    full_reach = core.COARSE_DS * core.COARSE_R + core.REFINE_R + 2
+    clamp = {k: (None if v == 0 or v >= full_reach else v - 2)
+             for k, v in (("dy_max", halo), ("dx_max", hc))}
+    tile = cur[r0:r0 + h, c0:c0 + w]
+    cands = core._refine_cands(
+        core.coarse_vote_candidates(tile, ref[r0:r0 + h, c0:c0 + w]), **clamp)
+    return (cands, tile.contiguous(), slab(ref, 0), slab(cu, 1), slab(cv, 1))
 
 
 def _sass_check(lib_path: Path, nvcc: str) -> dict:
@@ -664,6 +716,102 @@ def _profile_host_deltas(enc, n: int) -> dict:
                            expect="delta")
 
 
+def _band_trace(w: int = W, h: int = H, light: bool = False, seed: int = 2032):
+    """-> [(frame, op)], a full-motion trace: a desktop (IDR), two busy
+    scrolls (24 and 40 rows), a window opened over it, the window dragged
+    down and right across the band seams (a quarter of the height), a
+    static repeat, and a forced IDR on a second drag. ``light``: flat 16x16
+    blocks without glyph noise, for the host CABAC coder (Python per MB)."""
+    rng = np.random.default_rng(seed)
+    base = np.kron(rng.integers(30, 220, (h // 16 + 1, w // 16 + 1, 4), np.uint8),
+                   np.ones((16, 16, 1), np.uint8))[:h, :w].copy()
+    if not light:
+        glyphs = rng.integers(0, 2, (h // 4, w // 2, 1), np.uint8) * 180
+        base[::4, ::2, :3] = np.minimum(base[::4, ::2, :3] + glyphs, 255)
+    s1 = np.roll(base, -24, 0)
+    s2 = np.roll(s1, -40, 0)
+    wy, wx, wh, ww = h // 8, w // 4, h // 4, w // 3
+    if light:
+        content = np.kron(rng.integers(30, 250, (wh // 16 + 1, ww // 16 + 1, 4), np.uint8),
+                          np.ones((16, 16, 1), np.uint8))[:wh, :ww]
+    else:
+        content = rng.integers(0, 255, (wh, ww, 4), np.uint8)
+
+    def window(dy, dx):
+        f = s2.copy()
+        f[wy + dy:wy + dy + wh, wx + dx:wx + dx + ww] = content
+        return f
+    drag = window(h // 4, w // 16)
+    return [(base, None), (s1, None), (s2, None), (window(0, 0), None), (drag, None),
+            (drag.copy(), None), (window(h // 4 + 24, w // 16 + 40), "idr")]
+
+
+def _drive_band(enc, trace):
+    """-> ([(sha256, FrameStats)], K1 launches per frame)."""
+    from selkies_tpu_torch.models.h264 import me_mc
+
+    out, launches = [], []
+    for i, (frame, op) in enumerate(trace):
+        if op == "idr":
+            enc.force_keyframe()
+        before = me_mc.launches
+        (au, st, _), = enc.submit(frame)
+        launches.append(me_mc.launches - before)
+        if not au.startswith(b"\x00\x00\x00\x01"):
+            _fail(f"band frame {i}: access unit is not Annex-B")
+        out.append((hashlib.sha256(au).hexdigest(), st))
+    return out, launches
+
+
+def _p_frames(rows) -> int:
+    return sum(1 for _, st in rows if not st.idr and st.upload_kind != "static")
+
+
+def _time_band_split(enc, frames, n_idr: int = 3) -> dict:
+    """Median FrameStats split per frame kind: ``frames[0]`` as an IDR and
+    ``frames[1]`` as a P frame warm up, then every later frame as a P frame
+    and ``n_idr`` forced IDRs of ``frames[0]``."""
+    prev = enc.link_bytes.snapshot()
+
+    def one(frame, idr):
+        nonlocal prev
+        if idr:
+            enc.force_keyframe()
+        (_, st, _), = enc.submit(frame)
+        links = enc.link_bytes.snapshot()
+        grown = {k: v - prev.get(k, 0) for k, v in links.items()}
+        prev = links
+        if st.idr != idr or st.upload_kind == "static":
+            _fail(f"band timing frame has the wrong kind ({st.idr}, {st.upload_kind})")
+        return (st, sum(v for k, v in grown.items() if k.startswith("up_")),
+                sum(v for k, v in grown.items() if k.startswith("down_")))
+
+    one(frames[0], True)
+    one(frames[1], False)
+    rows = {"p": [one(f, False) for f in frames[2:]],
+            "idr": [one(frames[0], True) for _ in range(n_idr)]}
+    out = {}
+    for kind_name, sel in rows.items():
+        med = {k: statistics.median(getattr(st, k) for st, *_ in sel) for k in (
+            "upload_ms", "step_ms", "fetch_ms", "unpack_ms", "cavlc_ms", "pack_ms",
+            "device_ms", "bytes")}
+        steps = [st.band_step_ms for st, *_ in sel if st.band_step_ms]
+        if steps:
+            med["band_step_ms_min"] = statistics.median(min(b) for b in steps)
+            med["band_step_ms_max"] = statistics.median(max(b) for b in steps)
+        med["up_bytes"] = statistics.median(r[1] for r in sel)
+        med["down_bytes"] = statistics.median(r[2] for r in sel)
+        med["frames"] = len(sel)
+        out[kind_name] = med
+    return out
+
+
+def _scroll_run(w: int, h: int, n: int):
+    """The full-motion trace's desktop, then n scrolls of 24 more rows each."""
+    base = _band_trace(w, h)[0][0]
+    return [base] + [np.roll(base, -24 * (k + 1), 0) for k in range(n)]
+
+
 def main() -> int:
     import torch
 
@@ -715,9 +863,22 @@ def main() -> int:
              "tile_clamped": (4, (-20, 17), 6, (1088, 1920), {"dy_max": 14, "dx_max": 14}),
              # 86 MB columns: the last block holds a strip of 6 MBs
              "ragged_1376x768": (5, (9, -13), 6, (768, 1376))}
+    # the band path's shapes at 4K (phase 8b): an interior tile of the 3x2
+    # grid and the middle of 3 bands, each against its slab at the default
+    # (full-reach) halos and clamped by 16-pixel halos; the whole frame
+    # (bands=1 and the solo encoder)
+    uhd = (2160, 3840)
+    slab_cases = {
+        "tile_720x1920": (6, (-24, 29), 6, uhd, (720, 1920, 720, 1920), (40, 40)),
+        "tile_720x1920_clamped": (7, (-20, 17), 6, uhd, (720, 1920, 720, 1920), (16, 16)),
+        "band_720x3840": (8, (33, -34), 12, uhd, (720, 0, 720, 3840), (40, 0)),
+        "band_720x3840_clamped": (9, (-20, 17), 6, uhd, (720, 0, 720, 3840), (16, 0)),
+        "frame_2160x3840": (10, (-24, 29), 6, uhd, (0, 0, 2160, 3840), (0, 0))}
+    checks = [(n, _me_inputs, c) for n, c in cases.items()]
+    checks += [(n, _slab_me_inputs, c) for n, c in slab_cases.items()]
     max_err = 0
-    for name, case in cases.items():
-        args = _me_inputs(case, dev)
+    for name, make_inputs, case in checks:
+        args = make_inputs(case, dev)
         got = me_mc.me_mc(*args)
         want = me_mc.me_mc_plain(*args)
         torch.cuda.synchronize()
@@ -728,8 +889,11 @@ def main() -> int:
                 _fail(f"me_mc {name}: {out_name} differs from the plain version (max {err})")
         nz = int((got[0] != 0).any(-1).sum())
         h, w = args[1].shape
-        print(f"me_mc check {name}: exact at {w}x{h} ({args[0].shape[0]} candidates, "
-              f"{nz} MBs with nonzero MV)")
+        print(f"me_mc check {name}: exact at {w}x{h}, reference {tuple(args[2].shape)} "
+              f"({args[0].shape[0]} candidates, {nz} MBs with nonzero MV)")
+        record.setdefault("me_mc_checks", {})[name] = {
+            "cur": [h, w], "ref": list(args[2].shape), "candidates": args[0].shape[0],
+            "nonzero_mv_mbs": nz}
 
     # -- 4. the device-conversion path: the encoder at 1920x1080 on the card vs the CPU
     frames = _desktop_trace()
@@ -922,12 +1086,104 @@ def main() -> int:
         "cabac_engine_runs": cabac_engine, "bytes": {
             k: [st.bytes for _, st in r] for k, r in (("a", a_rows), ("c", c_rows))},
         "cuda_s": ent_s, "cpu_s": ent_cpu_s}
-    print(f"phases 1-7: {time.perf_counter() - t_start:.1f} s")
+    # -- 8. band and tile slicing: 1080p against the CPU, 4K on the card alone
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+
+    btrace, ltrace = _band_trace(), _band_trace(light=True)
+    band_cfgs = {"bands4": (dict(bands=4), btrace),
+                 "bands4_cols2": (dict(bands=4, cols=2), btrace),
+                 "cabac_device_bands4": (dict(bands=4, entropy_coder="cabac",
+                                              device_entropy=True, bits_min_mbs=64), ltrace)}
+    band_rec: dict = {}
+    band_launches, band_p = {}, {}
+    t0 = time.perf_counter()
+    for name, (kw, tr) in band_cfgs.items():
+        benc = TorchBandedH264Encoder(W, H, qp=28, device="cuda", **kw)
+        me_mc.launches = 0
+        tc = time.perf_counter()
+        bgpu, per_frame = _drive_band(benc, tr)
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - tc
+        launched = me_mc.launches
+        benc.close()
+        tc = time.perf_counter()
+        cpu_enc = TorchBandedH264Encoder(W, H, qp=28, device="cpu", **kw)
+        bcpu, _ = _drive_band(cpu_enc, tr)
+        cpu_enc.close()
+        cpu_s = time.perf_counter() - tc
+        bad = [i for i, ((g, _), (c, _)) in enumerate(zip(bgpu, bcpu)) if g != c]
+        if bad:
+            _fail(f"band path {name}: cuda AUs differ from the cpu run's at frames {bad}")
+        tiles = benc.bands * benc.cols
+        if (benc.bands, benc.cols) != (4, kw.get("cols", 1)):
+            _fail(f"band path {name}: carve {benc.bands}x{benc.cols}")
+        want = [0 if st.idr or st.upload_kind == "static" else tiles for _, st in bgpu]
+        if per_frame != want or launched != sum(want):
+            _fail(f"band path {name}: me_mc launches {per_frame}, want {want}")
+        band_launches[name], band_p[name] = launched, _p_frames(bgpu)
+        band_rec[name] = {
+            "carve": f"{benc.bands}x{benc.cols}", "me_mc_launches": launched,
+            "launches_per_frame": per_frame, "bytes": [st.bytes for _, st in bgpu],
+            "modes": [st.downlink_mode for _, st in bgpu],
+            "kinds": "".join("I" if st.idr else "S" if st.upload_kind == "static" else "P"
+                             for _, st in bgpu),
+            "sha256": [h for h, _ in bgpu], "cuda_s": cuda_s, "cpu_s": cpu_s}
+    if "cabac" not in band_rec["cabac_device_bands4"]["modes"]:
+        _fail(f"band path: no CABAC band shipped device tokens "
+              f"{band_rec['cabac_device_bands4']['modes']}")
+    # 4K on the card alone: the grid against its band oracle, one band
+    # against the solo encoder
+    k4 = _band_trace(3840, 2160)[:6]
+    k4_runs = {}
+    for name, make in (
+            ("grid3x2", lambda: TorchBandedH264Encoder(3840, 2160, qp=28, bands=3, cols=2,
+                                                       device="cuda")),
+            ("bands3", lambda: TorchBandedH264Encoder(3840, 2160, qp=28, bands=3,
+                                                      device="cuda")),
+            ("bands1", lambda: TorchBandedH264Encoder(3840, 2160, qp=28, bands=1,
+                                                      device="cuda")),
+            ("solo", lambda: TorchH264Encoder(3840, 2160, qp=28, frame_batch=1,
+                                              pipeline_depth=0, ltr_scenes=False,
+                                              scene_qp_boost=0, device="cuda"))):
+        kenc = make()
+        me_mc.launches = 0
+        tc = time.perf_counter()
+        rows, per_frame = _drive_band(kenc, k4)
+        torch.cuda.synchronize()
+        k4_runs[name] = {"sha256": [h for h, _ in rows], "bytes": [st.bytes for _, st in rows],
+                         "launches_per_frame": per_frame, "cuda_s": time.perf_counter() - tc,
+                         "carve": f"{getattr(kenc, 'bands', 1)}x{getattr(kenc, 'cols', 1)}"}
+        kenc.close()
+    for x, y in (("grid3x2", "bands3"), ("bands1", "solo")):
+        bad = [i for i, (p, q) in enumerate(zip(k4_runs[x]["sha256"], k4_runs[y]["sha256"]))
+               if p != q]
+        if bad:
+            _fail(f"4K: {x} AUs differ from {y} at frames {bad}")
+    if k4_runs["grid3x2"]["carve"] != "3x2" or max(k4_runs["grid3x2"]["launches_per_frame"]) != 6:
+        _fail(f"4K grid: carve {k4_runs['grid3x2']['carve']}, launches "
+              f"{k4_runs['grid3x2']['launches_per_frame']}")
+    k4_enc = TorchBandedH264Encoder(3840, 2160, bands=4, device="cuda")
+    k4_bands4 = (k4_enc.bands, k4_enc.cols)
+    k4_enc.close()
+    if k4_bands4 != (3, 1):
+        _fail(f"4K bands=4 resolved to {k4_bands4}, not 3 bands (135 MB rows)")
+    band_s = time.perf_counter() - t0
+    print(f"band path 1920x1080 ({len(btrace)} frames {band_rec['bands4']['kinds']}): bands4, "
+          f"bands4_cols2 and cabac_device_bands4 AUs sha256-equal cuda vs cpu; me_mc launches "
+          f"{band_launches} (= bands x cols per non-static P frame); modes "
+          f"{json.dumps({k: v['modes'] for k, v in band_rec.items()})}; bytes "
+          f"{json.dumps({k: v['bytes'] for k, v in band_rec.items()})}; 4K 3840x2160: grid "
+          f"3x2 = bands 3, bands 1 = solo encoder, bands=4 -> {k4_bands4[0]} bands, bytes "
+          f"{k4_runs['grid3x2']['bytes']}; launches grid3x2 "
+          f"{k4_runs['grid3x2']['launches_per_frame']}; {band_s:.1f} s")
+    record["band_path"] = {"1080p": band_rec, "4k": k4_runs, "4k_bands4": k4_bands4,
+                           "seconds": band_s}
+    print(f"phases 1-8: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
-    # -- 8. timing
+    # -- 9. timing
     args = _me_inputs(cases["uniform"], dev)
     ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50, hold=True)
     issued_ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50)
@@ -1028,6 +1284,30 @@ def main() -> int:
     record["entropy_timing"] = ent_t
     print(f"entropy plane at 1080p ({card}, {power_limit}): " + json.dumps(ent_t))
 
+    # band and tile slicing against the flat solo encoder: 1080p full motion
+    # (10 scrolls), and the 4K grid
+    scrolls = _scroll_run(W, H, 10)
+    band_t = {}
+    for name, make in (
+            # no tile cache: full motion is full P frames, as in the banded path
+            ("solo_flat", lambda: TorchH264Encoder(W, H, qp=28, device="cuda", tile_cache=0,
+                                                   **flat_host)),
+            ("bands4", lambda: TorchBandedH264Encoder(W, H, qp=28, bands=4, device="cuda")),
+            ("grid2x2", lambda: TorchBandedH264Encoder(W, H, qp=28, bands=2, cols=2,
+                                                       device="cuda"))):
+        benc = make()
+        band_t[name] = _time_band_split(benc, scrolls)
+        if name != "grid2x2":
+            band_t[name]["profile_p"] = _profile_frames(
+                benc, scrolls, False, 4, feed=lambda i: scrolls[3 + i % 2])
+        benc.close()
+    k4enc = TorchBandedH264Encoder(3840, 2160, qp=28, bands=3, cols=2, device="cuda")
+    band_t["4k_grid3x2"] = _time_band_split(k4enc, _scroll_run(3840, 2160, 6), n_idr=2)
+    k4enc.close()
+    record["band_timing"] = band_t
+    print(f"band and tile slicing, 1080p full motion and 4K ({card}, {power_limit}): "
+          + json.dumps(band_t))
+
     kernels = [{
         "name": "me_mc", "route": "cuda", "source": "selkies_tpu_torch/csrc/me_mc.cu",
         "replaces": me_mc.REPLACES, "launches": launches, "max_abs_err": max_err,
@@ -1044,6 +1324,10 @@ def main() -> int:
         "launches_per_p_frame_registry_path": reg_launches / reg_p,
         "launches_entropy_path": a_k1 + b_k1 + c_k1 + d_k1,
         "launches_entropy_path_per_run": {"a": a_k1, "b": b_k1, "c": c_k1, "d": d_k1},
+        "launches_band_path": sum(band_launches.values()),
+        "launches_per_p_frame_band_path": {k: band_launches[k] / band_p[k]
+                                           for k in band_launches},
+        "launches_band_path_per_run": band_launches,
         "card": card, "power_limit": power_limit,
     }]
     record["kernels"] = kernels

@@ -362,6 +362,20 @@ def _p_scatter_multi_step2(packed, qps, sy, su, sv, py, pu, pv, ref_y, ref_u, re
     return prefixes, denses, bufs, ry, ru, rv, y, u, v, py, pu, pv
 
 
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host-to-device copy. On the card it is staged into pinned memory
+    and enqueued (``non_blocking``): a blocking copy ends in a stream
+    synchronise, which would wait for the steps of the frames in flight.
+    PyTorch's caching host allocator keeps each pinned block until its copy
+    is done, so the source buffer may be reused at once. On the CPU it is a
+    copy too: the resident planes are written in place and must not alias
+    host buffers."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, copy=True)
+
+
 class _Fetch:
     """One downlink buffer's device-to-host copy.
 
@@ -442,9 +456,10 @@ class TorchH264Encoder:
     ``device="cpu"`` to run on the CPU. Keyword names, defaults and env
     defaults (``SELKIES_TILE_CACHE``, ``SELKIES_PACK_DENSITY``,
     ``SELKIES_PACK_WORKERS``, ``SELKIES_DEVICE_ENTROPY``,
-    ``SELKIES_BITS_MIN_MBS``, ``SELKIES_ENTROPY_CODER`` and FramePrep's) are
-    the JAX encoder's; the AUTO values resolve as on the JAX encoder's CPU
-    backend (device entropy off, CAVLC). The device-conversion path keeps
+    ``SELKIES_BITS_MIN_MBS``, ``SELKIES_ENTROPY_CODER``, ``SELKIES_BANDS``
+    and FramePrep's) are the JAX encoder's; the AUTO values resolve as on
+    the JAX encoder's CPU backend (device entropy off, CAVLC). The
+    device-conversion path keeps
     the coder but never device entropy. ``submit`` returns the frames that
     completed, oldest first; ``flush`` completes the rest."""
 
@@ -461,7 +476,7 @@ class TorchH264Encoder:
                  entropy_coder: str | None = None, ltr_scenes: bool = True,
                  tile_cache: int | None = None,
                  packed_downlink: bool | None = None, pack_density: int | None = None,
-                 device=None):
+                 bands: int | None = None, device=None):
         if channels not in (3, 4):
             raise ValueError(f"channels must be 3 (RGB) or 4 (BGRx), got {channels}")
         self.device = resolve_device(device)
@@ -484,6 +499,14 @@ class TorchH264Encoder:
         self._hdr_words_i = i_header_words(self._mbh, self._mbw)
         self._hdr_words_p = p_header_words(self._mbh, self._mbw)
         self.pipeline_depth = max(0, int(pipeline_depth))
+        # intra-frame slicing is TorchBandedH264Encoder's (parallel/bands.py);
+        # here ``bands`` only sizes the pack pool, for a caller that runs one
+        # instance per band. Imported here: parallel.bands imports this module
+        if bands is None:
+            from selkies_tpu_torch.parallel.bands import bands_from_env
+
+            bands = bands_from_env()
+        self.bands = int(bands)
         # the sparse downlink: bit-packed rows unless SELKIES_PACK_DENSITY=0;
         # explicit arguments win over the env
         dens_env = os.environ.get("SELKIES_PACK_DENSITY", "")
@@ -550,7 +573,8 @@ class TorchH264Encoder:
         pack_workers = int(os.environ.get("SELKIES_PACK_WORKERS", "0") or 0)
         if pack_workers <= 0:
             pack_workers = min(os.cpu_count() or 4,
-                               max(2, self.frame_batch * max(1, self.pipeline_depth)))
+                               max(2, self.bands * self.frame_batch
+                                   * max(1, self.pipeline_depth)))
         self._pack_pool = (ThreadPoolExecutor(max_workers=pack_workers,
                                               thread_name_prefix="h264-pack")
                            if self.frame_batch > 1 else None)
@@ -842,19 +866,8 @@ class TorchH264Encoder:
     # -- uploads and the full steps --
 
     def _put_timed(self, arr: np.ndarray) -> torch.Tensor:
-        """One host-to-device copy. On the card it is staged into pinned
-        memory and enqueued (``non_blocking``): a blocking copy ends in a
-        stream synchronise, which would wait for the steps of the frames in
-        flight. PyTorch's caching host allocator keeps each pinned block
-        until its copy is done, so the source buffer may be reused at once.
-        On the CPU it is a copy too: the resident planes are written in
-        place and must not alias host buffers."""
         t0 = time.perf_counter()
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            out = t.pin_memory().to(self.device, non_blocking=True)
-        else:
-            out = t.to(self.device, copy=True)
+        out = to_device(arr, self.device)
         self._t_h2d_ms += (time.perf_counter() - t0) * 1e3
         return out
 

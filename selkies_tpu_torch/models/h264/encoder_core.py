@@ -24,7 +24,9 @@ Inter: P frames have no spatial dependencies (P_Skip / P_L0_16x16 only),
 so everything is one batched program over the MB grid. The refine
 search + motion compensation goes through ``me_mc.me_mc``, which runs the
 hand-written CUDA kernel on a CUDA tensor and the plain version on a CPU
-tensor.
+tensor. The band and tile steps (``encode_band_p_planes``,
+``encode_tile_p_planes``, driven by ``parallel/bands.py``) run the same P
+step on one band or tile against a halo-extended reference slab.
 """
 
 from __future__ import annotations
@@ -341,17 +343,25 @@ def _downsample4(plane):
     return (s + 8) >> 4
 
 
-def coarse_votes(cur, rd):
+def coarse_votes(cur, rd_ext, halo_dcols: int = 0):
     """Per-MB coarse-rank vote histogram ((2*COARSE_R+1)^2,) int32.
 
-    ``rd`` is the downsampled reference. Each MB's best coarse candidate
-    (min SAD*scale + rank over the +-COARSE_R window, edge-padded after
-    downsampling) casts one vote."""
+    ``rd_ext`` is the downsampled reference, optionally extended by
+    ``halo_dcols`` real neighbour columns each side (a tile of the 2D grid,
+    parallel/bands.py: the extension is made in downsampled space, so a
+    tile's votes equal the full row's, whose edge pad also comes after the
+    downsample). ``halo_dcols=0`` with a full-width plane is the frame and
+    band case. Each MB's best coarse candidate (min SAD*scale + rank over
+    the +-COARSE_R window) casts one vote; the votes of one slice row's
+    tiles sum to the row's histogram."""
     h, w = cur.shape
     mbh, mbw = h // 16, w // 16
+    if not 0 <= halo_dcols <= COARSE_R:
+        raise ValueError(f"halo_dcols {halo_dcols} not in [0, {COARSE_R}]")
     yd = _downsample4(cur)
     hd, wd = yd.shape
-    rp = edge_pad(rd.to(_I32), COARSE_R)
+    px = COARSE_R - halo_dcols  # edge-pad the rest of the horizontal reach
+    rp = edge_pad(rd_ext.to(_I32), COARSE_R, COARSE_R, px, px)
     cands = _me_candidates(COARSE_R)
     n = len(cands)
     scale = 1 << (n - 1).bit_length()
@@ -415,21 +425,31 @@ def hier_candidates(cur, ref_y):
     return _refine_cands(coarse_vote_candidates(cur, ref_y))
 
 
-def hier_me_mc(cur, ref_y, ry_pad, ru_pad, rv_pad):
+def hier_me_mc(cur, ref_y, ry_pad, ru_pad, rv_pad, dy_max: int | None = None,
+               dx_max: int | None = None, coarse=None):
     """Hierarchical ME fused with MC -- the plain PyTorch version.
 
     Coarse vote -> 76 refine candidates -> per-MB min SAD*scale + rank ->
     the winner's full-pel luma and half-pel chroma predictions. Returns
     (mvs (mbh,mbw,2) int32, pred_y, pred_u, pred_v int32), element-exact
-    with numpy_ref.hier_search_me + mc_luma_16x16/mc_chroma_8x8."""
-    return me_mc.me_mc_plain(hier_candidates(cur, ref_y), cur, ry_pad, ru_pad, rv_pad)
+    with numpy_ref.hier_search_me + mc_luma_16x16/mc_chroma_8x8.
+    ``dy_max``/``dx_max`` clamp the candidate window (_refine_cands);
+    ``coarse`` replaces the coarse vote with a given (TOPK, 2) list (the
+    row-merged list of a tile grid, parallel/bands.py)."""
+    if coarse is None:
+        coarse = coarse_vote_candidates(cur, ref_y)
+    return me_mc.me_mc_plain(_refine_cands(coarse, dy_max, dx_max), cur, ry_pad, ru_pad,
+                             rv_pad)
 
 
-def _me_mc_dispatch(y, ref_y, ry, ru, rv):
-    """ME + MC over MV_PAD-padded reference planes: the refine search + MC
-    runs through ``me_mc.me_mc`` (the CUDA kernel for CUDA tensors, the
-    plain version for CPU ones)."""
-    return me_mc.me_mc(hier_candidates(y, ref_y), y, ry, ru, rv)
+def _me_mc_dispatch(y, ref_y, ry, ru, rv, dy_max: int | None = None,
+                    dx_max: int | None = None, coarse=None):
+    """ME + MC over MV_PAD-padded reference planes (the frame, band and
+    tile steps): the refine search + MC runs through ``me_mc.me_mc`` (the
+    CUDA kernel for CUDA tensors, the plain version for CPU ones)."""
+    if coarse is None:
+        coarse = coarse_vote_candidates(y, ref_y)
+    return me_mc.me_mc(_refine_cands(coarse, dy_max, dx_max), y, ry, ru, rv)
 
 
 def _plane_to_mb_blocks(plane, n: int):
@@ -481,8 +501,12 @@ def _all_zero(x, ndims: int):
     return ~(x != 0).flatten(-ndims).any(-1)
 
 
-def _p_transform_tail(y, u, v, qp: int, mvs, pred_y, pred_u, pred_v) -> dict:
-    """Transform + quant + recon + skip derivation -- everything after ME/MC."""
+def _p_transform_tail(y, u, v, qp: int, mvs, pred_y, pred_u, pred_v,
+                      defer_skip: bool = False) -> dict:
+    """Transform + quant + recon + skip derivation -- everything after ME/MC.
+    ``defer_skip`` returns ``resid_zero`` (the residual-free mask) instead
+    of ``skip``, for a tile grid that derives P_Skip on the row-merged MV
+    grid (the left neighbour of a tile's first column is in the next tile)."""
     qp_c = _chroma_qp(qp)
     # Luma: plain 4x4 transform, all 16 coeffs (no DC Hadamard in inter MBs)
     wy = fdct4(_plane_to_mb_blocks(y - pred_y, 4))
@@ -502,9 +526,11 @@ def _p_transform_tail(y, u, v, qp: int, mvs, pred_y, pred_u, pred_v) -> dict:
     cr_dc, cr_ac, rec_v = chroma(v, pred_v)
     resid_zero = (_all_zero(luma_ac, 4) & _all_zero(cb_dc, 2) & _all_zero(cr_dc, 2)
                   & _all_zero(cb_ac, 4) & _all_zero(cr_ac, 4))
+    skip_kv = ({"resid_zero": resid_zero} if defer_skip
+               else {"skip": _skip_mask(mvs, resid_zero)})
     return {
         "mvs": mvs,
-        "skip": _skip_mask(mvs, resid_zero),
+        **skip_kv,
         "luma_ac": luma_ac,
         "chroma_dc": torch.stack([cb_dc, cr_dc], dim=2),
         "chroma_ac": torch.stack([cb_ac, cr_ac], dim=2),
@@ -527,6 +553,62 @@ def encode_frame_p_planes(y, u, v, ref_y, ref_u, ref_v, qp: int) -> dict:
     rv = edge_pad(ref_v, MV_PAD)
     mvs, pred_y, pred_u, pred_v = _me_mc_dispatch(y, ref_y, ry, ru, rv)
     return _p_transform_tail(y, u, v, int(qp), mvs, pred_y, pred_u, pred_v)
+
+
+def encode_band_p_planes(y, u, v, slab_y, slab_u, slab_v, qp: int, halo: int) -> dict:
+    """Band-sliced P encode: one horizontal band against its reference
+    slab (parallel/bands.py). ``slab_y`` holds the band's reference rows
+    plus ``halo`` real rows above and below (edge-replicated at the picture
+    edges, as the decoder clamps); the chroma slabs hold ``halo // 2``.
+    ``halo=0`` with the full reference as the slab is encode_frame_p_planes
+    (the one-band identity); a real band needs an even halo in
+    [REFINE_R + 2, MV_PAD], and below the full reach the candidate window is
+    clamped to ``halo - 2`` rows so that no chosen prediction reads a
+    replicated slab row. See encode_tile_p_planes."""
+    return encode_tile_p_planes(y, u, v, slab_y, slab_u, slab_v, qp, halo=halo)
+
+
+def encode_tile_p_planes(y, u, v, slab_y, slab_u, slab_v, qp: int, halo: int,
+                         halo_cols: int = 0, coarse=None, defer_skip: bool = False) -> dict:
+    """Tile-sliced P encode: one tile against a 2D reference slab, ``halo``
+    real rows above and below and ``halo_cols`` real columns left and right
+    (chroma: half of each). ``halo_cols=0`` with a full-width slab is the
+    band case. The validity rule for either halo: even, and 0 (the slab
+    spans the whole reference on that axis) or in [REFINE_R + 2, MV_PAD];
+    below the full reach (COARSE_DS*COARSE_R + REFINE_R + 2 = 36) the
+    window on that axis is clamped to ``halo - 2``.
+
+    ``coarse`` injects a (TOPK, 2) coarse list: a tile grid sums the vote
+    histograms of one slice row's tiles and selects once, so every tile
+    refines the candidates of the full-row encoder. ``defer_skip`` returns
+    ``resid_zero`` instead of ``skip`` (_p_transform_tail)."""
+    if halo % 2 or not 0 <= halo <= MV_PAD or 0 < halo < REFINE_R + 2:
+        raise ValueError(
+            f"halo {halo} must be even and 0 (full-reference slab) or in "
+            f"[{REFINE_R + 2}, {MV_PAD}]")
+    if halo_cols % 2 or not 0 <= halo_cols <= MV_PAD or 0 < halo_cols < REFINE_R + 2:
+        raise ValueError(
+            f"halo_cols {halo_cols} must be even and 0 (full-width slab) or "
+            f"in [{REFINE_R + 2}, {MV_PAD}]")
+    y, u, v = y.to(_I32), u.to(_I32), v.to(_I32)
+    vt, vtc = MV_PAD - halo, MV_PAD - halo // 2
+    ht, htc = MV_PAD - halo_cols, MV_PAD - halo_cols // 2
+    ry = edge_pad(slab_y, vt, vt, ht, ht)
+    ru = edge_pad(slab_u, vtc, vtc, htc, htc)
+    rv = edge_pad(slab_v, vtc, vtc, htc, htc)
+    # the tile's own reference, for the coarse vote when no list is given
+    ref_y = slab_y[halo:slab_y.shape[0] - halo] if halo else slab_y
+    if halo_cols:
+        ref_y = ref_y[:, halo_cols:ref_y.shape[1] - halo_cols]
+    # a halo of the full reach plus the chroma bilinear's one extra row or
+    # column covers every candidate; halo 0 is the whole reference
+    full_reach = COARSE_DS * COARSE_R + REFINE_R + 2
+    dy_max = None if halo == 0 or halo >= full_reach else halo - 2
+    dx_max = None if halo_cols == 0 or halo_cols >= full_reach else halo_cols - 2
+    mvs, pred_y, pred_u, pred_v = _me_mc_dispatch(y, ref_y, ry, ru, rv, dy_max=dy_max,
+                                                  dx_max=dx_max, coarse=coarse)
+    return _p_transform_tail(y, u, v, int(qp), mvs, pred_y, pred_u, pred_v,
+                             defer_skip=defer_skip)
 
 
 # ---------------------------------------------------------------------------

@@ -107,7 +107,9 @@ def complete_sparse_slice(
     ltr_ref: int | None = None,
     mark_ltr: int | None = None,
     mmco_evict: tuple = (),
+    first_mb: int = 0,
     entropy_coder: str = "cavlc",
+    cabac_init_idc: int = 0,
 ) -> tuple[bytes, int, float, str]:
     """One P slice's fetched sparse prefix -> (nal, skipped_mbs,
     t_unpacked, downlink_mode).
@@ -119,7 +121,8 @@ def complete_sparse_slice(
     else ``down_prefix``. ``downlink_mode`` is "bits" / "cabac" (the
     device-coded payload), "coeff", or "dense" when the dense-header
     fallback ran. ``ltr_ref``, ``mark_ltr`` and ``mmco_evict`` go to the
-    slice header (the LTR scene cache)."""
+    slice header (the LTR scene cache), as do ``first_mb`` (a band's first
+    macroblock, parallel/bands.py) and ``cabac_init_idc``."""
     off = 0
     if device_bits:
         mode, nbits, trailing, nskip, ns = p_sparse_entropy_meta(fused)
@@ -139,7 +142,8 @@ def complete_sparse_slice(
             t_unpacked = time.perf_counter()
             nal = assemble_p_cabac_nal(words, ntok, counts, skip, params, frame_num, qp,
                                        ltr_ref=ltr_ref, mark_ltr=mark_ltr,
-                                       mmco_evict=mmco_evict)
+                                       mmco_evict=mmco_evict, first_mb=first_mb,
+                                       cabac_init_idc=cabac_init_idc)
             return nal, nskip, t_unpacked, "cabac"
         if mode == 1:
             nw = (nbits + 31) // 32
@@ -149,7 +153,7 @@ def complete_sparse_slice(
                 np.uint32)
             t_unpacked = time.perf_counter()
             nal = assemble_p_nal(words, nbits, trailing, params, frame_num, qp, ltr_ref=ltr_ref,
-                                 mark_ltr=mark_ltr, mmco_evict=mmco_evict)
+                                 mark_ltr=mark_ltr, mmco_evict=mmco_evict, first_mb=first_mb)
             return nal, nskip, t_unpacked, "bits"
         # mode 0: the sparse coefficient layout at an offset
         off = ENTROPY_META16
@@ -187,17 +191,19 @@ def complete_sparse_slice(
     t_unpacked = time.perf_counter()
     if wire is not None:
         nal = pack_slice_p_sparse_native(wire, params, frame_num, qp, ltr_ref=ltr_ref,
-                                         mark_ltr=mark_ltr, mmco_evict=mmco_evict)
+                                         mark_ltr=mark_ltr, mmco_evict=mmco_evict,
+                                         first_mb=first_mb)
         skipped = mbh * mbw - wire.ns
     elif entropy_coder == "cabac":
         # a Main-profile stream cannot carry CAVLC slices (the PPS sets
         # entropy_coding_mode_flag): coefficients go through the host CABAC
         # coder
         nal = pack_slice_p_cabac(pfc, params, frame_num, ltr_ref=ltr_ref, mark_ltr=mark_ltr,
-                                 mmco_evict=mmco_evict)
+                                 mmco_evict=mmco_evict, first_mb=first_mb,
+                                 cabac_init_idc=cabac_init_idc)
         skipped = int(pfc.skip.sum())
     else:
         nal = pack_slice_p_fast(pfc, params, frame_num=frame_num, ltr_ref=ltr_ref,
-                                mark_ltr=mark_ltr, mmco_evict=mmco_evict)
+                                mark_ltr=mark_ltr, mmco_evict=mmco_evict, first_mb=first_mb)
         skipped = int(pfc.skip.sum())
     return nal, skipped, t_unpacked, mode

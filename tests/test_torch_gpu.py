@@ -487,3 +487,106 @@ def test_pipelined_device_entropy_submit_never_syncs(coder):
         dict.fromkeys(on_submit))
     assert len(outs) == len(frames) - 3
     assert {"bits" if coder == "cavlc" else "cabac"} <= {st.downlink_mode for _, st, _ in outs}
+
+
+# -- band and tile slicing (selkies_tpu_torch/parallel/bands.py) ----------
+
+def _band_frames(w=336, h=192, seed=31):
+    """IDR, a vertical scroll across the band seams, a horizontal one across
+    the column seams with a new block, a static repeat, one dirty MB."""
+    rng = np.random.default_rng(seed)
+    f0 = np.kron(rng.integers(0, 256, (h // 16, w // 16, 4), np.uint8),
+                 np.ones((16, 16, 1), np.uint8))
+    f0[::3, ::5, :3] = rng.integers(0, 255, f0[::3, ::5, :3].shape, np.uint8)
+    f1 = np.roll(f0, 22, 0).copy()
+    f2 = np.roll(f1, -30, 1).copy()
+    f2[40:104, 90:150] = rng.integers(0, 256, (64, 60, 4), np.uint8)
+    quiet = f2.copy()
+    quiet[150:158, 20:36] ^= 0x40
+    return [f0, f1, f2, f2.copy(), quiet]
+
+
+_BAND_CFGS = {
+    "bands4": dict(bands=4),
+    "grid4x3": dict(bands=4, cols=3),
+    "cabac_device_bands4": dict(bands=4, entropy_coder="cabac", device_entropy=True,
+                                bits_min_mbs=4),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_BAND_CFGS))
+def test_banded_encoder_cuda_matches_cpu(name):
+    """336x192 (12 MB rows -> 4 bands of 3; 21 MB columns -> 3 tiles of 7):
+    the card's AUs equal the CPU run's, and K1 launches once per band and
+    tile of every non-static P frame."""
+    _need_card()
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+
+    frames = _band_frames()
+
+    def drive(dev):
+        enc = TorchBandedH264Encoder(336, 192, qp=30, device=dev, **_BAND_CFGS[name])
+        out, launches = [], []
+        for f in frames:
+            before = me_mc.launches
+            au = enc.encode_frame(f)
+            st = enc.last_stats
+            launches.append(me_mc.launches - before)
+            out.append((hashlib.sha256(au).hexdigest(), st.idr, st.upload_kind,
+                        st.downlink_mode))
+        enc.close()
+        return out, launches, enc.bands * enc.cols
+
+    got, launches, tiles = drive("cuda")
+    want, _, _ = drive("cpu")
+    assert got == want
+    assert tiles == (12 if name == "grid4x3" else 4)
+    p = [not idr and kind != "static" for _, idr, kind, _ in got]
+    assert launches == [tiles if is_p else 0 for is_p in p]
+    if name.startswith("cabac"):
+        assert "cabac" in {m for *_, m in got}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bands4", "grid4x3"])
+def test_banded_dispatch_never_syncs(name):
+    """dispatch_frame of a banded P frame (upload, step, the downlink
+    copies enqueued) makes no synchronising CUDA call: torch's sync debug
+    mode warns on each, recorded here by thread. complete_frame waits on
+    the bands' events and is not counted."""
+    _need_card()
+    import threading
+    import traceback
+    import warnings
+
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+
+    frames = _band_frames()
+    enc = TorchBandedH264Encoder(336, 192, qp=30, device="cuda", **_BAND_CFGS[name])
+    for f in frames[:2]:  # warm-up: tables reach the card, the kernel builds
+        enc.encode_frame(f)
+    me = threading.get_ident()
+    seen = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        seen.append((threading.get_ident(), str(message),
+                     "".join(traceback.format_stack(limit=8)[:-1])))
+
+    aus = []
+    for f in frames[2:]:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pending = enc.dispatch_frame(f)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        aus.append(enc.complete_frame(pending))
+    enc.close()
+    on_submit = [st for tid, m, st in seen
+                 if tid == me and "called a synchronizing CUDA operation" in m]
+    assert not on_submit, f"{len(on_submit)} syncs; first at:\n" + "\n".join(
+        dict.fromkeys(on_submit))
+    assert len(aus) == 3 and all(au.startswith(b"\x00\x00\x00\x01") for au in aus)
