@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-8 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-9 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -18,7 +18,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    width whose last strip of 8 MBs is ragged (1376x768), and at the band
    path's 4K shapes: a 720x1920 tile of the 3x2 grid and a 720x3840 band,
    each on its reference slab, unclamped and clamped by 16-pixel halos,
-   and the whole 2160x3840 frame: every output exactly equal;
+   and the whole 2160x3840 frame; and the batched kernel (one launch over
+   a session axis, each session with its own seeded motion and candidate
+   list) against its batched plain version at 8 x 1088x1920 and at
+   3 x 768x1376: every output exactly equal;
 4. the device-conversion path: TorchH264Encoder(1920, 1080,
    host_convert=False, pipeline_depth=0, frame_batch=1, device="cuda")
    over a seeded desktop-like trace
@@ -71,7 +74,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    3840x2160 on the card alone: cols=2, bands=3 (45x120-MB tiles) must give
    the AUs of bands=3, bands=1 those of TorchH264Encoder(frame_batch=1,
    pipeline_depth=0, ltr_scenes=False), and bands=4 must resolve to 3;
-9. time the kernel with CUDA events over 50 launches queued behind a spin
+9. multi-session serving (TorchMultiSessionH264Service, selkies_tpu_torch/
+   parallel/serving.py): (a) 8 sessions of 1920x1088, qp 28, over a seeded
+   6-tick trace (an IDR tick, two P ticks where each session scrolls or
+   types its own desktop, set_qp on two sessions and a forced keyframe on
+   one, a mixed tick with two forced sessions, a P tick), counters zeroed
+   just before: every session's AUs must equal a solo TorchH264Encoder
+   (host_convert=False, frame_batch=1, pipeline_depth=0) fed the same
+   frames, QPs and keyframes, and K1 must launch exactly once per tick
+   with a P session; (b) the same trace at 4 x 640x368 must equal the
+   port's CPU run of the service;
+10. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
    host-conversion encoder's median FrameStats split per frame kind
@@ -91,8 +104,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    FrameStats split per frame kind (step, per-band step min/max, fetch,
    unpack, pack, AU, up and down bytes) of the flat solo encoder, bands=4,
    a 2x2 grid and the 4K 3x2 grid, and the device ops and idle share of
-   solo and bands=4 P frames (torch.profiler);
-10. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   solo and bands=4 P frames (torch.profiler); the multi-session service
+   at 1, 2, 4 and 8 sessions of 1920x1088 on full motion: the IDR tick,
+   the median P tick split (convert / h2d / dispatch / step / fetch /
+   pack ms), frames per second, a mixed tick with one IDR, the device ops
+   and idle share per P tick (torch.profiler; an 8-session tick must issue
+   at most 1.25x the 1-session tick's ops) and peak device memory; the
+   same frames through 8 solo flat encoders in turn; and the batched
+   kernel at 8 x 1088x1920 by CUDA events against its byte bound;
+11. print the ``{"kernels": [...]}`` line (K1 at the solo shape and as the
+    8-session launch), then the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -672,30 +693,7 @@ def _profile_frames(enc, frames, idr: bool, n: int, feed=None, expect: str = "")
     for i, (_, st, _) in enumerate(outs):
         if expect and st.upload_kind != expect:
             _fail(f"profiled frame {i} is {st.upload_kind}, not {expect}")
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        return {"frames": n, "wall_ms": wall_ms, "device_busy_ms": "not measured"}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy_us, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
-    by_name: dict[str, list] = {}
-    for e in dev:
-        row = by_name.setdefault(e.name, [0.0, 0])
-        row[0] += e.time_range.elapsed_us() / 1e3
-        row[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    k1 = [v for k, v in by_name.items() if "me_mc_kernel" in k]
-    return {"frames": n, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-            "device_ops": len(dev),
-            "me_mc_kernel": {"ms": sum(v[0] for v in k1), "count": sum(v[1] for v in k1)},
-            "top": [{"name": k[:80], "ms": v[0], "count": v[1]} for k, v in top]}
+    return {"frames": n, **_device_activity(prof, wall_ms)}
 
 
 def _profile_host_deltas(enc, n: int) -> dict:
@@ -812,6 +810,220 @@ def _scroll_run(w: int, h: int, n: int):
     return [base] + [np.roll(base, -24 * (k + 1), 0) for k in range(n)]
 
 
+SW, SH = 1920, 1088  # the multi-session geometry (MB-aligned, as JAX requires)
+
+
+def _batch_me_inputs(n: int, h: int, w: int, seed: int, dev):
+    """The batched kernel's inputs for n sessions, each with its own seeded
+    content, motion and noise, and its own coarse-voted candidate list
+    (built as the batched P step builds them)."""
+    import torch
+
+    from selkies_tpu_torch.models.h264 import encoder_core as core
+
+    rng = np.random.default_rng(seed)
+    planes = [_planes(h, w, seed + i, tuple(int(x) for x in rng.integers(-34, 35, 2)),
+                      int(rng.integers(0, 13)), dev) for i in range(n)]
+    cur, ref, cu, cv = (torch.stack(t) for t in zip(*planes))
+    cands = core._refine_cands(core.coarse_vote_candidates(cur, ref))
+    return (cands, cur, *(core.edge_pad(p, core.MV_PAD) for p in (ref, cu, cv)))
+
+
+def _session_base(i: int, w: int, h: int):
+    """Session i's desktop: a block wallpaper with glyph rows, its own seed."""
+    rng = np.random.default_rng(3000 + i)
+    base = np.kron(rng.integers(30, 220, (h // 16, w // 16, 4), np.uint8),
+                   np.ones((16, 16, 1), np.uint8))
+    glyphs = rng.integers(0, 2, (h // 4, w // 2, 1), np.uint8) * 180
+    base[::4, ::2, :3] = np.minimum(base[::4, ::2, :3] + glyphs, 255)
+    return base
+
+
+def _session_frame(base, i: int, t: int):
+    """Session i's frame at tick t: even sessions scroll by 8 + 4i rows a
+    tick, odd ones type a new 16-row line a tick on a pan of 2 columns."""
+    h, w = base.shape[:2]
+    if i % 2 == 0:
+        return np.roll(base, -(8 + 4 * i) * t, 0)
+    f = np.roll(base, 2 * t, 1)
+    lw = min(400, w - 64)
+    for k in range(1, t + 1):
+        r = (48 + 32 * k + 16 * i) % (h - 16)
+        f[r:r + 16, 64:64 + lw, :3] = np.random.default_rng(4000 + 10 * i + k).integers(
+            0, 255, (16, lw, 3), np.uint8)
+    return f
+
+
+# the multi-session phase's ops before each tick: ("qp", session, qp),
+# ("key", session); tick 0 keys every session, ticks 1-2 are P ticks
+SESSION_OPS = {3: [("qp", 1, 24), ("qp", 2, 34), ("key", 3)], 4: [("key", 5), ("key", 6)]}
+SESSION_TICKS = 6
+
+
+def _drive_sessions(svc, bases):
+    """-> (per tick the sessions' AU sha256s, per tick K1 launches, per
+    session its QP per tick, the forced ticks per session)."""
+    from selkies_tpu_torch.models.h264 import me_mc
+
+    n = len(bases)
+    shas, launches = [], []
+    qps = {i: [] for i in range(n)}
+    forced = {i: [] for i in range(n)}
+    for t in range(SESSION_TICKS):
+        for op in SESSION_OPS.get(t, ()):
+            if op[1] >= n:
+                continue
+            if op[0] == "qp":
+                svc.set_qp(op[1], op[2])
+            else:
+                svc.force_keyframe(op[1])
+                forced[op[1]].append(t)
+        for i in range(n):
+            qps[i].append(svc.sessions[i].qp)
+        batch = np.stack([_session_frame(b, i, t) for i, b in enumerate(bases)])
+        k0 = me_mc.launches
+        aus = svc.encode_tick(batch)
+        launches.append(me_mc.launches - k0)
+        if not all(au.startswith(b"\x00\x00\x00\x01") for au in aus):
+            _fail(f"session tick {t}: an access unit is not Annex-B")
+        shas.append([hashlib.sha256(au).hexdigest() for au in aus])
+    return shas, launches, qps, forced
+
+
+def _device_activity(prof, wall_ms: float) -> dict:
+    """torch.profiler's device events -> busy ms (kernel and copy intervals,
+    merged), idle share, op count, K1's share and the costliest kernels.
+    "not measured" when the profiler reports no device activity."""
+    import torch
+
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    by_name: dict[str, list] = {}
+    for e in dev:
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += e.time_range.elapsed_us() / 1e3
+        row[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    k1 = [v for k, v in by_name.items() if "me_mc_kernel" in k]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "device_ops": len(dev),
+            "me_mc_kernel": {"ms": sum(v[0] for v in k1), "count": sum(v[1] for v in k1)},
+            "top": [{"name": k[:80], "ms": v[0], "count": v[1]} for k, v in top]}
+
+
+def _scrolled(bases, t: int) -> list:
+    """The full-motion timing trace at tick t: session i scrolls its
+    desktop by 8 + 2i rows a tick (all within the search's reach of 34)."""
+    return [np.roll(b, -(8 + 2 * i) * t, 0) for i, b in enumerate(bases)]
+
+
+def _time_sessions(n: int, p_ticks: int = 6, prof_ticks: int = 3) -> dict:
+    """The service at n sessions of 1920x1088 on full motion (_scrolled):
+    the IDR tick, the median
+    split of p_ticks back-to-back P ticks after two warm-up ticks, frames
+    per second over them (n x ticks / s), a mixed tick with one IDR, the
+    device ops and idle share per P tick over prof_ticks more
+    (torch.profiler) and the peak device memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+
+    bases = [_session_base(i, SW, SH) for i in range(n)]
+
+    def batch(t):
+        return np.stack(_scrolled(bases, t))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    svc = TorchMultiSessionH264Service(n, SW, SH, qp=28, device="cuda")
+    t0 = time.perf_counter()
+    svc.encode_tick(batch(0))
+    out = {"sessions": n, "idr_tick_ms": (time.perf_counter() - t0) * 1e3,
+           "idr_tick": dict(svc.last_timing)}
+    for t in (1, 2):
+        svc.encode_tick(batch(t))
+    p = [batch(t) for t in range(3, 3 + p_ticks)]
+    rows = []
+    k0 = me_mc.launches
+    t0 = time.perf_counter()
+    for b in p:
+        svc.encode_tick(b)
+        rows.append(dict(svc.last_timing))
+    wall = time.perf_counter() - t0
+    if me_mc.launches - k0 != p_ticks:
+        _fail(f"sessions {n}: K1 launched {me_mc.launches - k0} times in {p_ticks} P ticks")
+    out["p_tick"] = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    out["p_tick_wall_ms"] = wall * 1e3 / p_ticks
+    out["fps"] = n * p_ticks / wall
+    del p
+    svc.force_keyframe(0)
+    t0 = time.perf_counter()
+    svc.encode_tick(batch(3 + p_ticks))
+    out["mixed_tick_ms"] = (time.perf_counter() - t0) * 1e3
+    out["mixed_tick"] = dict(svc.last_timing)
+    pb = [batch(t) for t in range(4 + p_ticks, 4 + p_ticks + prof_ticks)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in pb:
+            svc.encode_tick(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    act = _device_activity(prof, wall_ms)
+    act["ticks"] = prof_ticks
+    if isinstance(act.get("device_ops"), int):
+        act["device_ops_per_tick"] = act["device_ops"] / prof_ticks
+    out["profile_p"] = act
+    out["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    svc.close()
+    return out
+
+
+def _time_solo_in_turn(n: int, p_ticks: int = 6) -> dict:
+    """The frames of _time_sessions(n) through n solo flat encoders
+    (host conversion, no tile cache: full P frames, as the service codes
+    them), stepped in turn: the IDR tick, and per P tick the wall time of
+    the n encodes after two warm-up ticks."""
+    import torch
+
+    from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
+
+    bases = [_session_base(i, SW, SH) for i in range(n)]
+    encs = [TorchH264Encoder(SW, SH, qp=28, device="cuda", tile_cache=0, frame_batch=1,
+                             pipeline_depth=0, ltr_scenes=False) for _ in range(n)]
+
+    def tick(t):
+        frames = _scrolled(bases, t)
+        t0 = time.perf_counter()
+        for e, f in zip(encs, frames):
+            e.encode_frame(f)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {"sessions": n, "idr_tick_ms": tick(0)}
+    tick(1)
+    tick(2)
+    ms = [tick(t) for t in range(3, 3 + p_ticks)]
+    out["p_tick_ms"] = statistics.median(ms)
+    out["fps"] = n * 1e3 / statistics.mean(ms)
+    for e in encs:
+        e.close()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -893,6 +1105,26 @@ def main() -> int:
               f"({args[0].shape[0]} candidates, {nz} MBs with nonzero MV)")
         record.setdefault("me_mc_checks", {})[name] = {
             "cur": [h, w], "ref": list(args[2].shape), "candidates": args[0].shape[0],
+            "nonzero_mv_mbs": nz}
+    # the session axis: one launch over every session, each with its own
+    # motion and candidate list (the multi-session tick's shapes)
+    batch_cases = {"batch8_1088x1920": (8, 1088, 1920, 20), "batch3_768x1376": (3, 768, 1376, 30)}
+    for name, (n, h, w, seed) in batch_cases.items():
+        args = _batch_me_inputs(n, h, w, seed, dev)
+        got = me_mc.me_mc_batch(*args)
+        want = me_mc.me_mc_batch_plain(*args)
+        torch.cuda.synchronize()
+        for out_name, a, b in zip(("mvs", "pred_y", "pred_u", "pred_v"), got, want):
+            err = int((a.long() - b.long()).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                _fail(f"me_mc_batch {name}: {out_name} differs from the plain version "
+                      f"(max {err})")
+        nz = [int((got[0][i] != 0).any(-1).sum()) for i in range(n)]
+        print(f"me_mc_batch check {name}: exact, {n} sessions at {w}x{h} in one launch "
+              f"({args[0].shape[1]} candidates each; MBs with nonzero MV per session {nz})")
+        record.setdefault("me_mc_checks", {})[name] = {
+            "sessions": n, "cur": [h, w], "candidates": args[0].shape[1],
             "nonzero_mv_mbs": nz}
 
     # -- 4. the device-conversion path: the encoder at 1920x1080 on the card vs the CPU
@@ -1178,12 +1410,71 @@ def main() -> int:
           f"{k4_runs['grid3x2']['launches_per_frame']}; {band_s:.1f} s")
     record["band_path"] = {"1080p": band_rec, "4k": k4_runs, "4k_bands4": k4_bands4,
                            "seconds": band_s}
-    print(f"phases 1-8: {time.perf_counter() - t_start:.1f} s")
+    # -- 9. multi-session serving: 8 x 1920x1088 against solo card encoders,
+    # 4 x 640x368 against the CPU run
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+
+    t0 = time.perf_counter()
+    bases = [_session_base(i, SW, SH) for i in range(8)]
+    torch.cuda.reset_peak_memory_stats()
+    svc = TorchMultiSessionH264Service(8, SW, SH, qp=28, device="cuda")
+    me_mc.launches = 0
+    ses_shas, ses_ticks, ses_qps, ses_forced = _drive_sessions(svc, bases)
+    torch.cuda.synchronize()
+    ses_launches = me_mc.launches
+    ses_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    svc.close()
+    ses_s = time.perf_counter() - t0
+    # K1 once per tick with a P session: every tick after the first here
+    want_ticks = [0] + [1] * (SESSION_TICKS - 1)
+    if ses_ticks != want_ticks or ses_launches != sum(want_ticks):
+        _fail(f"sessions: me_mc launches per tick {ses_ticks}, want {want_ticks}")
+    t0 = time.perf_counter()
+    for i, base in enumerate(bases):
+        solo = TorchH264Encoder(SW, SH, qp=28, host_convert=False, frame_batch=1,
+                                pipeline_depth=0, device="cuda")
+        for t in range(SESSION_TICKS):
+            if t in ses_forced[i]:
+                solo.force_keyframe()
+            au = solo.encode_frame(_session_frame(base, i, t), qp=ses_qps[i][t])
+            if hashlib.sha256(au).hexdigest() != ses_shas[t][i]:
+                _fail(f"sessions: session {i} tick {t} differs from its solo card encoder")
+        solo.close()
+    solo_s = time.perf_counter() - t0
+    small_bases = [_session_base(i, 640, 368) for i in range(4)]
+    small = {}
+    for dev_name in ("cuda", "cpu"):
+        ssvc = TorchMultiSessionH264Service(4, 640, 368, qp=28, device=dev_name)
+        me_mc.launches = 0
+        tc = time.perf_counter()
+        small[dev_name] = _drive_sessions(ssvc, small_bases) + (
+            me_mc.launches, time.perf_counter() - tc)
+        ssvc.close()
+    if small["cuda"][0] != small["cpu"][0]:
+        bad = [t for t, (g, c) in enumerate(zip(small["cuda"][0], small["cpu"][0])) if g != c]
+        _fail(f"sessions 4 x 640x368: cuda AUs differ from the cpu run's at ticks {bad}")
+    if small["cuda"][4] != SESSION_TICKS - 1:
+        _fail(f"sessions 4 x 640x368: me_mc launched {small['cuda'][4]} times")
+    idr_map = ["".join("I" if t == 0 or t in ses_forced[i] else "P" for i in range(8))
+               for t in range(SESSION_TICKS)]
+    print(f"multi-session 8 x {SW}x{SH} ({SESSION_TICKS} ticks, per tick {idr_map}): every "
+          f"session's AUs sha256-equal its solo card encoder's; me_mc launches per tick "
+          f"{ses_ticks} (once per tick with a P session); peak device memory "
+          f"{ses_peak_mb:.0f} MiB; service {ses_s:.1f} s, solo encoders {solo_s:.1f} s; "
+          f"4 x 640x368 cuda AUs equal the cpu run's (me_mc launches {small['cuda'][4]}; "
+          f"cuda {small['cuda'][5]:.1f} s, cpu {small['cpu'][5]:.1f} s)")
+    record["session_path"] = {
+        "ticks": idr_map, "me_mc_launches": ses_launches, "launches_per_tick": ses_ticks,
+        "qps": ses_qps, "forced": ses_forced, "sha256": ses_shas, "peak_device_mb": ses_peak_mb,
+        "cuda_s": ses_s, "solo_s": solo_s,
+        "small_640x368": {"sha256": small["cuda"][0], "me_mc_launches": small["cuda"][4],
+                          "cuda_s": small["cuda"][5], "cpu_s": small["cpu"][5]}}
+    print(f"phases 1-9: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
-    # -- 9. timing
+    # -- 10. timing
     args = _me_inputs(cases["uniform"], dev)
     ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50, hold=True)
     issued_ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50)
@@ -1308,6 +1599,41 @@ def main() -> int:
     print(f"band and tile slicing, 1080p full motion and 4K ({card}, {power_limit}): "
           + json.dumps(band_t))
 
+    # multi-session serving at 1, 2, 4 and 8 sessions of 1920x1088 on full
+    # motion, then the same frames through 8 solo flat encoders in turn
+    ses_t = {f"n{n}": _time_sessions(n) for n in (1, 2, 4, 8)}
+    ses_t["solo8_in_turn"] = _time_solo_in_turn(8)
+    tick_ops = {k: ses_t[k]["profile_p"].get("device_ops_per_tick") for k in ("n1", "n8")}
+    if None in tick_ops.values():
+        _fail(f"the profiler counted no device ops for a session P tick: {tick_ops}")
+    ses_t["device_ops_ratio_8_to_1"] = tick_ops["n8"] / tick_ops["n1"]
+    if tick_ops["n8"] > 1.25 * tick_ops["n1"]:
+        _fail(f"an 8-session P tick issues {tick_ops['n8']} device ops, more than 1.25x the "
+              f"1-session tick's {tick_ops['n1']}")
+    # the batched kernel alone at 8 sessions of 1088x1920
+    args8 = _batch_me_inputs(8, 1088, 1920, 20, dev)
+    b_ms = _time_cuda(lambda: me_mc.me_mc_batch(*args8), iters=20, hold=True)
+    b_issued_ms = _time_cuda(lambda: me_mc.me_mc_batch(*args8), iters=20)
+    b_plain_ms = _time_cuda(lambda: me_mc.me_mc_batch_plain(*args8), iters=2, warmup=1)
+    b_cands, b_cur = args8[0], args8[1]
+    bn, (bh, bw), bk = b_cur.shape[0], b_cur.shape[1:], b_cands.shape[1]
+    b_out_bytes = bn * ((bh // 16) * (bw // 16) * 2 * 4 + bh * bw * 4 + 2 * (bh // 2) * (bw // 2) * 4)
+    b_bytes = sum(t.numel() * t.element_size() for t in args8) + b_out_bytes
+    b_ops = bn * bk * bh * bw
+    b_simd_ops = b_ops // 4 if sass["native_simd4"] else b_ops
+    b_bytes_ms = b_bytes / HBM_BYTES_PER_S * 1e3
+    b_simd_ms = b_simd_ops / INT32_OPS_PER_S * 1e3
+    b_bound_ms = max(b_bytes_ms, b_simd_ms)
+    ses_t["me_mc_batch8"] = {"ms": b_ms, "host_issued_ms": b_issued_ms, "plain_ms": b_plain_ms,
+                             "bound_ms": b_bound_ms, "bytes": b_bytes}
+    record["session_timing"] = ses_t
+    print(f"multi-session serving, 1920x1088 full motion ({card}, {power_limit}): "
+          + json.dumps(ses_t))
+    print(f"me_mc_batch 8 sessions x {bk} cands x {bw}x{bh}: {b_ms:.5f} ms (CUDA events, 20 "
+          f"launches queued behind a spin kernel; {b_issued_ms:.5f} ms as issued), plain "
+          f"{b_plain_ms:.3f} ms; floors: bytes {b_bytes_ms:.5f} ms, operations {b_simd_ms:.5f} "
+          f"ms; bound {b_bound_ms:.5f} ms = {100 * b_bound_ms / b_ms:.1f}% of the kernel's time")
+
     kernels = [{
         "name": "me_mc", "route": "cuda", "source": "selkies_tpu_torch/csrc/me_mc.cu",
         "replaces": me_mc.REPLACES, "launches": launches, "max_abs_err": max_err,
@@ -1328,7 +1654,18 @@ def main() -> int:
         "launches_per_p_frame_band_path": {k: band_launches[k] / band_p[k]
                                            for k in band_launches},
         "launches_band_path_per_run": band_launches,
+        "launches_session_path": ses_launches,
+        "launches_per_tick_session_path": ses_ticks,
         "card": card, "power_limit": power_limit,
+    }, {
+        "name": "me_mc (8 sessions, one launch)", "route": "cuda",
+        "source": "selkies_tpu_torch/csrc/me_mc.cu", "replaces": me_mc.REPLACES,
+        "launches": ses_launches, "max_abs_err": max_err, "ms": b_ms, "plain_ms": b_plain_ms,
+        "bound_ms": b_bound_ms, "bound_by": "operations" if b_simd_ms >= b_bytes_ms else "bytes",
+        "library_ms": None, "shape": f"{bn} sessions x {bk} cands x {bh}x{bw}",
+        "bytes": b_bytes, "simd_ops": b_simd_ops, "bytes_ms": b_bytes_ms,
+        "ops_ms_simd": b_simd_ms, "host_issued_ms": b_issued_ms, "bound_share": b_bound_ms / b_ms,
+        "launches_per_tick": ses_ticks, "card": card, "power_limit": power_limit,
     }]
     record["kernels"] = kernels
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

@@ -30,6 +30,9 @@
 //   predictions (8.4.2.2.2) in exact integer arithmetic from ru/rv.
 // - 32 registers and 24 KB of shared memory let 8 blocks share an SM, so a
 //   1080p frame's 1020 strips run in one wave.
+// - Sessions (the multi-session tick): blockIdx.z is the session, and every
+//   pointer moves by that session's slab. Each session has its own candidate
+//   list (its own coarse votes). A solo frame is the launch with one session.
 //
 // A candidate beyond MV_PAD traps (see the wrapper's error contract).
 
@@ -64,7 +67,9 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 
 // kVec: cur and ry are 16-byte aligned (padded rows are w + 80 bytes, a
 // multiple of 16), so the window and the current pixels are read 16 bytes at
-// a time; otherwise by plain byte and int loads.
+// a time; otherwise by plain byte and int loads. A session's slabs (h*w int32
+// and (h+80)*(w+80) bytes, w a multiple of 16) are multiples of 16 bytes, so
+// every session is aligned when the first is.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 8)
 me_mc_kernel(const int32_t* __restrict__ cands, int ncand,
@@ -84,6 +89,19 @@ me_mc_kernel(const int32_t* __restrict__ cands, int ncand,
   const int mbw = w / 16, mby = blockIdx.y, mbx0 = blockIdx.x * kStrip;
   const int nmb = min(kStrip, mbw - mbx0);  // ragged last strip
   const int wp = w + 2 * kMvPad;
+
+  // this block's session: every input and output moves by its slab
+  const size_t z = blockIdx.z, h = 16 * (size_t)gridDim.y;
+  const size_t cslab = (h / 2 + 2 * kMvPad) * (size_t)(w / 2 + 2 * kMvPad);
+  cands += z * 2 * ncand;
+  cur += z * h * w;
+  ry += z * (h + 2 * kMvPad) * wp;
+  ru += z * cslab;
+  rv += z * cslab;
+  mvs += z * (h / 16) * mbw * 2;
+  pred_y += z * h * w;
+  pred_u += z * (h / 2) * (w / 2);
+  pred_v += z * (h / 2) * (w / 2);
 
   // reference window: padded rows [16*mby, +96), columns [16*mbx0, +16*nmb+80)
   const uint8_t* src = ry + (size_t)(16 * mby) * wp + 16 * mbx0;
@@ -196,18 +214,21 @@ me_mc_kernel(const int32_t* __restrict__ cands, int ncand,
 
 }  // namespace
 
-// Launch on `stream` of `device`. Pointers are device memory: cands (ncand, 2)
-// int32 (dx, dy) in rank order, 1 <= ncand <= 32768; cur (h, w) int32 luma in
-// 0..255; ry (h+80, w+80) and ru/rv (h/2+80, w/2+80) uint8 edge-padded
-// references; outputs mvs (h/16, w/16, 2), pred_y (h, w), pred_u/pred_v
-// (h/2, w/2) int32, 16-byte aligned. Returns cudaGetLastError().
-extern "C" int selkies_me_mc(int device, void* stream, const void* cands, int ncand,
-                             const void* cur, int h, int w, const void* ry,
+// Launch on `stream` of `device` for `nsess` sessions (1 <= nsess <= 65535),
+// each array holding one slab per session back to back. Pointers are device
+// memory: cands (nsess, ncand, 2) int32 (dx, dy) in rank order,
+// 1 <= ncand <= 32768; cur (nsess, h, w) int32 luma in 0..255; ry
+// (nsess, h+80, w+80) and ru/rv (nsess, h/2+80, w/2+80) uint8 edge-padded
+// references; outputs mvs (nsess, h/16, w/16, 2), pred_y (nsess, h, w),
+// pred_u/pred_v (nsess, h/2, w/2) int32, 16-byte aligned. Returns
+// cudaGetLastError().
+extern "C" int selkies_me_mc(int device, void* stream, int nsess, const void* cands,
+                             int ncand, const void* cur, int h, int w, const void* ry,
                              const void* ru, const void* rv, void* mvs, void* pred_y,
                              void* pred_u, void* pred_v) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w / 16 + kStrip - 1) / kStrip, h / 16);
+  const dim3 grid((w / 16 + kStrip - 1) / kStrip, h / 16, nsess);
   const bool vec = (((uintptr_t)cur | (uintptr_t)ry) & 15) == 0;
   auto kernel = vec ? me_mc_kernel<true> : me_mc_kernel<false>;
   kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(

@@ -10,10 +10,19 @@ stays on the host (``native.py``, ``cabac.py``).
 
 Every function works on tensors of one device (CPU or CUDA) and returns
 tensors on it. Arithmetic is int32 throughout: uint8 inputs are widened
-before any arithmetic, because torch's uint8 arithmetic wraps. QP is a
-Python int (the host knows it), so the quant tables are indexed on the
-host. Outputs equal the JAX version element for element
-(tests/test_torch_encoder_core.py).
+before any arithmetic, because torch's uint8 arithmetic wraps. Outputs
+equal the JAX version element for element (tests/test_torch_encoder_core.py).
+
+The batched entry points (``encode_frame_planes_batch``,
+``encode_frame_p_planes_batch``, the multi-session tick of
+``parallel/sessions.py``) run N sessions' steps as one set of device ops:
+every plane gains a leading session axis and QP is an (N,) int32 tensor on
+the device, whose quantiser constants are gathered from a 52-row table on
+the card (``_QPRows``), so the host reads nothing back. Session i equals
+the solo step at ``int(qps[i])``, as ``jax.vmap`` guarantees for the JAX
+version (tests/test_torch_sessions.py). A solo step's Python-int QP is a
+one-row view of the same table, so every quantiser helper has one path,
+on planes with or without the session axis.
 
 Intra: row 0 uses DC prediction, a left-to-right chain over MB columns;
 rows 1.. use vertical prediction from the reconstructed row above. Both
@@ -61,15 +70,64 @@ _V_BY_REM = torch.from_numpy(np.asarray(tables.DEQUANT_V, np.int32)[:, _POS_CLAS
 _CHROMA_QP = torch.tensor([tables.chroma_qp(q) for q in range(52)], dtype=_I32)
 
 
-@functools.lru_cache(maxsize=None)
-def _table(name: str, rem: int, device: torch.device) -> torch.Tensor:
-    """(4, 4) quant (``mf``) or dequant (``v``) row for qp % 6, on ``device``."""
-    src = _MF_BY_REM if name == "mf" else _V_BY_REM
-    return src[rem].to(device)
+# one half-row of the per-QP table: the quantiser constants of one QP
+_QP_COLS = {"mf": 0, "vs": 16, "qbits": 32, "f_i": 33, "f_p": 34, "mf00": 35, "f2_i": 36,
+            "f2_p": 37, "qb1": 38, "v00": 39, "dc_a": 40, "dc_r": 41, "dc_b": 42, "qper": 43}
+_QP_HALF = 44
 
 
-def _chroma_qp(qp: int) -> int:
-    return int(_CHROMA_QP[qp])
+def _qp_half(q: int) -> list[int]:
+    per, rem = q // 6, q % 6
+    qbits = 15 + per
+    f_i, f_p = (1 << qbits) // 3, (1 << qbits) // 6
+    mf = _MF_BY_REM[rem].reshape(-1).tolist()
+    vs = (_V_BY_REM[rem] * (1 << per)).reshape(-1).tolist()
+    # dequant_luma_dc as ((f << dc_a) + dc_r) >> dc_b for either branch
+    dc = (per - 2, 0, 0) if per >= 2 else (0, 1 << (1 - per), 2 - per)
+    return [*mf, *vs, qbits, f_i, f_p, mf[0], 2 * f_i, 2 * f_p, qbits + 1,
+            int(_V_BY_REM[rem, 0, 0]), *dc, per]
+
+
+def _qp_table() -> np.ndarray:
+    """(52, 2 * _QP_HALF) int32: per luma QP its constants, then its chroma
+    QP's (``_CHROMA_QP``)."""
+    return np.array([_qp_half(q) + _qp_half(int(_CHROMA_QP[q])) for q in range(52)], np.int32)
+
+
+class _QPRows:
+    """Per-session quantiser constants: each session's row of the 52-row
+    per-QP table, gathered on the device by its QP (one op, no host read).
+    ``col`` / ``block`` give a constant shaped to broadcast against a
+    tensor of ``ndim`` dims whose leading dim is the session axis; the one
+    row of a Python-int QP (``of``) broadcasts against any tensor."""
+
+    def __init__(self, rows: torch.Tensor, off: int = 0):
+        self.rows, self.off = rows, off
+
+    @classmethod
+    def gather(cls, qps: torch.Tensor) -> "_QPRows":
+        if qps.dim() != 1:
+            raise ValueError(f"qps must be (N,), got {tuple(qps.shape)}")
+        return cls(_const("qp_rows", qps.device).index_select(0, qps.to(_I32)))
+
+    @classmethod
+    def of(cls, qp, device: torch.device) -> "_QPRows":
+        """``qp`` as is, or the one-row view (no device op) of a Python-int
+        QP's row: the constants of QP ``qp`` itself, luma or chroma."""
+        if isinstance(qp, _QPRows):
+            return qp
+        q = int(qp)
+        return cls(_const("qp_rows", device)[q:q + 1])
+
+    def chroma(self) -> "_QPRows":
+        return _QPRows(self.rows, _QP_HALF)
+
+    def col(self, name: str, ndim: int) -> torch.Tensor:
+        return self.rows[:, self.off + _QP_COLS[name]].reshape((-1,) + (1,) * (ndim - 1))
+
+    def block(self, name: str, ndim: int) -> torch.Tensor:
+        c = self.off + _QP_COLS[name]
+        return self.rows[:, c:c + 16].reshape((-1,) + (1,) * (ndim - 3) + (4, 4))
 
 
 # ---------------------------------------------------------------------------
@@ -131,76 +189,80 @@ def _had2(x):
     )
 
 
-def _qparams(qp: int, intra: bool = True) -> tuple[int, int]:
-    qbits = 15 + qp // 6
-    return qbits, (1 << qbits) // (3 if intra else 6)
-
-
 def _signed(level, like):
     return torch.where(like < 0, -level, level)
 
 
-def quant4(coeffs, qp: int, intra: bool = True):
-    qbits, f = _qparams(qp, intra)
+# Each helper takes a Python-int QP (for the chroma ones, the chroma QP) or
+# a _QPRows.
+
+def quant4(coeffs, qp, intra: bool = True):
     c = coeffs.to(_I32)
-    mf = _table("mf", qp % 6, c.device)
-    return _signed((c.abs() * mf + f) >> qbits, c)
+    qp, nd = _QPRows.of(qp, c.device), c.dim()
+    f = qp.col("f_i" if intra else "f_p", nd)
+    return _signed((c.abs() * qp.block("mf", nd) + f) >> qp.col("qbits", nd), c)
 
 
-def dequant4(levels, qp: int):
-    v = _table("v", qp % 6, levels.device)
-    return levels.to(_I32) * v * (1 << (qp // 6))
+def dequant4(levels, qp):
+    qp = _QPRows.of(qp, levels.device)
+    return levels.to(_I32) * qp.block("vs", levels.dim())  # V << qp // 6
 
 
-def quant_luma_dc(dc, qp: int):
+def quant_luma_dc(dc, qp):
     t = _had4(dc) >> 1
-    qbits, f = _qparams(qp, True)
-    mf00 = int(_MF_BY_REM[qp % 6, 0, 0])
-    return _signed((t.abs() * mf00 + 2 * f) >> (qbits + 1), t)
+    qp, nd = _QPRows.of(qp, t.device), t.dim()
+    return _signed((t.abs() * qp.col("mf00", nd) + qp.col("f2_i", nd)) >> qp.col("qb1", nd), t)
 
 
-def dequant_luma_dc(levels, qp: int):
-    f = _had4(levels) * int(_V_BY_REM[qp % 6, 0, 0])
-    qp_per = qp // 6
-    if qp_per >= 2:
-        return f << (qp_per - 2)
-    return (f + (1 << (1 - qp_per))) >> (2 - qp_per)
+def dequant_luma_dc(levels, qp):
+    f = _had4(levels)
+    qp, nd = _QPRows.of(qp, f.device), f.dim()
+    f = f * qp.col("v00", nd)
+    return ((f << qp.col("dc_a", nd)) + qp.col("dc_r", nd)) >> qp.col("dc_b", nd)
 
 
-def quant_chroma_dc(dc, qp_c: int, intra: bool = True):
+def quant_chroma_dc(dc, qp_c, intra: bool = True):
     t = _had2(dc)
-    qbits, f = _qparams(qp_c, intra)
-    mf00 = int(_MF_BY_REM[qp_c % 6, 0, 0])
-    return _signed((t.abs() * mf00 + 2 * f) >> (qbits + 1), t)
+    qp_c, nd = _QPRows.of(qp_c, t.device), t.dim()
+    f2 = qp_c.col("f2_i" if intra else "f2_p", nd)
+    return _signed((t.abs() * qp_c.col("mf00", nd) + f2) >> qp_c.col("qb1", nd), t)
 
 
-def dequant_chroma_dc(levels, qp_c: int):
-    f = _had2(levels) * int(_V_BY_REM[qp_c % 6, 0, 0])
-    return (f << (qp_c // 6)) >> 1
+def dequant_chroma_dc(levels, qp_c):
+    f = _had2(levels)
+    qp_c, nd = _QPRows.of(qp_c, f.device), f.dim()
+    return ((f * qp_c.col("v00", nd)) << qp_c.col("qper", nd)) >> 1
 
 
 # ---------------------------------------------------------------------------
 # Intra (IDR) frame
 # ---------------------------------------------------------------------------
 
+def _lead_perm(lead: int, perm: tuple[int, ...]) -> tuple[int, ...]:
+    """``perm`` of the trailing axes, behind ``lead`` leading axes kept in place."""
+    return (*range(lead), *(lead + p for p in perm))
+
+
 def _row_to_blocks(row, n: int):
-    """(n*4, W) plane row -> (mbw, n, n, 4, 4) indexed [mb][by][bx][i][j]."""
-    h, w = row.shape
+    """(..., n*4, W) plane row -> (..., mbw, n, n, 4, 4) indexed [mb][by][bx][i][j]."""
+    *lead, h, w = row.shape
     mbw = w // (n * 4)
-    return row.reshape(n, 4, mbw, n, 4).permute(2, 0, 3, 1, 4)
+    return row.reshape(*lead, n, 4, mbw, n, 4).permute(_lead_perm(len(lead), (2, 0, 3, 1, 4)))
 
 
 def _blocks_to_row(blocks):
-    """Inverse of _row_to_blocks: (mbw, n, n, 4, 4) -> (n*4, mbw*n*4)."""
-    mbw, n = blocks.shape[0], blocks.shape[1]
-    return blocks.permute(1, 3, 0, 2, 4).reshape(n * 4, mbw * n * 4)
+    """Inverse of _row_to_blocks: (..., mbw, n, n, 4, 4) -> (..., n*4, mbw*n*4)."""
+    lead = blocks.shape[:-5]
+    mbw, n = blocks.shape[-5], blocks.shape[-4]
+    return blocks.permute(_lead_perm(len(lead), (1, 3, 0, 2, 4))).reshape(
+        *lead, n * 4, mbw * n * 4)
 
 
-def _encode_plane_row(row, pred, qp: int, n: int, luma: bool):
+def _encode_plane_row(row, pred, qp, n: int, luma: bool):
     """Batched encode of one MB row of a plane.
 
-    row, pred: (n*4, W) int32. Returns (dc (mbw,n,n), ac (mbw,n,n,4,4),
-    recon (n*4, W))."""
+    row, pred: (..., n*4, W) int32. Returns (dc (..., mbw,n,n), ac
+    (..., mbw,n,n,4,4), recon (..., n*4, W))."""
     w = fdct4(_row_to_blocks(row - pred, n))
     dc = w[..., 0, 0]
     if luma:
@@ -216,46 +278,88 @@ def _encode_plane_row(row, pred, qp: int, n: int, luma: bool):
     return dc_levels, ac_levels, recon
 
 
-def _dc_pred_luma(left_col, device):
+def _dc_pred_luma(left_col, lead: tuple, device):
     """DC prediction of a row-0 MB from its left neighbour's recon column
-    (None at the left edge -> 128)."""
+    (..., 16) (None at the left edge -> 128)."""
     if left_col is None:
-        return torch.full((16, 16), 128, dtype=_I32, device=device)
-    dc = (left_col.sum(dtype=_I32) + 8) >> 4
-    return dc.reshape(1, 1).expand(16, 16)
+        return torch.full((*lead, 16, 16), 128, dtype=_I32, device=device)
+    dc = (left_col.sum(-1, dtype=_I32) + 8) >> 4
+    return dc.reshape(*lead, 1, 1).expand(*lead, 16, 16)
 
 
-def _dc_pred_chroma(left_col, device):
+def _dc_pred_chroma(left_col, lead: tuple, device):
     """Chroma DC prediction with top unavailable (8.3.4.1): the two block
     rows use the matching 4-sample left segments; no left -> 128."""
     if left_col is None:
-        return torch.full((8, 8), 128, dtype=_I32, device=device)
-    top = (left_col[:4].sum(dtype=_I32) + 2) >> 2
-    bot = (left_col[4:].sum(dtype=_I32) + 2) >> 2
-    return torch.stack([top, bot]).repeat_interleave(4).reshape(8, 1).expand(8, 8)
+        return torch.full((*lead, 8, 8), 128, dtype=_I32, device=device)
+    top = (left_col[..., :4].sum(-1, dtype=_I32) + 2) >> 2
+    bot = (left_col[..., 4:].sum(-1, dtype=_I32) + 2) >> 2
+    return torch.stack([top, bot], -1).repeat_interleave(4, dim=-1).reshape(
+        *lead, 8, 1).expand(*lead, 8, 8)
 
 
-def _encode_row0(y_row, u_row, v_row, qp: int, qp_c: int):
+def _encode_row0(y_row, u_row, v_row, qp, qp_c):
     """Row 0: DC prediction, a serial loop over MB columns (each MB's
     prediction is the reconstructed right column of its left neighbour)."""
-    mbw = y_row.shape[1] // 16
+    lead = tuple(y_row.shape[:-2])
+    mbw = y_row.shape[-1] // 16
     dev = y_row.device
     yl = ul = vl = None
     outs = []
     for i in range(mbw):
-        y_mb = y_row[:, 16 * i:16 * i + 16]
-        u_mb = u_row[:, 8 * i:8 * i + 8]
-        v_mb = v_row[:, 8 * i:8 * i + 8]
-        ry = _encode_plane_row(y_mb, _dc_pred_luma(yl, dev), qp, 4, True)
-        ru = _encode_plane_row(u_mb, _dc_pred_chroma(ul, dev), qp_c, 2, False)
-        rv = _encode_plane_row(v_mb, _dc_pred_chroma(vl, dev), qp_c, 2, False)
-        yl, ul, vl = ry[2][:, -1], ru[2][:, -1], rv[2][:, -1]
+        y_mb = y_row[..., 16 * i:16 * i + 16]
+        u_mb = u_row[..., 8 * i:8 * i + 8]
+        v_mb = v_row[..., 8 * i:8 * i + 8]
+        ry = _encode_plane_row(y_mb, _dc_pred_luma(yl, lead, dev), qp, 4, True)
+        ru = _encode_plane_row(u_mb, _dc_pred_chroma(ul, lead, dev), qp_c, 2, False)
+        rv = _encode_plane_row(v_mb, _dc_pred_chroma(vl, lead, dev), qp_c, 2, False)
+        yl, ul, vl = ry[2][..., -1], ru[2][..., -1], rv[2][..., -1]
         outs.append((*ry, *ru, *rv))
     dc_y, ac_y, rec_y, dc_u, ac_u, rec_u, dc_v, ac_v, rec_v = zip(*outs)
-    cat0 = functools.partial(torch.cat, dim=0)
-    cat1 = functools.partial(torch.cat, dim=1)
+    cat0 = functools.partial(torch.cat, dim=len(lead))
+    cat1 = functools.partial(torch.cat, dim=len(lead) + 1)
     return (cat0(dc_y), cat0(ac_y), cat0(dc_u), cat0(ac_u), cat0(dc_v), cat0(ac_v),
             cat1(rec_y), cat1(rec_u), cat1(rec_v))
+
+
+def _encode_intra(y, u, v, qp: _QPRows) -> dict:
+    """encode_frame_planes over planes with optional leading axes; ``qp``
+    one row, or one row per session."""
+    y, u, v = y.to(_I32), u.to(_I32), v.to(_I32)
+    qp_c = qp.chroma()
+    *lead, h, w_ = y.shape
+    nl = len(lead)
+    mbh = h // 16
+
+    dc_y, ac_y, dc_u, ac_u, dc_v, ac_v, rec_y, rec_u, rec_v = _encode_row0(
+        y[..., :16, :], u[..., :8, :], v[..., :8, :], qp, qp_c)
+    rows = [(dc_y, ac_y, dc_u, ac_u, dc_v, ac_v, rec_y, rec_u, rec_v)]
+    for r in range(1, mbh):
+        yb, ub, vb = (rows[-1][k][..., -1:, :] for k in (6, 7, 8))
+        ry = _encode_plane_row(y[..., 16 * r:16 * r + 16, :], yb.expand(*lead, 16, w_), qp, 4,
+                               True)
+        ru = _encode_plane_row(u[..., 8 * r:8 * r + 8, :], ub.expand(*lead, 8, w_ // 2), qp_c,
+                               2, False)
+        rv = _encode_plane_row(v[..., 8 * r:8 * r + 8, :], vb.expand(*lead, 8, w_ // 2), qp_c,
+                               2, False)
+        rows.append((ry[0], ry[1], ru[0], ru[1], rv[0], rv[1], ry[2], ru[2], rv[2]))
+    luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac = (
+        torch.stack([r[k] for r in rows], dim=nl) for k in range(6))
+    recon_y, recon_u, recon_v = (torch.cat([r[k] for r in rows], dim=nl) for k in range(6, 9))
+
+    mbw = luma_dc.shape[nl + 1]
+    row0 = (torch.arange(mbh, device=y.device) == 0)[:, None].expand(*lead, mbh, mbw)
+    return {
+        "luma_mode": torch.where(row0, 2, 0).to(_I32),  # DC / vertical
+        "chroma_mode": torch.where(row0, 0, 2).to(_I32),  # DC / vertical
+        "luma_dc": luma_dc,
+        "luma_ac": luma_ac,
+        "chroma_dc": torch.stack([cb_dc, cr_dc], dim=nl + 2),
+        "chroma_ac": torch.stack([cb_ac, cr_ac], dim=nl + 2),
+        "recon_y": recon_y.to(torch.uint8),
+        "recon_u": recon_u.to(torch.uint8),
+        "recon_v": recon_v.to(torch.uint8),
+    }
 
 
 def encode_frame_planes(y, u, v, qp: int) -> dict:
@@ -264,38 +368,16 @@ def encode_frame_planes(y, u, v, qp: int) -> dict:
     y: (H, W) uint8/int32, u/v: (H/2, W/2). Returns a dict of
     FrameCoeffs-layout int32 tensors plus uint8 recon planes (the recon is
     the reference of the next P frame)."""
-    y, u, v = y.to(_I32), u.to(_I32), v.to(_I32)
-    qp = int(qp)
-    qp_c = _chroma_qp(qp)
-    h, w_ = y.shape
-    mbh = h // 16
+    return _encode_intra(y, u, v, _QPRows.of(qp, y.device))
 
-    dc_y, ac_y, dc_u, ac_u, dc_v, ac_v, rec_y, rec_u, rec_v = _encode_row0(
-        y[:16], u[:8], v[:8], qp, qp_c)
-    rows = [(dc_y, ac_y, dc_u, ac_u, dc_v, ac_v, rec_y, rec_u, rec_v)]
-    for r in range(1, mbh):
-        yb, ub, vb = rows[-1][6][-1], rows[-1][7][-1], rows[-1][8][-1]
-        ry = _encode_plane_row(y[16 * r:16 * r + 16], yb.expand(16, w_), qp, 4, True)
-        ru = _encode_plane_row(u[8 * r:8 * r + 8], ub.expand(8, w_ // 2), qp_c, 2, False)
-        rv = _encode_plane_row(v[8 * r:8 * r + 8], vb.expand(8, w_ // 2), qp_c, 2, False)
-        rows.append((ry[0], ry[1], ru[0], ru[1], rv[0], rv[1], ry[2], ru[2], rv[2]))
-    luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac = (
-        torch.stack([r[k] for r in rows]) for k in range(6))
-    recon_y, recon_u, recon_v = (torch.cat([r[k] for r in rows]) for k in range(6, 9))
 
-    mbw = luma_dc.shape[1]
-    row0 = (torch.arange(mbh, device=y.device) == 0)[:, None].expand(mbh, mbw)
-    return {
-        "luma_mode": torch.where(row0, 2, 0).to(_I32),  # DC / vertical
-        "chroma_mode": torch.where(row0, 0, 2).to(_I32),  # DC / vertical
-        "luma_dc": luma_dc,
-        "luma_ac": luma_ac,
-        "chroma_dc": torch.stack([cb_dc, cr_dc], dim=2),
-        "chroma_ac": torch.stack([cb_ac, cr_ac], dim=2),
-        "recon_y": recon_y.to(torch.uint8),
-        "recon_u": recon_u.to(torch.uint8),
-        "recon_v": recon_v.to(torch.uint8),
-    }
+def encode_frame_planes_batch(y, u, v, qps) -> dict:
+    """N sessions' IDR frames in one set of device ops.
+
+    y: (N, H, W), u/v: (N, H/2, W/2); qps: (N,) int32 on the planes'
+    device. Every output gains a leading N; session i equals
+    ``encode_frame_planes(y[i], u[i], v[i], int(qps[i]))``."""
+    return _encode_intra(y, u, v, _QPRows.gather(qps))
 
 
 # ---------------------------------------------------------------------------
@@ -307,16 +389,17 @@ _ME_CHUNK = 17
 
 def edge_pad(plane, top: int, bottom: int | None = None, left: int | None = None,
              right: int | None = None):
-    """Edge-replicating pad of a 2-D plane (``jnp.pad(mode="edge")``), by
-    index selection so it works for every dtype on every device."""
+    """Edge-replicating pad of the last two axes of a plane or a batch of
+    planes (``jnp.pad(mode="edge")``), by index selection so it works for
+    every dtype on every device."""
     bottom = top if bottom is None else bottom
     left = top if left is None else left
     right = left if right is None else right
-    h, w = plane.shape
+    h, w = plane.shape[-2:]
     dev = plane.device
     rows = torch.arange(-top, h + bottom, device=dev).clamp(0, h - 1)
     cols = torch.arange(-left, w + right, device=dev).clamp(0, w - 1)
-    return plane.index_select(0, rows).index_select(1, cols)
+    return plane.index_select(-2, rows).index_select(-1, cols)
 
 
 def _me_candidates(search: int) -> np.ndarray:
@@ -333,18 +416,22 @@ _const = constant_tables({
     "coarse_cands": _me_candidates(COARSE_R),
     "refine_grid": np.array([(dx, dy) for dy in range(-REFINE_R, REFINE_R + 1)
                              for dx in range(-REFINE_R, REFINE_R + 1)], np.int32),
+    "qp_rows": _qp_table(),
 })
 
 
 def _downsample4(plane):
-    """4x4 box downsample, round-half-up (mirrors numpy_ref.downsample4)."""
-    h, w = plane.shape
-    s = plane.to(_I32).reshape(h // 4, 4, w // 4, 4).sum(dim=(1, 3), dtype=_I32)
+    """4x4 box downsample of the last two axes, round-half-up (mirrors
+    numpy_ref.downsample4)."""
+    *lead, h, w = plane.shape
+    s = plane.to(_I32).reshape(*lead, h // 4, 4, w // 4, 4).sum(dim=(-3, -1), dtype=_I32)
     return (s + 8) >> 4
 
 
 def coarse_votes(cur, rd_ext, halo_dcols: int = 0):
-    """Per-MB coarse-rank vote histogram ((2*COARSE_R+1)^2,) int32.
+    """Per-MB coarse-rank vote histogram ((2*COARSE_R+1)^2,) int32; with a
+    leading session axis on ``cur`` and ``rd_ext``, one histogram per
+    session (N, (2*COARSE_R+1)^2).
 
     ``rd_ext`` is the downsampled reference, optionally extended by
     ``halo_dcols`` real neighbour columns each side (a tile of the 2D grid,
@@ -354,12 +441,12 @@ def coarse_votes(cur, rd_ext, halo_dcols: int = 0):
     band case. Each MB's best coarse candidate (min SAD*scale + rank over
     the +-COARSE_R window) casts one vote; the votes of one slice row's
     tiles sum to the row's histogram."""
-    h, w = cur.shape
+    *lead, h, w = cur.shape
     mbh, mbw = h // 16, w // 16
     if not 0 <= halo_dcols <= COARSE_R:
         raise ValueError(f"halo_dcols {halo_dcols} not in [0, {COARSE_R}]")
     yd = _downsample4(cur)
-    hd, wd = yd.shape
+    hd, wd = yd.shape[-2:]
     px = COARSE_R - halo_dcols  # edge-pad the rest of the horizontal reach
     rp = edge_pad(rd_ext.to(_I32), COARSE_R, COARSE_R, px, px)
     cands = _me_candidates(COARSE_R)
@@ -369,22 +456,31 @@ def coarse_votes(cur, rd_ext, halo_dcols: int = 0):
     best = None
     for c0 in range(0, n, _ME_CHUNK):
         chunk = cands[c0:c0 + _ME_CHUNK]
-        sh = torch.stack([rp[COARSE_R + dy:COARSE_R + dy + hd, COARSE_R + dx:COARSE_R + dx + wd]
-                          for dx, dy in chunk.tolist()])
-        sads = (yd - sh).abs().reshape(len(chunk), mbh, 4, mbw, 4).sum(dim=(2, 4), dtype=_I32)
-        cost = (sads * scale + ranks[c0:c0 + len(chunk), None, None]).amin(dim=0)
+        sh = torch.stack([rp[..., COARSE_R + dy:COARSE_R + dy + hd,
+                             COARSE_R + dx:COARSE_R + dx + wd] for dx, dy in chunk.tolist()])
+        sads = (yd - sh).abs().reshape(len(chunk), *lead, mbh, 4, mbw, 4).sum(
+            dim=(-3, -1), dtype=_I32)
+        rank = ranks[c0:c0 + len(chunk)].reshape(len(chunk), *(1,) * (len(lead) + 2))
+        cost = (sads * scale + rank).amin(dim=0)
         best = cost if best is None else torch.minimum(best, cost)
     best_rank = best & (scale - 1)  # cost = sad*scale + rank
     # an add, not torch.bincount: on the card bincount reads the largest
-    # rank back to the host to size its output, a stream sync per frame
-    votes = torch.zeros(n, dtype=_I32, device=cur.device)
-    return votes.index_add_(0, best_rank.reshape(-1).long(), torch.ones_like(best_rank.reshape(-1)))
+    # rank back to the host to size its output, a stream sync per frame.
+    # Batched, session s votes into bins s*n + rank of one flat histogram
+    nb = int(np.prod(lead, dtype=np.int64))
+    if lead:
+        best_rank = best_rank + (torch.arange(nb, device=cur.device, dtype=_I32) * n).reshape(
+            *lead, 1, 1)
+    votes = torch.zeros(nb * n, dtype=_I32, device=cur.device)
+    votes.index_add_(0, best_rank.reshape(-1).long(), torch.ones_like(best_rank.reshape(-1)))
+    return votes.reshape(*lead, n)
 
 
 def select_coarse(votes):
     """Vote histogram -> (TOPK, 2) int32 coarse candidates, in the golden
-    model's order (votes desc, then rank asc). The scores are unique, so
-    topk's order is the same as JAX's."""
+    model's order (votes desc, then rank asc); (N, n) histograms -> (N,
+    TOPK, 2), one row per session. The scores are unique, so topk's order
+    is the same as JAX's."""
     cands = _const("coarse_cands", votes.device)
     idx = torch.arange(len(cands), device=votes.device, dtype=_I32)
     score = votes.to(_I32) * 512 + (511 - idx)  # vote count <= mbh*mbw < 2^22
@@ -400,22 +496,25 @@ def coarse_vote_candidates(cur, ref):
 
 def _refine_cands(coarse, dy_max: int | None = None, dx_max: int | None = None):
     """(TOPK, 2) coarse -> (1 + TOPK*(2R+1)^2, 2) int32 full-res shift
-    list, zero MV first (mirrors numpy_ref.refine_candidate_list).
+    list, zero MV first (mirrors numpy_ref.refine_candidate_list); (N,
+    TOPK, 2) -> one list per session.
 
     dy_max / dx_max clamp the vertical / horizontal component of every
     coarse displacement so that no refined candidate reaches past
     ``d_max`` (the window a band or tile slab holds); the refine grid stays
     the +-R raster, so candidate order and tie-breaks are preserved."""
     coarse = coarse.to(_I32).clone()
+    lead = coarse.shape[:-2]
     if dy_max is not None:
         cmax = max(0, (int(dy_max) - REFINE_R) // COARSE_DS)
-        coarse[:, 1] = coarse[:, 1].clamp(-cmax, cmax)
+        coarse[..., 1] = coarse[..., 1].clamp(-cmax, cmax)
     if dx_max is not None:
         cmax = max(0, (int(dx_max) - REFINE_R) // COARSE_DS)
-        coarse[:, 0] = coarse[:, 0].clamp(-cmax, cmax)
+        coarse[..., 0] = coarse[..., 0].clamp(-cmax, cmax)
     grid = _const("refine_grid", coarse.device)  # raster, dy outer
-    cands = (coarse[:, None, :] * COARSE_DS + grid[None]).reshape(-1, 2)
-    return torch.cat([torch.zeros((1, 2), dtype=_I32, device=coarse.device), cands])
+    cands = (coarse[..., :, None, :] * COARSE_DS + grid).reshape(*lead, -1, 2)
+    zero = torch.zeros((*lead, 1, 2), dtype=_I32, device=coarse.device)
+    return torch.cat([zero, cands], dim=-2)
 
 
 def hier_candidates(cur, ref_y):
@@ -453,39 +552,46 @@ def _me_mc_dispatch(y, ref_y, ry, ru, rv, dy_max: int | None = None,
 
 
 def _plane_to_mb_blocks(plane, n: int):
-    """(mbh*n*4, mbw*n*4) -> (mbh, mbw, n, n, 4, 4) [by][bx][i][j]."""
-    h, w = plane.shape
+    """(..., mbh*n*4, mbw*n*4) -> (..., mbh, mbw, n, n, 4, 4) [by][bx][i][j]."""
+    *lead, h, w = plane.shape
     mbh, mbw = h // (n * 4), w // (n * 4)
-    return plane.reshape(mbh, n, 4, mbw, n, 4).permute(0, 3, 1, 4, 2, 5)
+    return plane.reshape(*lead, mbh, n, 4, mbw, n, 4).permute(
+        _lead_perm(len(lead), (0, 3, 1, 4, 2, 5)))
 
 
 def _mb_blocks_to_plane(blocks):
-    mbh, mbw, n = blocks.shape[0], blocks.shape[1], blocks.shape[2]
-    return blocks.permute(0, 2, 4, 1, 3, 5).reshape(mbh * n * 4, mbw * n * 4)
+    lead = blocks.shape[:-6]
+    mbh, mbw, n = blocks.shape[-6], blocks.shape[-5], blocks.shape[-4]
+    return blocks.permute(_lead_perm(len(lead), (0, 2, 4, 1, 3, 5))).reshape(
+        *lead, mbh * n * 4, mbw * n * 4)
 
 
-def _neighbour(mvs, di: int, dj: int):
-    """out[i, j] = mvs[i + di, j + dj], zero where that lies off the grid."""
-    mbh, mbw = mvs.shape[:2]
+def _neighbour(mvs, di: int, dj: int, lead: int = 0):
+    """out[i, j] = mvs[i + di, j + dj], zero where that lies off the grid;
+    the grid axes follow ``lead`` leading (session) axes."""
+    mbh, mbw = mvs.shape[lead:lead + 2]
     out = torch.zeros_like(mvs)
     i0, i1 = max(0, -di), min(mbh, mbh - di)
     j0, j1 = max(0, -dj), min(mbw, mbw - dj)
     if i1 > i0 and j1 > j0:
-        out[i0:i1, j0:j1] = mvs[i0 + di:i1 + di, j0 + dj:j1 + dj]
+        keep = (slice(None),) * lead
+        out[(*keep, slice(i0, i1), slice(j0, j1))] = mvs[
+            (*keep, slice(i0 + di, i1 + di), slice(j0 + dj, j1 + dj))]
     return out
 
 
 def _skip_mask(mvs, resid_zero):
     """Vectorized 8.4.1.1 P_Skip eligibility: residual-free MBs whose MV
-    equals the skip-derived MV."""
-    mbh, mbw = mvs.shape[:2]
+    equals the skip-derived MV. mvs (..., mbh, mbw, 2)."""
+    lead = mvs.dim() - 3
+    mbh, mbw = mvs.shape[lead:lead + 2]
     dev = mvs.device
-    left = _neighbour(mvs, 0, -1)
-    top = _neighbour(mvs, -1, 0)
+    left = _neighbour(mvs, 0, -1, lead)
+    top = _neighbour(mvs, -1, 0, lead)
     # C = top-right, replaced by D = top-left on the last column (both exist
     # whenever the median branch is taken: mbx>0 and mby>0).
-    tr = _neighbour(mvs, -1, 1)
-    tl = _neighbour(mvs, -1, -1)
+    tr = _neighbour(mvs, -1, 1, lead)
+    tl = _neighbour(mvs, -1, -1, lead)
     last_col = torch.arange(mbw, device=dev) == mbw - 1
     cmv = torch.where(last_col[None, :, None], tl, tr)
     med = (left + top + cmv - torch.maximum(torch.maximum(left, top), cmv)
@@ -501,13 +607,13 @@ def _all_zero(x, ndims: int):
     return ~(x != 0).flatten(-ndims).any(-1)
 
 
-def _p_transform_tail(y, u, v, qp: int, mvs, pred_y, pred_u, pred_v,
+def _p_transform_tail(y, u, v, qp: _QPRows, mvs, pred_y, pred_u, pred_v,
                       defer_skip: bool = False) -> dict:
     """Transform + quant + recon + skip derivation -- everything after ME/MC.
     ``defer_skip`` returns ``resid_zero`` (the residual-free mask) instead
     of ``skip``, for a tile grid that derives P_Skip on the row-merged MV
     grid (the left neighbour of a tile's first column is in the next tile)."""
-    qp_c = _chroma_qp(qp)
+    qp_c = qp.chroma()
     # Luma: plain 4x4 transform, all 16 coeffs (no DC Hadamard in inter MBs)
     wy = fdct4(_plane_to_mb_blocks(y - pred_y, 4))
     luma_ac = quant4(wy, qp, intra=False)
@@ -532,8 +638,8 @@ def _p_transform_tail(y, u, v, qp: int, mvs, pred_y, pred_u, pred_v,
         "mvs": mvs,
         **skip_kv,
         "luma_ac": luma_ac,
-        "chroma_dc": torch.stack([cb_dc, cr_dc], dim=2),
-        "chroma_ac": torch.stack([cb_ac, cr_ac], dim=2),
+        "chroma_dc": torch.stack([cb_dc, cr_dc], dim=mvs.dim() - 1),
+        "chroma_ac": torch.stack([cb_ac, cr_ac], dim=mvs.dim() - 1),
         "recon_y": rec_y.to(torch.uint8),
         "recon_u": rec_u.to(torch.uint8),
         "recon_v": rec_v.to(torch.uint8),
@@ -552,7 +658,24 @@ def encode_frame_p_planes(y, u, v, ref_y, ref_u, ref_v, qp: int) -> dict:
     ru = edge_pad(ref_u, MV_PAD)
     rv = edge_pad(ref_v, MV_PAD)
     mvs, pred_y, pred_u, pred_v = _me_mc_dispatch(y, ref_y, ry, ru, rv)
-    return _p_transform_tail(y, u, v, int(qp), mvs, pred_y, pred_u, pred_v)
+    return _p_transform_tail(y, u, v, _QPRows.of(qp, y.device), mvs, pred_y, pred_u, pred_v)
+
+
+def encode_frame_p_planes_batch(y, u, v, ref_y, ref_u, ref_v, qps) -> dict:
+    """N sessions' P frames in one set of device ops, K1 launched once.
+
+    Planes (N, H, W) / (N, H/2, W/2), each session against its own
+    reference; qps (N,) int32 on the planes' device. Every output gains a
+    leading N; session i equals ``encode_frame_p_planes(y[i], ..., ref_v[i],
+    int(qps[i]))``: each session votes its own coarse candidates (76 per
+    session) and ``me_mc.me_mc_batch`` searches every session in one launch."""
+    y, u, v = y.to(_I32), u.to(_I32), v.to(_I32)
+    ry = edge_pad(ref_y, MV_PAD)
+    ru = edge_pad(ref_u, MV_PAD)
+    rv = edge_pad(ref_v, MV_PAD)
+    cands = _refine_cands(coarse_vote_candidates(y, ref_y))
+    mvs, pred_y, pred_u, pred_v = me_mc.me_mc_batch(cands, y, ry, ru, rv)
+    return _p_transform_tail(y, u, v, _QPRows.gather(qps), mvs, pred_y, pred_u, pred_v)
 
 
 def encode_band_p_planes(y, u, v, slab_y, slab_u, slab_v, qp: int, halo: int) -> dict:
@@ -607,7 +730,7 @@ def encode_tile_p_planes(y, u, v, slab_y, slab_u, slab_v, qp: int, halo: int,
     dx_max = None if halo_cols == 0 or halo_cols >= full_reach else halo_cols - 2
     mvs, pred_y, pred_u, pred_v = _me_mc_dispatch(y, ref_y, ry, ru, rv, dy_max=dy_max,
                                                   dx_max=dx_max, coarse=coarse)
-    return _p_transform_tail(y, u, v, int(qp), mvs, pred_y, pred_u, pred_v,
+    return _p_transform_tail(y, u, v, _QPRows.of(qp, y.device), mvs, pred_y, pred_u, pred_v,
                              defer_skip=defer_skip)
 
 

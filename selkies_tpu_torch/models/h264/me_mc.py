@@ -28,7 +28,12 @@ cost trick exist only to keep the TPU's matrix unit exact and have no
 counterpart here.
 
 ``me_mc`` is the wrapper: CPU tensors go to ``me_mc_plain``; CUDA tensors
-launch the kernel or raise. ``launches`` counts kernel launches.
+launch the kernel or raise. ``me_mc_batch`` / ``me_mc_batch_plain`` are
+the same over a leading session axis (the multi-session tick,
+``parallel/sessions.py``): every session has its own candidate list, and
+one launch covers every session (``blockIdx.z`` is the session; a solo
+frame is the one-session launch). ``launches`` counts kernel launches, one
+per batched launch.
 """
 
 from __future__ import annotations
@@ -48,8 +53,9 @@ REPLACES = "selkies_tpu/models/h264/pallas_me.py:219"
 # The kernel keys a candidate by SAD << 16 | rank, and the plain version's
 # int32 SAD * scale + rank overflows above this count.
 MAX_CANDS = 1 << 15
+MAX_SESSIONS = 65535  # gridDim.z
 
-launches = 0  # kernel launches by me_mc()
+launches = 0  # kernel launches by me_mc() and me_mc_batch()
 
 _lib: ctypes.CDLL | None = None
 _build: BuildResult | None = None
@@ -85,7 +91,7 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(res.path))
             lib.selkies_me_mc.restype = ctypes.c_int
             lib.selkies_me_mc.argtypes = [
-                ctypes.c_int, ctypes.c_void_p,  # device, stream
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # device, stream, nsess
                 ctypes.c_void_p, ctypes.c_int,  # cands, ncand
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # cur, h, w
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ry, ru, rv
@@ -172,6 +178,76 @@ def me_mc_plain(cands, cur, ry_pad, ru_pad, rv_pad):
     return mvs, mc_luma(ry_pad, mvs), mc_chroma(ru_pad, mvs), mc_chroma(rv_pad, mvs)
 
 
+def me_mc_batch_plain(cands, cur, ry_pad, ru_pad, rv_pad):
+    """Plain PyTorch version of the batched kernel (any device): cands (N,
+    K, 2), cur (N, h, w), the padded planes with a leading N. Session i's
+    outputs are ``me_mc_plain`` of session i's inputs; each output gains a
+    leading N."""
+    _check_batch(cands, cur, ry_pad, ru_pad, rv_pad)
+    outs = [me_mc_plain(cands[i], cur[i], ry_pad[i], ru_pad[i], rv_pad[i])
+            for i in range(cur.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def _check_batch(cands, cur, ry_pad, ru_pad, rv_pad) -> int:
+    if cur.dim() != 3 or not 1 <= cur.shape[0] <= MAX_SESSIONS:
+        raise ValueError(f"cur must be (N, h, w) with 1 <= N <= {MAX_SESSIONS}, "
+                         f"got {tuple(cur.shape)}")
+    n = cur.shape[0]
+    for name, t in (("cands", cands), ("ry_pad", ry_pad), ("ru_pad", ru_pad),
+                    ("rv_pad", rv_pad)):
+        if t.dim() != 3 or t.shape[0] != n:
+            raise ValueError(f"{name} must be 3-D with {n} sessions, got {tuple(t.shape)}")
+    _check(cands[0], cur[0], ry_pad[0], ru_pad[0], rv_pad[0])
+    return n
+
+
+def _launch(n: int, cands, cur, ry_pad, ru_pad, rv_pad):
+    """One launch over n sessions' slabs (the arrays' leading axis, or one
+    session without it); validates device, dtype and layout first."""
+    global launches
+    h, w = cur.shape[-2:]
+    for name, t, dtype in (("cands", cands, torch.int32), ("cur", cur, torch.int32),
+                           ("ry_pad", ry_pad, torch.uint8), ("ru_pad", ru_pad, torch.uint8),
+                           ("rv_pad", rv_pad, torch.uint8)):
+        if t.device != cur.device:
+            raise ValueError(f"{name} is on {t.device}, cur on {cur.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = _load()
+    dev = cur.device
+    lead = tuple(cur.shape[:-2])
+    mvs = torch.empty((*lead, h // 16, w // 16, 2), dtype=torch.int32, device=dev)
+    pred_y = torch.empty((*lead, h, w), dtype=torch.int32, device=dev)
+    pred_u = torch.empty((*lead, h // 2, w // 2), dtype=torch.int32, device=dev)
+    pred_v = torch.empty((*lead, h // 2, w // 2), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.selkies_me_mc(
+        dev.index, stream, n, cands.data_ptr(), cands.shape[-2], cur.data_ptr(), h, w,
+        ry_pad.data_ptr(), ru_pad.data_ptr(), rv_pad.data_ptr(),
+        mvs.data_ptr(), pred_y.data_ptr(), pred_u.data_ptr(), pred_v.data_ptr())
+    if err != 0:
+        msg = lib.selkies_cuda_error_string(err).decode()
+        raise RuntimeError(f"me_mc kernel launch failed: {msg} ({err})")
+    launches += 1
+    return mvs, pred_y, pred_u, pred_v
+
+
+def me_mc_batch(cands, cur, ry_pad, ru_pad, rv_pad):
+    """ME + MC of N sessions, each over its own candidate list: the plain
+    version for CPU tensors, ONE kernel launch for CUDA tensors (raises if
+    it cannot build or launch). Inputs as ``me_mc_batch_plain``, on CUDA
+    with the dtypes and layout of ``me_mc``; same error contract."""
+    if cur.device.type == "cpu":
+        return me_mc_batch_plain(cands, cur, ry_pad, ru_pad, rv_pad)
+    if cur.device.type != "cuda":
+        raise ValueError(f"unsupported device {cur.device}")
+    n = _check_batch(cands, cur, ry_pad, ru_pad, rv_pad)
+    return _launch(n, cands, cur, ry_pad, ru_pad, rv_pad)
+
+
 def me_mc(cands, cur, ry_pad, ru_pad, rv_pad):
     """ME + MC over a candidate list: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (raises if it cannot build or launch).
@@ -189,34 +265,9 @@ def me_mc(cands, cur, ry_pad, ru_pad, rv_pad):
     process's CUDA context is unusable from then on. The CPU path raises
     ValueError for the same input. ``encoder_core._refine_cands`` never
     makes such a candidate."""
-    global launches
     if cur.device.type == "cpu":
         return me_mc_plain(cands, cur, ry_pad, ru_pad, rv_pad)
     if cur.device.type != "cuda":
         raise ValueError(f"unsupported device {cur.device}")
-    h, w = _check(cands, cur, ry_pad, ru_pad, rv_pad)
-    for name, t, dtype in (("cands", cands, torch.int32), ("cur", cur, torch.int32),
-                           ("ry_pad", ry_pad, torch.uint8), ("ru_pad", ru_pad, torch.uint8),
-                           ("rv_pad", rv_pad, torch.uint8)):
-        if t.device != cur.device:
-            raise ValueError(f"{name} is on {t.device}, cur on {cur.device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    lib = _load()
-    dev = cur.device
-    mvs = torch.empty((h // 16, w // 16, 2), dtype=torch.int32, device=dev)
-    pred_y = torch.empty((h, w), dtype=torch.int32, device=dev)
-    pred_u = torch.empty((h // 2, w // 2), dtype=torch.int32, device=dev)
-    pred_v = torch.empty((h // 2, w // 2), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.selkies_me_mc(
-        dev.index, stream, cands.data_ptr(), cands.shape[0], cur.data_ptr(), h, w,
-        ry_pad.data_ptr(), ru_pad.data_ptr(), rv_pad.data_ptr(),
-        mvs.data_ptr(), pred_y.data_ptr(), pred_u.data_ptr(), pred_v.data_ptr())
-    if err != 0:
-        msg = lib.selkies_cuda_error_string(err).decode()
-        raise RuntimeError(f"me_mc kernel launch failed: {msg} ({err})")
-    launches += 1
-    return mvs, pred_y, pred_u, pred_v
+    _check(cands, cur, ry_pad, ru_pad, rv_pad)
+    return _launch(1, cands, cur, ry_pad, ru_pad, rv_pad)

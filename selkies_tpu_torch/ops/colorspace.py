@@ -27,10 +27,10 @@ def _mix(r, g, b):
 
 
 def _subsample(plane: torch.Tensor) -> torch.Tensor:
-    """2x2 mean with rounding; plane is int32 (H, W), H and W even."""
-    h, w = plane.shape
-    q = plane.reshape(h // 2, 2, w // 2, 2)
-    return (q.sum(dim=(1, 3), dtype=torch.int32) + 2) >> 2
+    """2x2 mean with rounding; plane is int32 (..., H, W), H and W even."""
+    *lead, h, w = plane.shape
+    q = plane.reshape(*lead, h // 2, 2, w // 2, 2)
+    return (q.sum(dim=(-3, -1), dtype=torch.int32) + 2) >> 2
 
 
 def _to_i420(r, g, b):
@@ -42,12 +42,13 @@ def _to_i420(r, g, b):
 
 
 def bgrx_to_i420(frame: torch.Tensor):
-    """(H, W, 4) uint8 BGRx (X11 ZPixmap layout) -> (y, u, v) uint8 planes."""
+    """(..., H, W, 4) uint8 BGRx (X11 ZPixmap layout) -> (y, u, v) uint8
+    planes (..., H, W) and (..., H/2, W/2): a leading session axis is kept."""
     f = frame.to(torch.int32)
     return _to_i420(f[..., 2], f[..., 1], f[..., 0])
 
 
 def rgb_to_i420(frame: torch.Tensor):
-    """(H, W, 3) uint8 RGB -> (y, u, v) uint8 planes."""
+    """(..., H, W, 3) uint8 RGB -> (y, u, v) uint8 planes."""
     f = frame.to(torch.int32)
     return _to_i420(f[..., 0], f[..., 1], f[..., 2])

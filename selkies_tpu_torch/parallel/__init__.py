@@ -1,1 +1,2 @@
-"""Intra-frame parallelism of the port: band and tile slicing (``bands.py``)."""
+"""Parallelism of the port: band and tile slicing (``bands.py``) and
+multi-session serving (``sessions.py``, ``serving.py``)."""

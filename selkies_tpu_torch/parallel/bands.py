@@ -566,7 +566,7 @@ class TorchBandedH264Encoder:
 
     # -- host completion (per band, on the pack pool) --
 
-    def _complete_band_i(self, band: int, fetch: _Fetch, buf_d, idr_pic_id: int, qp: int):
+    def _complete_band_i(self, band: int, fetch: _Fetch, buf_d, idr_pic_id: int):
         prefix, _, fetch_ms = fetch.wait(0.0)
         t_f = time.perf_counter()
         self.link_bytes.add("down_prefix", prefix.nbytes)
@@ -575,7 +575,9 @@ class TorchBandedH264Encoder:
             rest = fetch_rest(buf_d, n, self._cap_i)
             self.link_bytes.add("down_spill", rest.nbytes)
             data = np.concatenate([data, rest])
-        fc = unpack_i_compact(header, data, qp)
+        # the QP held at completion, as JAX's (its coefficients were
+        # quantised at the dispatch QP: a set_qp in between recodes them)
+        fc = unpack_i_compact(header, data, self.qp)
         t_u = time.perf_counter()
         pack = pack_slice_cabac if self._coder == "cabac" else pack_slice_fast
         nal = pack(fc, self.params, frame_num=0, idr=True, idr_pic_id=idr_pic_id,
@@ -708,7 +710,7 @@ class TorchBandedH264Encoder:
         def _one(b: int):
             if idr:
                 return self._complete_band_i(b, pending.fetches[b], pending.buf_h[b],
-                                             pending.idr_pic_id, pending.qp)
+                                             pending.idr_pic_id)
             return self._complete_band_p(b, pending.fetches[b], pending.full_h[b],
                                          pending.buf_h[b], pending.frame_num, pending.qp)
 

@@ -399,25 +399,55 @@ def test_second_dispatch_raises():
 
 
 def test_qp_is_taken_at_dispatch():
-    """A set_qp between the halves does not reach the dispatched frame
-    (its IDR or P slice headers), only the next one."""
+    """A set_qp between the halves does not reach a dispatched P frame
+    (its slice header and coefficients), only the next one. A dispatched
+    IDR completes with the QP held at completion, as JAX's does
+    (test_set_qp_between_dispatch_and_complete_matches_jax)."""
     frames = [f for f, _ in trace(BW, BH)[:3]]
     ref = _small()
     want = [ref.encode_frame(frames[0], 24), ref.encode_frame(frames[1], 24),
             ref.encode_frame(frames[2], 40)]
     ref.close()
     enc = _small()
-    got = []
     try:
-        for f in frames[:2]:
-            pending = enc.dispatch_frame(f, qp=24)
-            enc.set_qp(40)
-            got.append(enc.complete_frame(pending))
-            assert enc.last_stats.qp == 24
+        got = [enc.encode_frame(frames[0], 24)]
+        pending = enc.dispatch_frame(frames[1], qp=24)
+        enc.set_qp(40)
+        got.append(enc.complete_frame(pending))
+        assert not enc.last_stats.idr and enc.last_stats.qp == 24
         got.append(enc.encode_frame(frames[2]))
     finally:
         enc.close()
     assert got == want
+
+
+def test_set_qp_between_dispatch_and_complete_matches_jax():
+    """set_qp between dispatch_frame and complete_frame, on an IDR, a P
+    frame and a forced IDR: the AUs equal JAX's. An IDR's slice carries the
+    QP held at completion over coefficients quantised at the dispatch QP
+    (JAX's behaviour, kept byte for byte), so its AU differs from the same
+    IDR without the set_qp."""
+    frames = [f for f, _ in trace(BW, BH)[:3]]
+
+    def run(enc, late_qp=True):
+        out = []
+        for i, f in enumerate(frames):
+            if i == 2:
+                enc.force_keyframe()
+            pending = enc.dispatch_frame(f, qp=24)
+            if late_qp:
+                enc.set_qp(40)
+            out.append(enc.complete_frame(pending))
+        enc.close()
+        return out
+
+    want = run(JB.BandedH264Encoder(BW, BH, qp=QP, bands=2, devices=jax.devices()[:1]))
+    got = run(_small())
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert hashlib.sha256(g).hexdigest() == hashlib.sha256(w).hexdigest(), f"frame {i}"
+    plain = run(_small(), late_qp=False)
+    assert got[0] != plain[0] and got[2] != plain[2]
+    assert got[1] == plain[1]
 
 
 def test_failed_step_restarts_with_an_idr(monkeypatch):

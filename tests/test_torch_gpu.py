@@ -590,3 +590,129 @@ def test_banded_dispatch_never_syncs(name):
     assert not on_submit, f"{len(on_submit)} syncs; first at:\n" + "\n".join(
         dict.fromkeys(on_submit))
     assert len(aus) == 3 and all(au.startswith(b"\x00\x00\x00\x01") for au in aus)
+
+
+# -- multi-session serving (selkies_tpu_torch/parallel/serving.py) ---------
+
+# name -> (n, h, w, seed, candidate count or "hier")
+_BATCH_CASES = {
+    "3x320x192-hier": (3, H, W, 40, "hier"),
+    "1x320x192-hier": (1, H, W, 41, "hier"),
+    "4x208x336-ragged": (4, 208, 336, 42, "hier"),
+    "2x64x96-count-300": (2, 64, 96, 43, 300),
+}
+
+
+def _batch_case_inputs(name, dev):
+    """Per-session planes with each session's own motion and candidates."""
+    n, h, w, seed, kind = _BATCH_CASES[name]
+    rng = np.random.default_rng(seed)
+    ins = []
+    for i in range(n):
+        motion = tuple(int(x) for x in rng.integers(-30, 31, 2))
+        cur, ref, cu, cv = (torch.from_numpy(a).to(dev)
+                            for a in _planes(h, w, seed + i, motion, 4 * i))
+        pads = [core.edge_pad(p, MV_PAD) for p in (ref, cu, cv)]
+        cands = (core.hier_candidates(cur, ref) if kind == "hier"
+                 else _rand_cands(rng, kind).to(dev))
+        ins.append((cands, cur, *pads))
+    return tuple(torch.stack(t).contiguous() for t in zip(*ins))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_BATCH_CASES))
+def test_batched_kernel_matches_plain_on_card(case):
+    """me_mc_batch is one launch over every session and equals the batched
+    plain version (and so each session's solo plain version) exactly."""
+    _need_card()
+    args = _batch_case_inputs(case, torch.device("cuda"))
+    launches = me_mc.launches
+    got = me_mc.me_mc_batch(*args)
+    assert me_mc.launches == launches + 1
+    want = me_mc.me_mc_batch_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _session_trace(n, h, w, ticks=5, seed=51):
+    """Per tick an (n, h, w, 4) batch: each session scrolls its own block
+    content by its own step."""
+    rng = np.random.default_rng(seed)
+    base = np.kron(rng.integers(0, 256, (n, h // 8 + 8, w // 8 + 8, 4), np.uint8),
+                   np.ones((1, 8, 8, 1), np.uint8))
+    return [np.stack([np.ascontiguousarray(base[i, 3 * t * (i + 1) % 48:][:h, 2 * t:2 * t + w])
+                      for i in range(n)]) for t in range(ticks)]
+
+
+def _drive_service(svc, trace):
+    out = []
+    for t, batch in enumerate(trace):
+        if t == 2:
+            svc.set_qp(1, 36)
+            svc.force_keyframe(0)
+        out.append([hashlib.sha256(au).hexdigest() for au in svc.encode_tick(batch)])
+    return out
+
+
+@pytest.mark.gpu
+def test_service_cuda_matches_cpu():
+    """3 sessions at 320x192: every AU of the card run equals the CPU run,
+    and K1 launches once per tick that has a P session."""
+    _need_card()
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+
+    trace = _session_trace(3, H, W)
+    svc = TorchMultiSessionH264Service(3, W, H, qp=30, device="cuda")
+    launches = me_mc.launches
+    got = _drive_service(svc, trace)
+    assert me_mc.launches - launches == len(trace) - 1
+    svc.close()
+    cpu = TorchMultiSessionH264Service(3, W, H, qp=30, device="cpu")
+    want = _drive_service(cpu, trace)
+    cpu.close()
+    assert got == want
+
+
+@pytest.mark.gpu
+def test_service_dispatch_never_syncs():
+    """dispatch_tick (conversion, the pinned upload, the mixed step and its
+    downlink copy) makes no synchronising CUDA call: torch's sync debug
+    mode warns on each, recorded here by thread. complete_tick waits on
+    the copy's events and is not counted."""
+    _need_card()
+    import threading
+    import traceback
+    import warnings
+
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+
+    trace = _session_trace(3, H, W, ticks=6)
+    svc = TorchMultiSessionH264Service(3, W, H, qp=30, device="cuda")
+    for batch in trace[:2]:  # warm-up: tables reach the card, the kernel builds
+        svc.encode_tick(batch)
+    me = threading.get_ident()
+    seen = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        seen.append((threading.get_ident(), str(message),
+                     "".join(traceback.format_stack(limit=8)[:-1])))
+
+    aus = []
+    for t, batch in enumerate(trace[2:]):
+        if t == 1:
+            svc.force_keyframe(2)  # a mixed tick
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pending = svc.dispatch_tick(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        aus.append(svc.complete_tick(pending))
+    svc.close()
+    on_dispatch = [st for tid, m, st in seen
+                   if tid == me and "called a synchronizing CUDA operation" in m]
+    assert not on_dispatch, f"{len(on_dispatch)} syncs; first at:\n" + "\n".join(
+        dict.fromkeys(on_dispatch))
+    assert len(aus) == 4 and aus[1][2][4] & 0x1F == 7
