@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-9 and 12 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-9, 12 and 13 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -102,6 +102,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    TorchH264Encoder(frame_batch=4, pipeline_depth=2, scene_qp_boost=6)
    over a 1080p typing run, its first frame an IDR at frame_index 0, with
    K1 launched once per non-static P frame (counts zeroed after prewarm);
+13. (run after phase 12, before the timing) the health and observability
+   plane, all on the card with the port's own injector, tracer, telemetry
+   and device pool: (a) create_encoder("tpuh264enc") over phase 12's
+   typing trace with the tracer and telemetry off, then on, then on the
+   CPU: the AUs sha256-equal in all three, ``classify`` once per submit,
+   ``step`` / ``fetch`` / ``unpack`` / ``pack`` and the
+   ``selkies_tile_cache_*`` counters as the CPU run's, K1 once per
+   non-static P frame with the hooks on (counts zeroed just before), the
+   chrome trace written to chiprun_out/phase13_trace.json; (b)
+   ``frontend@4,9:raise`` on that row: exactly those submits raise, the
+   other frames come out in order and equal the CPU run under the spec;
+   (c) ``device:0@3:raise`` on TorchMultiSessionH264Service(8, 1920, 1088):
+   tick 3 raises DeviceFault("0") with no tick in flight, note_tick_failure
+   names the card at threshold 1, the other ticks equal the CPU run under
+   the spec; TorchBandedH264Encoder(1920, 1080, bands=4) with device=None
+   carves onto the card through the pool and, under
+   ``device:0@every:1:flap`` at threshold 3, the card is quarantined from
+   frame 3 on while the AUs equal phase 8's; after probation (an injected
+   clock) pool.tick() runs the real probe on the card and readmits it on
+   the third; the probe's ms; (d) DeviceMonitor reads the card's total
+   and used memory;
 10. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
@@ -135,7 +156,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    events), its device ops and idle share over 8 steps (torch.profiler),
    FramePrep.dirty_tiles on the same frames, and the VP9/AV1 rows' median
    per-frame split (front-end, library, conversion ms, AU bytes) per frame
-   kind with the device and the host front-end;
+   kind with the device and the host front-end; the registry row's typing
+   run with the tracer and telemetry off and on, in turns (off, on, on,
+   off): frames per second, median and p95 latency, the span counts and
+   median ms per span name, and the probe's ms;
 11. print the ``{"kernels": [...]}`` line (K1 at the solo shape and as the
     8-session launch), then the ``{"ok": true, ...}`` line.
 
@@ -472,20 +496,24 @@ def _typing_run(n: int, seed: int):
     return frames
 
 
-def _time_typing(cfg: dict, frames, warm: int) -> dict:
+def _time_typing(cfg: dict, frames, warm: int, hooks: bool = False) -> dict:
     """Frames per second, per-frame latency (a frame's submit() call to the
     return of the call that hands back its AU) and the median FrameStats
     split over frames[1 + warm:], after an IDR and ``warm`` deltas, on a
     fresh encoder of configuration ``cfg``. The frames are submitted back to
-    back, not paced to a capture rate."""
+    back, not paced to a capture rate. With ``hooks`` the tracer and the
+    telemetry bus are on over the timed frames, and the span counts, their
+    medians and the tracer's summary are returned too."""
     import torch
     from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
+    from selkies_tpu_torch.monitoring.tracing import tracer
 
     enc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda", **cfg)
     for f in frames[:1 + warm]:
         enc.submit(f)
     enc.flush()
     torch.cuda.synchronize()
+    _set_hooks(hooks)
     t_sub, lat, stats = {}, {}, {}
 
     def take(outs):
@@ -499,6 +527,8 @@ def _time_typing(cfg: dict, frames, warm: int) -> dict:
     take(enc.flush())
     wall = time.perf_counter() - t0
     enc.close()
+    spans = (_span_counts(), _span_medians(), tracer.summary()) if hooks else None
+    _set_hooks(False)
     n = len(t_sub)
     if len(lat) != n or any(st.upload_kind != "delta" for st in stats.values()):
         _fail(f"typing run {cfg}: {len(lat)} of {n} frames, kinds "
@@ -510,6 +540,8 @@ def _time_typing(cfg: dict, frames, warm: int) -> dict:
     for k in ("classify_ms", "convert_ms", "h2d_ms", "upload_ms", "step_ms", "fetch_ms",
               "unpack_ms", "cavlc_ms", "pack_ms", "device_ms", "bytes"):
         out[k] = statistics.median(getattr(st, k) for st in stats.values())
+    if spans is not None:
+        out["span_counts"], out["span_median_ms"], out["span_summary"] = spans
     return out
 
 
@@ -1354,6 +1386,280 @@ def _time_hybrid(card: str, power_limit: str) -> dict:
     return out
 
 
+
+# -- phase 13: the health and observability plane ----------------------------
+
+def _set_hooks(on: bool) -> None:
+    """The port's tracer and telemetry bus, reset, then on or off."""
+    from selkies_tpu_torch.monitoring.telemetry import telemetry
+    from selkies_tpu_torch.monitoring.tracing import tracer
+
+    for plane in (tracer, telemetry):
+        plane.reset()
+        if on:
+            plane.enable()
+        else:
+            plane.disable()
+
+
+def _span_counts() -> dict:
+    from selkies_tpu_torch.monitoring.tracing import tracer
+
+    return {name: a["count"] for name, a in tracer.summary().items()}
+
+
+def _span_medians() -> dict:
+    """Median ms per span name over the tracer's ring."""
+    from selkies_tpu_torch.monitoring.tracing import tracer
+
+    by: dict = {}
+    for name, _, dur, _ in list(tracer._ring):
+        by.setdefault(name, []).append(dur * 1e3)
+    return {k: statistics.median(v) for k, v in sorted(by.items())}
+
+
+def _hook_site_us(n: int = 200000) -> dict:
+    """Host microseconds of one hook site, off and on: a tracer span, a
+    telemetry count, a stage_ms and the injector read (no spec set), each
+    timed over ``n`` calls on this host's clock."""
+    from selkies_tpu_torch.monitoring.telemetry import telemetry
+    from selkies_tpu_torch.monitoring.tracing import tracer
+    from selkies_tpu_torch.resilience.faultinject import get_injector, reset_faults
+
+    def per_call(fn) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def span():
+        with tracer.span("step"):
+            pass
+
+    reset_faults()
+    out = {}
+    for on in (False, True):
+        _set_hooks(on)
+        key = "on" if on else "off"
+        out[f"span_{key}"] = per_call(span)
+        out[f"count_{key}"] = per_call(
+            lambda: telemetry.count("selkies_tile_cache_frames_total", kind="delta"))
+        out[f"stage_ms_{key}"] = per_call(lambda: telemetry.stage_ms("step", 1.0))
+    _set_hooks(False)
+    out["injector_unset"] = per_call(get_injector)
+    return out
+
+
+def _run_registry_row(trace, dev: str, hooks: bool, spec: str | None = None) -> dict:
+    """The registry's tpuh264enc row over ``trace`` with the hooks on or
+    off and an optional SELKIES_FAULTS spec: the AUs (sha256 with their
+    meta, in completion order), the submits that raised, K1's launches,
+    the span counts and the tile-cache counters."""
+    import torch
+
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.models.registry import create_encoder
+    from selkies_tpu_torch.monitoring.telemetry import telemetry
+    from selkies_tpu_torch.resilience import faultinject
+
+    _set_hooks(hooks)
+    faultinject.reset_faults()
+    if spec:
+        faultinject.configure_faults(spec)
+    enc = create_encoder("tpuh264enc", width=W, height=H, device=dev)
+    rows, raised = [], []
+    me_mc.launches = 0
+    try:
+        for i, frame in enumerate(trace):
+            try:
+                rows += enc.submit(frame, meta=i)
+            except faultinject.InjectedFault:
+                raised.append(i)
+        rows += enc.flush()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launches = me_mc.launches
+    finally:
+        enc.close()
+        faultinject.reset_faults()
+    counters = {k: v for k, v in telemetry.rollup()["counters"].items()
+                if k.startswith("selkies_tile_cache")}
+    return {"aus": [(hashlib.sha256(au).hexdigest(), m) for au, _, m in rows],
+            "p_frames": sum(1 for _, st, _ in rows if not st.idr and st.upload_kind != "static"),
+            "raised": raised, "me_mc_launches": launches, "spans": _span_counts(),
+            "counters": counters}
+
+
+def _observability_phase(band_shas: list) -> dict:
+    """(a) the hooks change no byte; (b) the frontend fault site; (c)
+    device chaos on the session service and the banded encoder, and a
+    readmission through the real probe; (d) the device monitor. Only
+    injected faults: a real CUDA error would poison the context for every
+    later phase."""
+    import torch
+
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.monitoring.device_monitor import DeviceMonitor
+    from selkies_tpu_torch.monitoring.tracing import tracer
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+    from selkies_tpu_torch.resilience import devhealth, faultinject
+
+    out: dict = {}
+    typing = _typing_run(12, 300)  # phase 12's typing trace
+    # (a) the registry row, hooks off then on, and the CPU run with them on
+    t0 = time.perf_counter()
+    off = _run_registry_row(typing, "cuda", hooks=False)
+    on = _run_registry_row(typing, "cuda", hooks=True)
+    trace_json = tracer.chrome_trace()
+    cpu = _run_registry_row(typing, "cpu", hooks=True)
+    _set_hooks(False)
+    if not off["aus"] == on["aus"] == cpu["aus"] or len(on["aus"]) != len(typing):
+        _fail("phase 13 (a): the registry row's AUs differ between hooks off, hooks on and "
+              "the cpu run")
+    if [m for _, m in on["aus"]] != list(range(len(typing))):
+        _fail(f"phase 13 (a): frames came out as {[m for _, m in on['aus']]}")
+    if off["spans"] or off["counters"]:
+        _fail(f"phase 13 (a): hooks off recorded {off['spans']} {off['counters']}")
+    if on["spans"].get("classify") != len(typing):
+        _fail(f"phase 13 (a): {on['spans'].get('classify')} classify spans for "
+              f"{len(typing)} submits")
+    names = ("step", "fetch", "unpack", "pack")
+    if any(on["spans"].get(k) != cpu["spans"].get(k) for k in names) or not on["spans"].get(
+            "step"):
+        _fail(f"phase 13 (a): spans on the card {on['spans']}, on the cpu {cpu['spans']}")
+    if on["counters"] != cpu["counters"] or not on["counters"]:
+        _fail(f"phase 13 (a): tile-cache counters {on['counters']} != cpu {cpu['counters']}")
+    for run_name, run in (("off", off), ("on", on)):
+        if run["me_mc_launches"] != run["p_frames"]:
+            _fail(f"phase 13 (a), hooks {run_name}: me_mc launched {run['me_mc_launches']} "
+                  f"times for {run['p_frames']} P frames")
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "phase13_trace.json").write_text(trace_json)
+    out["a"] = {"frames": len(typing), "spans": on["spans"], "counters": on["counters"],
+                "me_mc_launches": on["me_mc_launches"], "p_frames": on["p_frames"],
+                "trace_events": len(json.loads(trace_json)["traceEvents"]),
+                "seconds": time.perf_counter() - t0}
+    print(f"phase 13 (a) tpuh264enc 1920x1080, {len(typing)} typing frames: AUs sha256-equal "
+          f"with hooks off, hooks on and the cpu run; spans {on['spans']} (step/fetch/unpack/"
+          f"pack as the cpu run's); tile-cache counters {json.dumps(on['counters'])} as the cpu "
+          f"run's; me_mc launched {on['me_mc_launches']} times for {on['p_frames']} P frames "
+          f"with the hooks on; chrome trace in chiprun_out/phase13_trace.json")
+
+    # (b) the frontend fault site on the registry row
+    t0 = time.perf_counter()
+    spec = "frontend@4,9:raise"
+    g = _run_registry_row(typing, "cuda", hooks=False, spec=spec)
+    c = _run_registry_row(typing, "cpu", hooks=False, spec=spec)
+    if g["raised"] != [3, 8] or c["raised"] != [3, 8]:
+        _fail(f"phase 13 (b): submits {g['raised']} raised on the card, {c['raised']} on the cpu")
+    want_meta = [i for i in range(len(typing)) if i not in (3, 8)]
+    if [m for _, m in g["aus"]] != want_meta or g["aus"] != c["aus"]:
+        _fail("phase 13 (b): the frames after the faults differ or come out of order")
+    out["b"] = {"spec": spec, "raised": g["raised"], "frames_out": len(g["aus"]),
+                "me_mc_launches": g["me_mc_launches"], "seconds": time.perf_counter() - t0}
+    print(f"phase 13 (b) {spec} on the registry row: submits {g['raised']} raised; the other "
+          f"{len(g['aus'])} frames came out in order, sha256-equal the cpu run under the same "
+          f"spec")
+
+    # (c) device chaos: the session service, the banded encoder, readmission
+    t0 = time.perf_counter()
+    spec = "device:0@3:raise"
+    bases = [_session_base(i, SW, SH) for i in range(8)]
+    ses: dict = {}
+    for dev_name in ("cuda", "cpu"):
+        devhealth.set_device_pool(devhealth.DevicePool(
+            None if dev_name == "cuda" else [torch.device("cpu")], fail_threshold=1))
+        faultinject.configure_faults(spec)
+        svc = TorchMultiSessionH264Service(8, SW, SH, qp=28, device=dev_name)
+        ticks = []
+        for t in range(5):
+            batch = np.stack([_session_frame(b, i, t) for i, b in enumerate(bases)])
+            try:
+                ticks.append([hashlib.sha256(au).hexdigest() for au in svc.encode_tick(batch)])
+            except devhealth.DeviceFault as e:
+                ticks.append(("fault", e.chip, svc._inflight,
+                              devhealth.note_tick_failure(e, svc.devices)))
+        svc.close()
+        ses[dev_name] = ticks
+    faultinject.reset_faults()
+    if ses["cuda"][2] != ("fault", "0", 0, "0"):
+        _fail(f"phase 13 (c): tick 3 of the service gave {ses['cuda'][2]}")
+    if ses["cuda"] != ses["cpu"]:
+        _fail("phase 13 (c): the service's AUs under device:0@3:raise differ from the cpu run's")
+    clock = [0.0]
+    pool = devhealth.set_device_pool(devhealth.DevicePool(
+        fail_threshold=3, probation_s=5.0, readmit_after=3, clock=lambda: clock[0]))
+    faultinject.configure_faults("device:0@every:1:flap")
+    btrace = _band_trace()
+    benc = TorchBandedH264Encoder(W, H, qp=28, bands=4)
+    if (benc.device.type, benc.bands, [devhealth.chip_key(d) for d in benc.devices]) != (
+            "cuda", 4, ["0"]):
+        _fail(f"phase 13 (c): the banded carve through the pool gave {benc.device}, "
+              f"{benc.bands} bands, devices {benc.devices}")
+    me_mc.launches = 0
+    brows, bquar, b_p = [], [], 0
+    for frame, op in btrace:
+        if op == "idr":
+            benc.force_keyframe()
+        (au, st, _), = benc.submit(frame)
+        brows.append(hashlib.sha256(au).hexdigest())
+        bquar.append(pool.quarantined_keys())
+        b_p += not st.idr and st.upload_kind != "static"
+    torch.cuda.synchronize()
+    b_launches = me_mc.launches
+    benc.close()
+    faultinject.reset_faults()
+    if brows != band_shas:
+        _fail("phase 13 (c): the banded encoder's AUs under device:0@every:1:flap differ from "
+              "phase 8's bands=4 run")
+    if bquar[:2] != [[], []] or any(q != ["0"] for q in bquar[2:]):
+        _fail(f"phase 13 (c): quarantined chips after each frame {bquar}")
+    if pool.stats()["quarantined"]["0"]["failures"] != len(btrace) or b_launches != 4 * b_p:
+        _fail(f"phase 13 (c): pool {pool.stats()}, me_mc {b_launches} for {b_p} P frames")
+    # readmission: probation over, the real probe on the card, readmit_after probes
+    clock[0] += 5.5
+    probes = [pool.tick() for _ in range(3)]
+    if probes != [[], [], ["0"]] or pool.quarantined_keys():
+        _fail(f"phase 13 (c): probes after probation gave {probes}, pool {pool.stats()}")
+    dev0 = torch.device("cuda", 0)
+    probe_ms = []
+    for _ in range(21):
+        tp = time.perf_counter()
+        if not devhealth._default_probe(dev0):
+            _fail("phase 13 (c): the card's probe failed")
+        probe_ms.append((time.perf_counter() - tp) * 1e3)
+    devhealth.reset_device_pool()
+    out["c"] = {"service_ticks": [x if isinstance(x, tuple) else "ok" for x in ses["cuda"]],
+                "banded_frames": len(brows), "banded_me_mc_launches": b_launches,
+                "banded_quarantined_after": bquar,
+                "probes": probes, "probe_ms_median": statistics.median(probe_ms[1:]),
+                "seconds": time.perf_counter() - t0}
+    print(f"phase 13 (c) device chaos: service 8 x {SW}x{SH} with {spec}: tick 3 raised "
+          f"DeviceFault('0') with no tick in flight, note_tick_failure -> '0' (threshold 1), "
+          f"the other ticks sha256-equal the cpu run; bands=4 1920x1080 carved through the pool "
+          f"onto cuda:0 with device:0@every:1:flap: quarantined at frame 3 (threshold 3), "
+          f"{len(brows)} AUs equal phase 8's; after probation 3 probes readmitted the card "
+          f"({probes}); probe {out['c']['probe_ms_median']:.4f} ms (median of 20)")
+
+    # (d) the device monitor
+    mon = DeviceMonitor(device="cuda")
+    total_mb, used_mb = mon._memory_mb()
+    card_mb = torch.cuda.get_device_properties(0).total_memory / 1e6
+    if abs(total_mb - card_mb) > 0.01 * card_mb or not 0 < used_mb < total_mb:
+        _fail(f"phase 13 (d): the monitor read {total_mb} MB total, {used_mb} used; the card "
+              f"has {card_mb} MB")
+    mon.observe_encode(5.0)
+    load = mon._load()
+    if not 0.0 <= load <= 1.0:
+        _fail(f"phase 13 (d): load {load}")
+    out["d"] = {"total_mb": total_mb, "used_mb": used_mb, "card_mb": card_mb, "load": load}
+    print(f"phase 13 (d) DeviceMonitor: total {total_mb:.1f} MB (the card's "
+          f"{card_mb:.1f} MB), used {used_mb:.1f} MB, load {load:.4f}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1804,7 +2110,13 @@ def main() -> int:
     record["hybrid_path"] = _hybrid_phase()
     record["hybrid_path"]["seconds"] = time.perf_counter() - t0
     print(f"phase 12: {record['hybrid_path']['seconds']:.1f} s")
-    print(f"phases 1-9 and 12: {time.perf_counter() - t_start:.1f} s")
+    # -- 13. the health and observability plane
+    t0 = time.perf_counter()
+    record["observability_path"] = _observability_phase(
+        record["band_path"]["1080p"]["bands4"]["sha256"])
+    record["observability_path"]["seconds"] = time.perf_counter() - t0
+    print(f"phase 13: {record['observability_path']['seconds']:.1f} s")
+    print(f"phases 1-9, 12 and 13: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
@@ -1893,6 +2205,28 @@ def main() -> int:
     record["profile"]["delta_p_registry"] = prof_reg
     print(f"profile of 8 grouped typing deltas, registry row ({card}, {power_limit}): "
           + json.dumps(prof_reg))
+    # the registry row with the tracer and telemetry off and on, in turns
+    hooks_t = {"off": [], "on": []}
+    for name in ("off", "on", "on", "off"):
+        hooks_t[name].append(_time_typing({}, typing, warm=8, hooks=name == "on"))
+    from selkies_tpu_torch.resilience.devhealth import _default_probe
+
+    probe_ms = []
+    for _ in range(51):
+        tp = time.perf_counter()
+        _default_probe(dev)
+        probe_ms.append((time.perf_counter() - tp) * 1e3)
+    hooks_t["site_us"] = _hook_site_us()
+    hooks_t["probe_ms_median"] = statistics.median(probe_ms[1:])
+    hooks_t["probe_ms_p95"] = sorted(probe_ms[1:])[-(-95 * 50 // 100) - 1]
+    record["hooks_timing"] = hooks_t
+    print(f"hooks off / on, registry row 1080p typing run, in turns off-on-on-off ({card}, "
+          f"{power_limit}): " + json.dumps({
+              k: [{m: r[m] for m in ("fps", "latency_ms_median", "latency_ms_p95")
+                   if m in r} for r in v] for k, v in hooks_t.items() if isinstance(v, list)})
+          + f"; span medians (ms) {json.dumps(hooks_t['on'][0]['span_median_ms'])}; probe "
+          f"{hooks_t['probe_ms_median']:.4f} ms median, {hooks_t['probe_ms_p95']:.4f} p95 "
+          f"(of 50); one hook site's host cost in us {json.dumps(hooks_t['site_us'])}")
 
     # the entropy plane: per coder, device entropy off and on
     ent_t = {f"{coder}_{'device' if on else 'host'}": _time_entropy(coder, on)
@@ -1998,6 +2332,8 @@ def main() -> int:
         "launches_session_path": ses_launches,
         "launches_per_tick_session_path": ses_ticks,
         "launches_tpuh264enc_registry_path": record["hybrid_path"]["tpuh264enc"]["me_mc_launches"],
+        "launches_observability_path_hooks_on": record["observability_path"]["a"][
+            "me_mc_launches"],
         "card": card, "power_limit": power_limit,
     }, {
         "name": "me_mc (8 sessions, one launch)", "route": "cuda",

@@ -45,10 +45,19 @@ On the card each step's downlink copy is enqueued right behind it (pinned,
 ``non_blocking``) between two CUDA events that the completion worker
 waits on (``_Fetch``): a worker never synchronises the whole device, which
 would wait for later frames' steps too.
+
+The JAX encoder's hooks sit at its sites: the ``frontend`` fault site at
+the top of ``submit`` (``SELKIES_FAULTS``; a raise leaves the frames in
+flight deliverable in order), the tracer's ``classify`` / ``step`` /
+``fetch`` / ``unpack`` / ``pack`` / ``bits_fetch`` spans, the tile-cache
+counters on the telemetry bus, and a ``jitprof`` mark on a retune that
+JAX would recompile for. Off, each costs one ``None`` or ``enabled`` read;
+no hook changes a byte or waits on the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -105,7 +114,11 @@ from selkies_tpu_torch.models.h264.numpy_ref import PFrameCoeffs
 from selkies_tpu_torch.models.h264.sparse_complete import complete_sparse_slice, fetch_rest, host
 from selkies_tpu_torch.models.stats import FrameStats, LinkByteCounter
 from selkies_tpu_torch.models.tilecache import TileCache
+from selkies_tpu_torch.monitoring import jitprof
+from selkies_tpu_torch.monitoring.telemetry import telemetry
+from selkies_tpu_torch.monitoring.tracing import tracer
 from selkies_tpu_torch.ops.colorspace import bgrx_to_i420, rgb_to_i420
+from selkies_tpu_torch.resilience.faultinject import get_injector
 
 __all__ = ["TorchH264Encoder", "CAP_ROWS"]
 
@@ -399,16 +412,22 @@ class _Fetch:
             self.fetched = torch.cuda.Event(blocking=True)
             self.fetched.record()
 
-    def wait(self, t_disp: float) -> tuple[np.ndarray, float, float]:
-        """-> (host array, step ms since ``t_disp``, fetch ms)."""
-        if self.step_done is None:
-            t_ready = time.perf_counter()
-            arr = np.ascontiguousarray(host(self.src))
-        else:
-            self.step_done.synchronize()
-            t_ready = time.perf_counter()
-            self.fetched.synchronize()
-            arr = self.host.numpy()
+    def wait(self, t_disp: float, *, step_span: bool = True,
+             fetch_span: bool = False) -> tuple[np.ndarray, float, float]:
+        """-> (host array, step ms since ``t_disp``, fetch ms). The wait on
+        ``step_done`` is the tracer's ``step`` span unless ``step_span`` is
+        False (a caller that waited already, under its own span); the copy
+        is a ``fetch`` span where the JAX encoder opens one."""
+        with tracer.span("step") if step_span else contextlib.nullcontext():
+            if self.step_done is not None:
+                self.step_done.synchronize()
+        t_ready = time.perf_counter()
+        with tracer.span("fetch") if fetch_span else contextlib.nullcontext():
+            if self.step_done is None:
+                arr = np.ascontiguousarray(host(self.src))
+            else:
+                self.fetched.synchronize()
+                arr = self.host.numpy()
         return arr, (t_ready - t_disp) * 1e3, (time.perf_counter() - t_ready) * 1e3
 
 
@@ -566,6 +585,8 @@ class TorchH264Encoder:
         self._up_batch_buckets = (0,) + self.BATCH_BUCKETS
         self._ltr_probe: object = ()  # _classify's scene-cache match, () if not run
         self.link_bytes = LinkByteCounter()
+        # last-seen tile-cache totals, for per-frame telemetry deltas
+        self._tc_seen = (0, 0, 0)
         # completion workers (fetch + unpack + pack), and a separate pool for
         # a group's per-slot packs: a group's coordinator blocks on its slots,
         # so the two must not share workers
@@ -656,6 +677,10 @@ class TorchH264Encoder:
             return True
         if self._inflight or self._batch_pend:
             raise RuntimeError("retune_entropy with frames in flight; flush first")
+        # recompile sentinel: where JAX's partials rebuild (the port builds
+        # nothing here, so the mark attributes no build)
+        jitprof.mark("actuation", "entropy-coder-switch" if coder != self._coder
+                     else "entropy-retune")
         self.device_entropy, self.bits_min_mbs = de, bm
         self._bits_words, self._entropy = bw, ent
         if coder != self._coder:
@@ -862,6 +887,27 @@ class TorchH264Encoder:
         if payload is None:
             return "full", ("seed", idx, res.hashes)
         return "delta", payload
+
+    def _emit_classify_telemetry(self, kind: str, payload) -> None:
+        """Fold one frame's classification into the telemetry bus: per-tile
+        cache hit/miss/evict deltas and the frame's upload class (a delta
+        whose upload list is empty is a pure-remap frame). Called only when
+        telemetry is enabled."""
+        tc = self._tcache
+        if tc is not None:
+            hits, misses, evs = tc.hits, tc.misses, tc.evictions
+            dh, dm, de = (hits - self._tc_seen[0], misses - self._tc_seen[1],
+                          evs - self._tc_seen[2])
+            self._tc_seen = (hits, misses, evs)
+            if dh:
+                telemetry.count("selkies_tile_cache_tiles_total", dh, result="hit")
+            if dm:
+                telemetry.count("selkies_tile_cache_tiles_total", dm, result="miss")
+            if de:
+                telemetry.count("selkies_tile_cache_tiles_total", de, result="evict")
+            if kind == "delta" and isinstance(payload, tuple) and len(payload[0]) == 0:
+                kind = "remap_only"
+        telemetry.count("selkies_tile_cache_frames_total", kind=kind)
 
     def _allskip_slice(self, frame_num: int, mark_ltr: int | None = None,
                        mmco_evict: tuple = ()) -> bytes:
@@ -1257,8 +1303,16 @@ class TorchH264Encoder:
             or (self.keyframe_interval > 0 and self._frames_since_idr >= self.keyframe_interval)
         )
         t0 = time.perf_counter()
-        kind, payload = self._classify(frame, damage)
+        fi = get_injector()
+        if fi is not None:
+            # the "frontend" chaos site: a raise here leaves every frame in
+            # flight deliverable in order (nothing has changed yet)
+            fi.check("frontend")
+        with tracer.span("classify"):
+            kind, payload = self._classify(frame, damage)
         classify_ms = (time.perf_counter() - t0) * 1e3
+        if telemetry.enabled:
+            self._emit_classify_telemetry(kind, payload)
         batch_full = False
         orig_qp = self.qp
         # a scene cut is the transition into a full-frame change: that one
@@ -1539,7 +1593,8 @@ class TorchH264Encoder:
         """One dispatched frame's completion: wait for its downlink copy,
         unpack and pack. -> (au, skipped_mbs, t_start, t_unpacked, t_done,
         mode, step_ms, fetch_ms)."""
-        fused, step_ms, fetch_ms = rec.fetch.wait(rec.t_disp or rec.t0)
+        fused, step_ms, fetch_ms = rec.fetch.wait(rec.t_disp or rec.t0,
+                                                  fetch_span=rec.kind == "pd")
         if rec.kind == "pb":
             complete = self._complete_toks if self._coder == "cabac" else self._complete_bits
             return (*complete(rec, fused), step_ms, fetch_ms)
@@ -1557,17 +1612,21 @@ class TorchH264Encoder:
         t1 = time.perf_counter()
         skipped = 0
         if rec.kind == "i":
-            fc = unpack_i_compact(header, data, rec.qp)
+            with tracer.span("unpack"):
+                fc = unpack_i_compact(header, data, rec.qp)
             tu = time.perf_counter()
             pack_i = pack_slice_cabac if self._coder == "cabac" else pack_slice_fast
-            au = self._headers + pack_i(fc, self.params, frame_num=0, idr=True,
-                                        idr_pic_id=rec.idr_pic_id)
+            with tracer.span("pack"):
+                au = self._headers + pack_i(fc, self.params, frame_num=0, idr=True,
+                                            idr_pic_id=rec.idr_pic_id)
             mode = ""  # a P-frame label: keyframes never ship device bits
         else:
-            pfc = unpack_p_compact(header, data, rec.qp)
+            with tracer.span("unpack"):
+                pfc = unpack_p_compact(header, data, rec.qp)
             tu = time.perf_counter()
             skipped = int(pfc.skip.sum())
-            au = self._pack_p(pfc, rec)
+            with tracer.span("pack"):
+                au = self._pack_p(pfc, rec)
             mode = "coeff"
         return au, skipped, t1, tu, time.perf_counter(), mode, step_ms, fetch_ms
 
@@ -1597,7 +1656,8 @@ class TorchH264Encoder:
         ``need``: one more fetch from the whole word buffer."""
         if need <= held:
             return words
-        rest = fetch_rest(rec.words_d, need, held)
+        with tracer.span("bits_fetch"):
+            rest = fetch_rest(rec.words_d, need, held)
         self.link_bytes.add("down_bits_spill", rest.nbytes)
         return np.concatenate([words, rest])
 

@@ -49,6 +49,7 @@ from selkies_tpu_torch.models.h264.compact import (
 from selkies_tpu_torch.models.h264.device_cabac import assemble_p_cabac_nal
 from selkies_tpu_torch.models.h264.device_cavlc import assemble_p_nal
 from selkies_tpu_torch.models.h264.native import pack_slice_p_fast, pack_slice_p_sparse_native
+from selkies_tpu_torch.monitoring.tracing import tracer
 
 __all__ = ["complete_sparse_slice", "fetch_rest", "host"]
 
@@ -67,7 +68,10 @@ def _settle_device_bits(fused, need: int, note_need, link_bytes, prefix_bytes: i
     if link_bytes is not None and prefix_bytes:
         link_bytes.add("down_bits", prefix_bytes)
     if need > len(fused):  # hint too small: refetch
-        fused = host(full_d)
+        # the span marks only this extra transfer; the prefix's fetch rode
+        # the caller's "fetch" span
+        with tracer.span("bits_fetch"):
+            fused = host(full_d)
         if link_bytes is not None:
             link_bytes.add("down_bits_refetch", fused.nbytes)
     return fused
@@ -140,10 +144,11 @@ def complete_sparse_slice(
             counts = fused[base:base + ns].astype(np.int64)
             words = np.ascontiguousarray(fused[base + ns:base + ns + 2 * nw]).view(np.uint32)
             t_unpacked = time.perf_counter()
-            nal = assemble_p_cabac_nal(words, ntok, counts, skip, params, frame_num, qp,
-                                       ltr_ref=ltr_ref, mark_ltr=mark_ltr,
-                                       mmco_evict=mmco_evict, first_mb=first_mb,
-                                       cabac_init_idc=cabac_init_idc)
+            with tracer.span("pack"):
+                nal = assemble_p_cabac_nal(words, ntok, counts, skip, params, frame_num, qp,
+                                           ltr_ref=ltr_ref, mark_ltr=mark_ltr,
+                                           mmco_evict=mmco_evict, first_mb=first_mb,
+                                           cabac_init_idc=cabac_init_idc)
             return nal, nskip, t_unpacked, "cabac"
         if mode == 1:
             nw = (nbits + 31) // 32
@@ -152,8 +157,10 @@ def complete_sparse_slice(
             words = np.ascontiguousarray(fused[ENTROPY_META16:ENTROPY_META16 + 2 * nw]).view(
                 np.uint32)
             t_unpacked = time.perf_counter()
-            nal = assemble_p_nal(words, nbits, trailing, params, frame_num, qp, ltr_ref=ltr_ref,
-                                 mark_ltr=mark_ltr, mmco_evict=mmco_evict, first_mb=first_mb)
+            with tracer.span("pack"):
+                nal = assemble_p_nal(words, nbits, trailing, params, frame_num, qp,
+                                     ltr_ref=ltr_ref, mark_ltr=mark_ltr, mmco_evict=mmco_evict,
+                                     first_mb=first_mb)
             return nal, nskip, t_unpacked, "bits"
         # mode 0: the sparse coefficient layout at an offset
         off = ENTROPY_META16
@@ -161,49 +168,51 @@ def complete_sparse_slice(
     if link_bytes is not None and prefix_bytes:
         link_bytes.add("down_prefix", prefix_bytes)
     mode = "coeff"
-    need_fn = p_sparse_packed_need if packed else p_sparse_var_need
-    need, n, ns = need_fn(fused, mbh, mbw, nscap, cap_rows)
-    if note_need is not None:
-        note_need(need + off)
-    if need > len(fused):  # hint too small: refetch the live content
-        fused = host(full_d)[off:]
-        if link_bytes is not None:
-            link_bytes.add("down_refetch", fused.nbytes)
-    extra = None
-    if n > cap_rows:  # rows spilled past the fused buffer
-        extra = fetch_rest(buf_d, n, cap_rows)
-        if link_bytes is not None:
-            link_bytes.add("down_spill", extra.nbytes)
-    wire = pfc = None
-    if ns <= nscap and native_wire and entropy_coder == "cavlc":
-        wire = p_sparse_wire_views(fused, mbh, mbw, nscap, cap_rows, packed, extra)
-    if wire is None:
-        unpack = unpack_p_sparse_packed if packed else unpack_p_sparse_var
-        pfc, rows = unpack(fused, qp, mbh, mbw, nscap, cap_rows, extra)
-        if pfc is None:  # ns > nscap: dense-header fallback fetch
-            if dense_d is None:
-                raise RuntimeError("ns > nscap with no dense fallback buffer")
-            dense = host(dense_d)
+    with tracer.span("unpack"):
+        need_fn = p_sparse_packed_need if packed else p_sparse_var_need
+        need, n, ns = need_fn(fused, mbh, mbw, nscap, cap_rows)
+        if note_need is not None:
+            note_need(need + off)
+        if need > len(fused):  # hint too small: refetch the live content
+            fused = host(full_d)[off:]
             if link_bytes is not None:
-                link_bytes.add("down_spill", dense.nbytes)
-            pfc = unpack_p_compact(dense, rows, qp)
-            mode = "dense"
+                link_bytes.add("down_refetch", fused.nbytes)
+        extra = None
+        if n > cap_rows:  # rows spilled past the fused buffer
+            extra = fetch_rest(buf_d, n, cap_rows)
+            if link_bytes is not None:
+                link_bytes.add("down_spill", extra.nbytes)
+        wire = pfc = None
+        if ns <= nscap and native_wire and entropy_coder == "cavlc":
+            wire = p_sparse_wire_views(fused, mbh, mbw, nscap, cap_rows, packed, extra)
+        if wire is None:
+            unpack = unpack_p_sparse_packed if packed else unpack_p_sparse_var
+            pfc, rows = unpack(fused, qp, mbh, mbw, nscap, cap_rows, extra)
+            if pfc is None:  # ns > nscap: dense-header fallback fetch
+                if dense_d is None:
+                    raise RuntimeError("ns > nscap with no dense fallback buffer")
+                dense = host(dense_d)
+                if link_bytes is not None:
+                    link_bytes.add("down_spill", dense.nbytes)
+                pfc = unpack_p_compact(dense, rows, qp)
+                mode = "dense"
     t_unpacked = time.perf_counter()
-    if wire is not None:
-        nal = pack_slice_p_sparse_native(wire, params, frame_num, qp, ltr_ref=ltr_ref,
-                                         mark_ltr=mark_ltr, mmco_evict=mmco_evict,
-                                         first_mb=first_mb)
-        skipped = mbh * mbw - wire.ns
-    elif entropy_coder == "cabac":
-        # a Main-profile stream cannot carry CAVLC slices (the PPS sets
-        # entropy_coding_mode_flag): coefficients go through the host CABAC
-        # coder
-        nal = pack_slice_p_cabac(pfc, params, frame_num, ltr_ref=ltr_ref, mark_ltr=mark_ltr,
-                                 mmco_evict=mmco_evict, first_mb=first_mb,
-                                 cabac_init_idc=cabac_init_idc)
-        skipped = int(pfc.skip.sum())
-    else:
-        nal = pack_slice_p_fast(pfc, params, frame_num=frame_num, ltr_ref=ltr_ref,
-                                mark_ltr=mark_ltr, mmco_evict=mmco_evict, first_mb=first_mb)
-        skipped = int(pfc.skip.sum())
+    with tracer.span("pack"):
+        if wire is not None:
+            nal = pack_slice_p_sparse_native(wire, params, frame_num, qp, ltr_ref=ltr_ref,
+                                             mark_ltr=mark_ltr, mmco_evict=mmco_evict,
+                                             first_mb=first_mb)
+            skipped = mbh * mbw - wire.ns
+        elif entropy_coder == "cabac":
+            # a Main-profile stream cannot carry CAVLC slices (the PPS sets
+            # entropy_coding_mode_flag): coefficients go through the host CABAC
+            # coder
+            nal = pack_slice_p_cabac(pfc, params, frame_num, ltr_ref=ltr_ref, mark_ltr=mark_ltr,
+                                     mmco_evict=mmco_evict, first_mb=first_mb,
+                                     cabac_init_idc=cabac_init_idc)
+            skipped = int(pfc.skip.sum())
+        else:
+            nal = pack_slice_p_fast(pfc, params, frame_num=frame_num, ltr_ref=ltr_ref,
+                                    mark_ltr=mark_ltr, mmco_evict=mmco_evict, first_mb=first_mb)
+            skipped = int(pfc.skip.sum())
     return nal, skipped, t_unpacked, mode

@@ -35,6 +35,12 @@ slice (``sparse_complete.complete_sparse_slice`` with the band's
 ``first_mb``) on the pack pool. Each band's downlink copy is enqueued on
 the dispatching thread right behind the step (``encoder._Fetch``), and
 the completion waits on those events only.
+
+As JAX's, ``dispatch_frame`` first consults the ``device:<chip>`` fault
+site over ``self.devices`` (``resilience/devhealth.py``), the completion
+opens the ``band_gather`` / ``row_gather``, ``step``, ``fetch``,
+``unpack`` and ``pack`` spans and records ``selkies_stage_ms``, and
+``device=None`` carves through the device pool.
 """
 
 from __future__ import annotations
@@ -80,6 +86,9 @@ from selkies_tpu_torch.models.h264.native import pack_slice_fast, pack_slice_p_f
 from selkies_tpu_torch.models.h264.numpy_ref import COARSE_R, MV_PAD, PFrameCoeffs
 from selkies_tpu_torch.models.h264.sparse_complete import complete_sparse_slice, fetch_rest
 from selkies_tpu_torch.models.stats import FrameStats, LinkByteCounter
+from selkies_tpu_torch.monitoring.telemetry import telemetry
+from selkies_tpu_torch.monitoring.tracing import tracer
+from selkies_tpu_torch.resilience.devhealth import check_device_faults, get_device_pool
 
 logger = logging.getLogger("selkies_tpu_torch.parallel.bands")
 
@@ -368,9 +377,13 @@ class TorchBandedH264Encoder:
     full-motion / 4K path: no delta uploads and no tile cache, but an
     unchanged capture is still an all-skip AU built on the host.
 
-    The keyword names are the JAX constructor's, with ``device`` (None
-    means ``cuda``, raising without a card) in place of ``devices``:
-    ``self.devices == [self.device]`` and ``mesh_enabled`` is False.
+    The keyword names are the JAX constructor's, with ``device`` in place
+    of ``devices``: an explicit device is used as given; None takes the
+    first healthy card of the health plane (``resilience/devhealth.py``,
+    raising without a card), shrinking the carve while a quarantine is
+    active as JAX's does. ``self.devices`` is the card the device fault
+    site checks each frame (empty when no card was healthy);
+    ``mesh_enabled`` is False.
     ``frame_batch`` and ``pipeline_depth`` only size the pack pool.
     ``dispatch_frame`` / ``complete_frame`` split ``encode_frame`` for a
     scheduler that overlaps sessions; one frame may be in flight.
@@ -390,7 +403,6 @@ class TorchBandedH264Encoder:
                  device=None):
         if channels != 4:
             raise ValueError("band-parallel encode expects BGRx capture (channels=4)")
-        self.device = resolve_device(device)
         self.width = width
         self.height = height
         self.fps = fps
@@ -405,6 +417,29 @@ class TorchBandedH264Encoder:
                 bands, cols = grid
         requested = bands if bands is not None else bands_from_env()
         cols_req = 1 if cols is None else max(1, int(cols))
+        # the device: an explicit one is the caller's contract; None takes
+        # the first healthy card of the health plane (resilience/
+        # devhealth.py), and while a quarantine is active the carve shrinks
+        # to what the healthy cards could hold, as JAX's. With no healthy
+        # card the work stays on the pool's first card with an empty device
+        # list (no fault check), as JAX runs on its default device
+        if device is not None:
+            self.device = resolve_device(device)
+            self.devices = [self.device]
+        else:
+            pool = get_device_pool()
+            devs = pool.healthy_devices()
+            if pool.has_quarantined():
+                cap = max(1, len(devs) // cols_req)
+                if cap < requested:
+                    logger.warning("%dx%d: %d bands requested but only %d healthy cards "
+                                   "(quarantine active): shrinking the carve to %d bands",
+                                   width, height, requested, len(devs), cap)
+                    requested = cap
+            self.device = devs[0] if devs else pool.all_devices()[0]
+            # the cards this encoder dispatches to: the device fault site
+            # checks exactly these each frame
+            self.devices = devs[:1]
         self.bands = usable_bands(self._mbh, requested)
         if self.bands != requested:
             logger.info("%dx%d: %d bands requested, using %d (%d MB rows must split into "
@@ -468,7 +503,6 @@ class TorchBandedH264Encoder:
         # one device: no mesh, the stacked steps
         self.mesh_enabled = False
         self.mesh = None
-        self.devices = [self.device]
         self.params = StreamParams(width=width, height=height, qp=self.qp, fps=fps,
                                    entropy_coder=self._coder)
         self._headers = write_sps(self.params) + write_pps(self.params)
@@ -567,7 +601,7 @@ class TorchBandedH264Encoder:
     # -- host completion (per band, on the pack pool) --
 
     def _complete_band_i(self, band: int, fetch: _Fetch, buf_d, idr_pic_id: int):
-        prefix, _, fetch_ms = fetch.wait(0.0)
+        prefix, _, fetch_ms = fetch.wait(0.0, step_span=False, fetch_span=True)
         t_f = time.perf_counter()
         self.link_bytes.add("down_prefix", prefix.nbytes)
         header, data, n = split_prefix(prefix, self._hdr_words_i)
@@ -577,17 +611,19 @@ class TorchBandedH264Encoder:
             data = np.concatenate([data, rest])
         # the QP held at completion, as JAX's (its coefficients were
         # quantised at the dispatch QP: a set_qp in between recodes them)
-        fc = unpack_i_compact(header, data, self.qp)
+        with tracer.span("unpack"):
+            fc = unpack_i_compact(header, data, self.qp)
         t_u = time.perf_counter()
         pack = pack_slice_cabac if self._coder == "cabac" else pack_slice_fast
-        nal = pack(fc, self.params, frame_num=0, idr=True, idr_pic_id=idr_pic_id,
-                   first_mb=self.spans[band][0] * self._mbw)
+        with tracer.span("pack"):
+            nal = pack(fc, self.params, frame_num=0, idr=True, idr_pic_id=idr_pic_id,
+                       first_mb=self.spans[band][0] * self._mbw)
         # the downlink mode labels P frames only
         return nal, 0, fetch_ms / 1e3, t_u - t_f, time.perf_counter() - t_u, t_f, ""
 
     def _complete_band_p(self, band: int, fetch: _Fetch, full_d, buf_d, frame_num: int,
                          qp: int):
-        fused, _, fetch_ms = fetch.wait(0.0)
+        fused, _, fetch_ms = fetch.wait(0.0, step_span=False, fetch_span=True)
         t_f = time.perf_counter()
         # one band is one slice: the solo delta completion with the band's
         # geometry and first_mb (no dense header: nscap = the band's MBs)
@@ -642,6 +678,9 @@ class TorchBandedH264Encoder:
                                "complete_frame the previous one first")
         if qp is not None:
             self.set_qp(qp)
+        # the device:<chip> fault site, before the scan changes any state:
+        # a killed frame leaves the front end consistent
+        check_device_faults(self.devices)
         t0 = time.perf_counter()
         idr = (self._force_idr or self._ref is None
                or (self.keyframe_interval > 0
@@ -718,16 +757,21 @@ class TorchBandedH264Encoder:
         # while the pool packs (a small pool would otherwise queue later
         # bands behind earlier packs and count that as step time)
         t_ready = [0.0] * self.bands
+        # "row_gather" is the tile grid's fan-out, "band_gather" the bands'
+        gather_stage = "row_gather" if self.cols > 1 else "band_gather"
         try:
-            futs = [self._pack_pool.submit(_one, b) for b in range(self.bands)]
-            for b in range(self.bands):
-                t_ready[b] = _step_ready(pending.fetches[b])
-            results = [f.result() for f in futs]
+            with tracer.span(gather_stage):
+                futs = [self._pack_pool.submit(_one, b) for b in range(self.bands)]
+                for b in range(self.bands):
+                    with tracer.span("step"):
+                        t_ready[b] = _step_ready(pending.fetches[b])
+                results = [f.result() for f in futs]
         except Exception:
             # the reference already advanced to a frame the client lacks
             self._ref = None
             self._prep.reset()
             raise
+        t_done = time.perf_counter()
         nals = [r[0] for r in results]
         au = (self._headers + b"".join(nals)) if idr else b"".join(nals)
         t_up = pending.t_up
@@ -741,6 +785,11 @@ class TorchBandedH264Encoder:
                          else "bits" if modes == {"bits"}
                          else "cabac" if modes == {"cabac"}
                          else "coeff" if "coeff" in modes else "")
+        band_step = tuple(round((t - t_up) * 1e3, 3) for t in t_ready)
+        if telemetry.enabled:
+            telemetry.stage_ms(gather_stage, (t_done - t_up) * 1e3)
+            for ms in band_step:
+                telemetry.stage_ms("step", ms)
         stats = FrameStats(
             frame_index=self.frame_index, idr=idr, qp=pending.qp, bytes=len(au),
             device_ms=(max(r[5] for r in results) - pending.t0) * 1e3,
@@ -749,7 +798,7 @@ class TorchBandedH264Encoder:
             step_ms=(max(t_ready) - t_up) * 1e3, fetch_ms=max(r[2] for r in results) * 1e3,
             bands=self.bands, cols=self.cols, classify_ms=pending.classify_ms,
             convert_ms=pending.convert_ms, h2d_ms=pending.h2d_ms,
-            band_step_ms=tuple(round((t - t_up) * 1e3, 3) for t in t_ready),
+            band_step_ms=band_step,
             downlink_mode=downlink_mode)
         self.last_stats = stats
         if idr:

@@ -17,9 +17,12 @@ returns with the card still stepping. The fetch is the dense coefficients,
 as JAX's, narrowed to int16 on the device: the packers take int16, so the
 bytes are the same and half cross the link.
 
-Not ported here (queued with the device-health plane): the per-tick
-``check_device_faults``, the tracer spans, and the persistent compilation
-cache (the port compiles nothing per geometry).
+As JAX's, each tick first consults the ``device:<chip>`` fault site over
+``self.devices`` (``resilience/devhealth.py``: here the one card that holds
+every session, where JAX checks one chip per session), and opens the
+tracer's ``convert`` / ``device-step`` / ``fetch`` / ``pack`` spans beside
+``last_timing``. JAX's persistent compilation cache has no counterpart:
+the port compiles nothing per geometry.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ from selkies_tpu_torch.models.h264.bitstream import StreamParams, write_pps, wri
 from selkies_tpu_torch.models.h264.encoder import _Fetch
 from selkies_tpu_torch.models.h264.native import pack_slice_fast, pack_slice_p_fast
 from selkies_tpu_torch.models.h264.numpy_ref import FrameCoeffs, PFrameCoeffs
+from selkies_tpu_torch.monitoring.tracing import tracer
 from selkies_tpu_torch.parallel.sessions import I_ONLY, P_ONLY, TorchMultiSessionEncoder
+from selkies_tpu_torch.resilience.devhealth import check_device_faults
 
 __all__ = ["TorchMultiSessionH264Service"]
 
@@ -71,9 +76,11 @@ class TorchMultiSessionH264Service:
     Ticks run in lockstep (one frame per session per tick) but GOP policy
     is per session: the mixed tick picks IDR or P from each session's own
     force_keyframe / GOP state. Only the very first tick (no reference
-    planes yet) is the batch-wide IDR step. ``device=None`` means ``cuda``;
-    ``device="cpu"`` runs on the CPU. ``last_timing`` holds the last
-    completed tick's host-clock split in ms."""
+    planes yet) is the batch-wide IDR step. ``device=None`` takes the first
+    healthy card of the health plane (raising without a card);
+    ``device="cpu"`` runs on the CPU. ``devices`` lists the card the
+    ``device:<chip>`` fault site checks each tick. ``last_timing`` holds
+    the last completed tick's host-clock split in ms."""
 
     def __init__(self, n_sessions: int, width: int, height: int, *,
                  qp: int = 28, fps: int = 60, device=None):
@@ -101,6 +108,8 @@ class TorchMultiSessionH264Service:
         self._uploaded: torch.cuda.Event | None = None  # the last upload of the planes
         self._inflight = 0
         self.last_timing: dict = {}
+        # the card for the device:<chip> fault site
+        self.devices = [self.device]
 
     def set_qp(self, session: int, qp: int) -> None:
         if not 0 <= qp <= 51:
@@ -125,12 +134,14 @@ class TorchMultiSessionH264Service:
         the card is still stepping when this returns."""
         if frames.shape[0] != self.n:
             raise ValueError(f"expected {self.n} frames, got {frames.shape[0]}")
+        check_device_faults(self.devices)
         idrs = np.array([s.force_idr or s.frames_since_idr == 0 for s in self.sessions], bool)
         t0 = time.perf_counter()
         # the previous tick's upload must have read the pinned planes
         if self._uploaded is not None and not self._uploaded.query():
             self._uploaded.synchronize()
-        list(self._pool.map(lambda i: self._convert_into(frames, i), range(self.n)))
+        with tracer.span("convert"):
+            list(self._pool.map(lambda i: self._convert_into(frames, i), range(self.n)))
         t1 = time.perf_counter()
         planes = self.enc._put_inputs(self._batch_t)
         if self.device.type == "cuda":
@@ -138,12 +149,13 @@ class TorchMultiSessionH264Service:
             self._uploaded.record()
         qps = np.array([s.qp for s in self.sessions], np.int32)
         t2 = time.perf_counter()
-        if self.enc._ref is None:
-            # first tick: no reference planes exist, everyone starts a GOP
-            idrs[:] = True
-            out = self.enc.encode_idr(planes, qps)
-        else:
-            out = self.enc.encode_mixed(planes, qps, idrs)
+        with tracer.span("device-step"):
+            if self.enc._ref is None:
+                # first tick: no reference planes exist, everyone starts a GOP
+                idrs[:] = True
+                out = self.enc.encode_idr(planes, qps)
+            else:
+                out = self.enc.encode_mixed(planes, qps, idrs)
         # the fetch skips the branch-filler fields no session needs
         skip = (set(I_ONLY) if not idrs.any() else set()) | (set(P_ONLY) if idrs.all() else set())
         keys = [k for k in out if k not in skip]
@@ -163,14 +175,18 @@ class TorchMultiSessionH264Service:
         the device wait lives), the per-session packs on the pool and the
         GOP state advance."""
         self._inflight -= 1
-        arr, step_ms, fetch_ms = pending.fetch.wait(pending.t_disp)
+        # JAX's "fetch" span covers its blocking fetch, the device wait
+        # included: here the wait on the step-done event and the copy
+        with tracer.span("fetch"):
+            arr, step_ms, fetch_ms = pending.fetch.wait(pending.t_disp, step_span=False)
         host = {k: arr[off:off + int(np.prod(shape))].reshape(shape)
                 for k, shape, off in pending.layout}
         idrs = pending.idrs
         t0 = time.perf_counter()
-        futures = [self._pool.submit(self._pack_one, i, host, bool(idrs[i]))
-                   for i in range(self.n)]
-        aus = [f.result() for f in futures]
+        with tracer.span("pack"):
+            futures = [self._pool.submit(self._pack_one, i, host, bool(idrs[i]))
+                       for i in range(self.n)]
+            aus = [f.result() for f in futures]
         self.last_timing = {
             "convert_ms": pending.convert_ms, "h2d_ms": pending.h2d_ms,
             "dispatch_ms": pending.dispatch_ms, "step_ms": step_ms, "fetch_ms": fetch_ms,

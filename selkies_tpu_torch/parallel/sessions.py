@@ -23,6 +23,8 @@ return (``_keep_ref``), as in JAX, where they are donated.
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
@@ -33,8 +35,11 @@ from selkies_tpu_torch.models.h264.encoder_core import (
     encode_frame_planes_batch,
 )
 from selkies_tpu_torch.ops.colorspace import bgrx_to_i420
+from selkies_tpu_torch.resilience.devhealth import get_device_pool
 
 __all__ = ["TorchMultiSessionEncoder", "dryrun"]
+
+logger = logging.getLogger("selkies_tpu_torch.parallel.sessions")
 
 # the fields only one branch of the mixed tick produces, with their
 # per-session shape (in MBs) and dtype; the other branch's sessions get zeros
@@ -43,10 +48,26 @@ I_ONLY = {"luma_mode": ((), torch.int32), "chroma_mode": ((), torch.int32),
 P_ONLY = {"mvs": ((2,), torch.int32), "skip": ((), torch.bool)}
 
 
+def _session_device() -> torch.device:
+    """The card for ``device=None``, from the health plane
+    (resilience/devhealth.py): the first healthy card. JAX's rule for a
+    session mesh that the healthy chips cannot hold holds here too: with no
+    healthy card the build falls back to the full enumeration (a
+    quarantined card included) and never raises short."""
+    pool = get_device_pool()
+    healthy = pool.healthy_devices()
+    if healthy:
+        return healthy[0]
+    logger.warning("the sessions need a card but none is healthy; using the full "
+                   "enumeration (quarantined cards included)")
+    return pool.all_devices()[0]
+
+
 class TorchMultiSessionEncoder:
     """Batched encode of N independent sessions of one geometry on one card.
 
-    ``device=None`` means ``cuda`` and raises without a card; pass
+    ``device=None`` takes the first healthy card of the health plane
+    (``_session_device``) and raises without a card; pass
     ``device="cpu"`` for the CPU. ``host_convert=True`` (the serving
     layer's mode) takes (y, u, v) I420 plane batches; ``False`` takes a
     (N, H, W, 4) BGRx batch and converts on the device. Inputs may be
@@ -62,7 +83,7 @@ class TorchMultiSessionEncoder:
         self.width = width
         self.height = height
         self.host_convert = bool(host_convert)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if device is not None else _session_device()
         self._ref: tuple | None = None
 
     def _upload(self, a) -> torch.Tensor:

@@ -5,6 +5,8 @@ directory ``.gitignore`` lists), named by a hash of the sources and the
 command, so an edited source is rebuilt and a stale library is never
 loaded. The compiler writes to a temporary name that is renamed into
 place, so two processes building at once never load a half-written file.
+Each build reports its duration, and each reuse of a built library a cache
+hit, to the recompile sentinel (``monitoring/jitprof.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+from selkies_tpu_torch.monitoring import jitprof
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
@@ -40,6 +44,7 @@ def build_shared(name: str, sources: list[Path], command: list[str],
         h.update(src.read_bytes())
     out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
+        jitprof.report_event(jitprof.CACHE_HIT_EVENT)
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -51,4 +56,6 @@ def build_shared(name: str, sources: list[Path], command: list[str],
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"building {name} failed ({proc.returncode}):\n{log}")
     os.replace(tmp, out)
-    return BuildResult(out, time.perf_counter() - t0, log)
+    seconds = time.perf_counter() - t0
+    jitprof.report_duration(jitprof.COMPILE_EVENT, seconds)
+    return BuildResult(out, seconds, log)

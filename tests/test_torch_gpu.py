@@ -435,15 +435,12 @@ def test_top_bucket_equals_every_bucket_on_card(coder):
             assert torch.equal(g, w)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("coder", ["cavlc", "cabac"])
-def test_pipelined_device_entropy_submit_never_syncs(coder):
+def _submit_never_syncs(coder):
     """No synchronising CUDA call on the submit thread of the registry row
     with device entropy (groups, depth 2, LTR): torch's sync debug mode
     warns on every such call, and a hook records the thread that made it.
     The completion workers wait on events and may sync; they are not
     counted."""
-    _need_card()
     import threading
     import traceback
     import warnings
@@ -487,6 +484,103 @@ def test_pipelined_device_entropy_submit_never_syncs(coder):
         dict.fromkeys(on_submit))
     assert len(outs) == len(frames) - 3
     assert {"bits" if coder == "cavlc" else "cabac"} <= {st.downlink_mode for _, st, _ in outs}
+    return len(frames) - 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coder", ["cavlc", "cabac"])
+def test_pipelined_device_entropy_submit_never_syncs(coder):
+    _need_card()
+    _submit_never_syncs(coder)
+
+
+@pytest.fixture
+def hooks_on():
+    """The port's tracer and telemetry bus on for the test, then off and
+    reset."""
+    from selkies_tpu_torch.monitoring.telemetry import telemetry
+    from selkies_tpu_torch.monitoring.tracing import tracer
+
+    for plane in (tracer, telemetry):
+        plane.reset()
+        plane.enable()
+    yield tracer, telemetry
+    for plane in (tracer, telemetry):
+        plane.disable()
+        plane.reset()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coder", ["cavlc", "cabac"])
+def test_submit_never_syncs_with_the_hooks_on(coder, hooks_on):
+    """The same check with the tracer and telemetry on: a span reads the
+    host clock, and the classify counters read host state only."""
+    _need_card()
+    tracer, telemetry = hooks_on
+    timed = _submit_never_syncs(coder)
+    spans = {k: v["count"] for k, v in tracer.summary().items()}
+    assert spans["classify"] >= timed and spans["step"] > 0 and spans["pack"] > 0
+    assert telemetry.rollup()["counters"]["selkies_tile_cache_frames_total"]
+
+
+# -- the health plane on the card (selkies_tpu_torch/resilience/devhealth.py) --
+
+@pytest.mark.gpu
+def test_probe_round_trips_the_card():
+    _need_card()
+    from selkies_tpu_torch.resilience import devhealth
+
+    assert devhealth._default_probe(torch.device("cuda", 0)) is True
+    pool = devhealth.DevicePool(fail_threshold=1)
+    assert pool.all_devices() == [torch.device("cuda", i)
+                                  for i in range(torch.cuda.device_count())]
+    assert pool.note_failure("0") and pool.healthy_devices() == pool.all_devices()[1:]
+    pool._health["0"].probation_until = 0.0
+    pool.readmit_after = 1
+    assert pool.tick() == ["0"]
+
+
+@pytest.mark.gpu
+def test_chip_key_of_the_card():
+    _need_card()
+    from selkies_tpu_torch.device import resolve_device
+    from selkies_tpu_torch.resilience.devhealth import chip_key
+
+    assert chip_key(torch.device("cuda", 0)) == "0"
+    assert chip_key(resolve_device(None)) == str(torch.cuda.current_device())
+
+
+@pytest.mark.gpu
+def test_device_monitor_reads_the_cards_memory():
+    _need_card()
+    from selkies_tpu_torch.monitoring.device_monitor import DeviceMonitor
+
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    total_mb, used_mb = DeviceMonitor(device="cuda")._memory_mb()
+    card_mb = torch.cuda.get_device_properties(0).total_memory / 1e6
+    assert abs(total_mb - card_mb) <= 0.01 * card_mb
+    assert keep.numel() / 1e6 < used_mb < total_mb
+
+
+@pytest.mark.gpu
+def test_banded_encoder_takes_the_card_from_the_pool():
+    _need_card()
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+    from selkies_tpu_torch.resilience import devhealth
+
+    devhealth.reset_device_pool()
+    try:
+        enc = TorchBandedH264Encoder(W, H, bands=2)
+        assert enc.device == torch.device("cuda", 0) and enc.devices == [enc.device]
+        enc.close()
+        devhealth.get_device_pool().quarantine("0")
+        enc = TorchBandedH264Encoder(W, H, bands=2)
+        if torch.cuda.device_count() == 1:
+            # the only card quarantined: one band on it, no fault check
+            assert (enc.bands, enc.devices, enc.device.type) == (1, [], "cuda")
+        enc.close()
+    finally:
+        devhealth.reset_device_pool()
 
 
 # -- band and tile slicing (selkies_tpu_torch/parallel/bands.py) ----------
