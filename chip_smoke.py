@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-9, 12 and 13 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-14 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -123,6 +123,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    clock) pool.tick() runs the real probe on the card and readmits it on
    the third; the probe's ms; (d) DeviceMonitor reads the card's total
    and used memory;
+14. (run after phase 13, before the timing) the fleet's device-facing
+   layer, all on the card with the port's own pool, injector and telemetry,
+   K1's counter zeroed just before each part: (a)
+   TorchBandedFleetService(4, 1920, 1080, qp=28, bands=2) (the shared carve
+   through the pool) over a seeded 8-tick full-motion trace (an IDR tick,
+   P ticks where each session scrolls or types its own desktop, a static
+   repeat for one session, set_qp on one, force_keyframe on another) with
+   SELKIES_OCCUPANCY=0 (the serial tick) and through
+   OccupancyScheduler.for_service: the AUs sha256-equal, equal to 4 solo
+   TorchBandedH264Encoder(bands=2) card encoders, the trace at 4 x 640x384
+   through the scheduler equal to the port's CPU run, K1 launched twice
+   (bands) per non-static banded P frame; (b) checkpoint and re-carve of
+   session 0 after tick 3 equal to an oracle forced a keyframe there,
+   session 1 parked (b"", no IDR) and un-parked as a fresh IDR; (c)
+   MixedTenancyService(TorchMultiSessionH264Service(4, 1920, 1088),
+   TorchBandedFleetService(2, 1920, 1088, bands=2)): the AUs equal with
+   occupancy off and on, K1 once per tick for the batch unit plus twice per
+   banded P session; (d) ``sched:1@3:drop;sched:2@4:raise`` on (a)'s
+   service: the dropped tick gives b"", the raising tick raises after the
+   others ran, the two sessions then equal oracles that never saw those
+   frames and every other session equals (a); (e) SessionPlacer(devices=None):
+   the shared carve on the pool's one card, an accepted admission, and a
+   DrainController drain (the service's force-keyframe, flush and hand-off)
+   with a checkpoint per session inside its deadline;
 10. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
@@ -159,9 +183,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    kind with the device and the host front-end; the registry row's typing
    run with the tracer and telemetry off and on, in turns (off, on, on,
    off): frames per second, median and p95 latency, the span counts and
-   median ms per span name, and the probe's ms;
+   median ms per span name, and the probe's ms; the fleet (phase 14's (a)
+   and (c) configurations on full motion, with the card's name and power
+   limit): occupancy off and on on one service in three alternating pairs
+   of 6 P ticks (median tick ms, fps across sessions, the dispatch and
+   complete ms per unit, the scheduler's overlap and sched_wait per
+   session), the device ops and idle share per tick (torch.profiler over
+   3 ticks each way), and the ms from a checkpoint to the first AU after a
+   re-carve;
 11. print the ``{"kernels": [...]}`` line (K1 at the solo shape and as the
-    8-session launch), then the ``{"ok": true, ...}`` line.
+    8-session launch, with its launches on every path, the fleet's
+    included), then the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -1660,6 +1692,564 @@ def _observability_phase(band_shas: list) -> dict:
     return out
 
 
+# -- phase 14: the fleet's banded service, lifecycle and occupancy scheduler --
+
+FLEET_N, FLEET_TICKS = 4, 8
+# tick -> ops before it: ("qp", session, qp) / ("key", session); session 3
+# repeats its tick-3 frame at tick 4 (a static frame)
+FLEET_OPS = {3: [("qp", 1, 24)], 5: [("key", 2)]}
+FLEET_STATIC = {(3, 4)}
+# the mixed tenancy's ops: a banded session's keyframe, then a batch one's
+MIXED_OPS = {3: [("key", 4)], 4: [("key", 1)]}
+MIXED_TICKS = 6
+FLEET_SMALL = (640, 384)  # 24 MB rows: 2 bands of 12 (368's 23 rows clamp to 1 band)
+
+
+def _fleet_bases(n: int, w: int, h: int) -> list:
+    """Phase 9's desktops (session i's own seed), cut to h rows."""
+    return [_session_base(i, w, (h + 15) // 16 * 16)[:h] for i in range(n)]
+
+
+def _fleet_frame(bases, i: int, t: int):
+    """Session i's frame at tick t: phase 9's scroll (even sessions) or
+    typing (odd), with FLEET_STATIC's repeats."""
+    if (i, t) in FLEET_STATIC:
+        t -= 1
+    return _session_frame(bases[i], i, t)
+
+
+def _fleet_batch(bases, t: int):
+    return np.stack([_fleet_frame(bases, i, t) for i in range(len(bases))])
+
+
+def _drive_fleet(svc, tick, bases, ticks=range(FLEET_TICKS), ops=FLEET_OPS, hook=None):
+    """-> per tick (the sessions' AU sha256s, or the name of the exception
+    the tick raised, last_idrs, K1 launches, the tick's host ms).
+    ``hook(t)`` runs before tick t's frames go in, after its ops."""
+    from selkies_tpu_torch.models.h264 import me_mc
+
+    out = []
+    for t in ticks:
+        for op in ops.get(t, ()):
+            if op[0] == "qp":
+                svc.set_qp(op[1], op[2])
+            else:
+                svc.force_keyframe(op[1])
+        if hook is not None:
+            hook(t)
+        batch = _fleet_batch(bases, t)
+        k0 = me_mc.launches
+        t0 = time.perf_counter()
+        try:
+            aus = tick(batch)
+        except Exception as e:  # noqa: BLE001 - the phase checks which tick raised what
+            row = type(e).__name__
+        else:
+            if not all(au == b"" or au.startswith(b"\x00\x00\x00\x01") for au in aus):
+                _fail(f"fleet tick {t}: an access unit is not Annex-B")
+            row = [hashlib.sha256(au).hexdigest() for au in aus]
+        out.append((row, list(svc.last_idrs), me_mc.launches - k0,
+                    (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def _fleet_solo(bases, i: int, ticks, w: int, h: int, key_at=(), dev: str = "cuda") -> list:
+    """Session i's AU sha256s from a solo TorchBandedH264Encoder(bands=2)
+    fed the given ticks' frames, with the trace's QP and keyframe ops for
+    session i and keyframes forced at ``key_at``."""
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+
+    enc = TorchBandedH264Encoder(w, h, qp=28, bands=2, device=dev)
+    out = []
+    for t in ticks:
+        for op in FLEET_OPS.get(t, ()):
+            if op[1] == i:
+                if op[0] == "qp":
+                    enc.set_qp(op[2])
+                else:
+                    enc.force_keyframe()
+        if t in key_at:
+            enc.force_keyframe()
+        out.append(hashlib.sha256(enc.encode_frame(_fleet_frame(bases, i, t))).hexdigest())
+    enc.close()
+    return out
+
+
+def _fleet_launches_ok(run, bands: int, banded: range, batch: range = range(0)) -> list:
+    """Expected K1 launches per tick: ``bands`` per banded session that
+    coded a P frame (not an IDR, not static, not parked), plus one for the
+    batch unit when it has a P session."""
+    want = []
+    for t, (row, idrs, *_) in enumerate(run):
+        if isinstance(row, str):
+            want.append(None)
+            continue
+        empty = hashlib.sha256(b"").hexdigest()
+        p = sum(1 for i in banded if not idrs[i] and (i, t) not in FLEET_STATIC
+                and row[i] != empty)
+        want.append(bands * p + (1 if any(not idrs[i] for i in batch) else 0))
+    return want
+
+
+def _occupancy_tick(svc):
+    """The fleet's choice: the scheduler when SELKIES_OCCUPANCY is on and
+    the service has a schedulable shape, else the serial tick."""
+    from selkies_tpu_torch.parallel.occupancy import OccupancyScheduler, occupancy_enabled
+
+    sched = OccupancyScheduler.for_service(svc) if occupancy_enabled() else None
+    return sched, (sched.encode_tick if sched is not None else svc.encode_tick)
+
+
+def _fleet_phase() -> dict:
+    """(a) the banded fleet service, serial and scheduled, against solo
+    encoders and the CPU; (b) checkpoint + re-carve, parking; (c) mixed
+    tenancy; (d) sched drop and raise; (e) the placer and a drain."""
+    import asyncio
+    import os
+
+    import torch
+
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.monitoring.telemetry import telemetry
+    from selkies_tpu_torch.parallel.lifecycle import (
+        DrainController,
+        SessionPlacer,
+        checkpoint_session,
+    )
+    from selkies_tpu_torch.parallel.occupancy import MixedTenancyService, OccupancyScheduler
+    from selkies_tpu_torch.parallel.serving import (
+        TorchBandedFleetService,
+        TorchMultiSessionH264Service,
+    )
+    from selkies_tpu_torch.resilience import devhealth, faultinject
+
+    out: dict = {}
+    _set_hooks(False)
+    faultinject.reset_faults()
+    devhealth.set_device_pool(devhealth.DevicePool())
+    card = torch.device("cuda", 0)
+    empty = hashlib.sha256(b"").hexdigest()
+    env0 = os.environ.get("SELKIES_OCCUPANCY")
+    bases = _fleet_bases(FLEET_N, W, H)
+
+    # (a) serial, then scheduled; solo encoders; the small trace vs the CPU
+    t0 = time.perf_counter()
+    runs, totals, carve = {}, {}, None
+    for name, env in (("serial", "0"), ("occupancy", "1")):
+        os.environ["SELKIES_OCCUPANCY"] = env
+        svc = TorchBandedFleetService(FLEET_N, W, H, qp=28, bands=2)
+        carve = (svc.shared_carve, svc.bands, [str(e.device) for e in svc.encoders])
+        sched, tick = _occupancy_tick(svc)
+        if (sched is None) != (name == "serial"):
+            _fail(f"phase 14 (a): SELKIES_OCCUPANCY={env} gave scheduler {sched}")
+        me_mc.launches = 0
+        runs[name] = _drive_fleet(svc, tick, bases)
+        totals[name] = me_mc.launches
+        if sched is not None:
+            out["a_stats"] = sched.stats()
+            sched.close()
+        svc.close()
+    if carve != (True, 2, ["cuda:0"] * FLEET_N):
+        _fail(f"phase 14 (a): the service's carve through the pool is {carve}")
+    if [r[0] for r in runs["serial"]] != [r[0] for r in runs["occupancy"]]:
+        bad = [t for t in range(FLEET_TICKS)
+               if runs["serial"][t][0] != runs["occupancy"][t][0]]
+        _fail(f"phase 14 (a): the scheduled AUs differ from the serial tick's at ticks {bad}")
+    idrs = [r[1] for r in runs["serial"]]
+    want_idrs = [[t == 0 or (t == 5 and i == 2) for i in range(FLEET_N)]
+                 for t in range(FLEET_TICKS)]
+    if idrs != want_idrs or [r[1] for r in runs["occupancy"]] != want_idrs:
+        _fail(f"phase 14 (a): IDR flags {idrs}")
+    for name, run in runs.items():
+        got = [r[2] for r in run]
+        want = _fleet_launches_ok(run, 2, range(FLEET_N))
+        if got != want:
+            _fail(f"phase 14 (a) {name}: me_mc launches per tick {got}, want {want}")
+    t_solo = time.perf_counter()
+    for i in range(FLEET_N):
+        solo = _fleet_solo(bases, i, range(FLEET_TICKS), W, H)
+        if solo != [runs["serial"][t][0][i] for t in range(FLEET_TICKS)]:
+            _fail(f"phase 14 (a): session {i} differs from its solo bands=2 card encoder")
+    solo_s = time.perf_counter() - t_solo
+    sw, sh = FLEET_SMALL
+    small_bases = _fleet_bases(FLEET_N, sw, sh)
+    small = {}
+    for dev_name in ("cuda", "cpu"):
+        os.environ["SELKIES_OCCUPANCY"] = "1" if dev_name == "cuda" else "0"
+        ssvc = TorchBandedFleetService(FLEET_N, sw, sh, qp=28, bands=2, devices=(
+            None if dev_name == "cuda" else [torch.device("cpu")]))
+        sched, tick = _occupancy_tick(ssvc)
+        me_mc.launches = 0
+        tc = time.perf_counter()
+        run = _drive_fleet(ssvc, tick, small_bases)
+        small[dev_name] = (run, me_mc.launches, time.perf_counter() - tc, ssvc.bands)
+        if sched is not None:
+            sched.close()
+        ssvc.close()
+    if [r[:2] for r in small["cuda"][0]] != [r[:2] for r in small["cpu"][0]]:
+        _fail(f"phase 14 (a): {FLEET_N} x {sw}x{sh} scheduled on the card differs from the "
+              "cpu run")
+    want_small = _fleet_launches_ok(small["cuda"][0], 2, range(FLEET_N))
+    if [r[2] for r in small["cuda"][0]] != want_small or small["cuda"][3] != 2:
+        _fail(f"phase 14 (a) {sw}x{sh}: launches {[r[2] for r in small['cuda'][0]]}, want "
+              f"{want_small}, bands {small['cuda'][3]}")
+    out["a"] = {
+        "sha256": [r[0] for r in runs["serial"]], "idrs": idrs,
+        "launches_per_tick": {k: [r[2] for r in v] for k, v in runs.items()},
+        "tick_ms": {k: [r[3] for r in v] for k, v in runs.items()},
+        "me_mc_launches": totals, "solo_s": solo_s,
+        "small": {"geometry": f"{sw}x{sh}", "sha256": [r[0] for r in small["cuda"][0]],
+                  "me_mc_launches": small["cuda"][1], "cuda_s": small["cuda"][2],
+                  "cpu_s": small["cpu"][2]},
+        "seconds": time.perf_counter() - t0}
+    print(f"phase 14 (a) TorchBandedFleetService({FLEET_N}, {W}, {H}, bands=2): the shared "
+          f"carve on cuda:0 through the pool; {FLEET_TICKS} ticks (IDRs {idrs[0].count(True)} "
+          f"+ 1 forced, 1 static, set_qp) serial and through OccupancyScheduler: AUs "
+          f"sha256-equal, equal to 4 solo bands=2 card encoders; me_mc launches per tick "
+          f"{out['a']['launches_per_tick']['occupancy']} (2 per non-static banded P); "
+          f"{FLEET_N} x {sw}x{sh} scheduled on the card = the cpu run (launches "
+          f"{small['cuda'][1]}); overlap {out['a_stats']['overlap_ratio']}; "
+          f"{out['a']['seconds']:.1f} s")
+
+    # (b) checkpoint + re-carve session 0 after tick 3; park session 1 at
+    # ticks 4-5, un-park it at tick 6
+    t0 = time.perf_counter()
+    os.environ["SELKIES_OCCUPANCY"] = "1"
+    svc = TorchBandedFleetService(FLEET_N, W, H, qp=28, bands=2)
+    sched, tick = _occupancy_tick(svc)
+    rec: dict = {}
+
+    def hook(t):
+        if t == 4:
+            tr = time.perf_counter()
+            svc.recarve(0, [card])
+            rec["recarve_ms"] = (time.perf_counter() - tr) * 1e3
+            svc.recarve(1, [])
+        elif t == 6:
+            svc.recarve(1, [card])
+
+    me_mc.launches = 0
+    brun = _drive_fleet(svc, tick, bases, hook=hook)
+    rec["me_mc_launches"] = me_mc.launches
+    sched.close()
+    svc.close()
+    s0 = [r[0][0] for r in brun]
+    if s0 != _fleet_solo(bases, 0, range(FLEET_TICKS), W, H, key_at={4}):
+        _fail("phase 14 (b): the re-carved session differs from an oracle forced a keyframe")
+    s1 = [(r[0][1], r[1][1]) for r in brun]
+    if s1[4:6] != [(empty, False)] * 2 or not s1[6][1]:
+        _fail(f"phase 14 (b): the parked session gave {s1[4:7]}")
+    if [x for x, _ in s1[6:]] != _fleet_solo(bases, 1, range(6, FLEET_TICKS), W, H):
+        _fail("phase 14 (b): the un-parked session differs from a fresh encoder")
+    if any(r[0][i] != a[0][i] for r, a in zip(brun, runs["serial"]) for i in (2, 3)):
+        _fail("phase 14 (b): sessions 2 and 3 differ from (a)")
+    want = _fleet_launches_ok(brun, 2, range(FLEET_N))
+    if [r[2] for r in brun] != want:
+        _fail(f"phase 14 (b): launches {[r[2] for r in brun]}, want {want}")
+    rec.update(idrs=[r[1] for r in brun], launches_per_tick=[r[2] for r in brun],
+               seconds=time.perf_counter() - t0)
+    out["b"] = rec
+    print(f"phase 14 (b) checkpoint + re-carve of session 0 after tick 3: its AUs equal an "
+          f"oracle forced a keyframe at tick 4 (re-carve {rec['recarve_ms']:.1f} ms); session "
+          f"1 parked at ticks 4-5 gave b'' and no IDR, un-parked at tick 6 as a fresh IDR equal "
+          f"to a new encoder's; launches {rec['launches_per_tick']}; {rec['seconds']:.1f} s")
+
+    # (c) mixed tenancy: 4 batch sessions and 2 banded ones of 1920x1088
+    t0 = time.perf_counter()
+    mbases = _fleet_bases(6, SW, SH)
+    mixed_runs = {}
+    for env in ("0", "1"):
+        os.environ["SELKIES_OCCUPANCY"] = env
+        mixed = MixedTenancyService(
+            TorchMultiSessionH264Service(4, SW, SH, qp=28, device="cuda"),
+            TorchBandedFleetService(2, SW, SH, qp=28, bands=2))
+        me_mc.launches = 0
+        run = _drive_fleet(mixed, mixed.encode_tick, mbases, range(MIXED_TICKS), MIXED_OPS)
+        mixed_runs[env] = (run, me_mc.launches, mixed.scheduler() is not None,
+                           mixed.scheduler().stats() if mixed.scheduler() else None)
+        mixed.close()
+    off, on = mixed_runs["0"], mixed_runs["1"]
+    if off[2] or not on[2]:
+        _fail("phase 14 (c): SELKIES_OCCUPANCY did not pick the serial / scheduled tick")
+    if [r[:2] for r in off[0]] != [r[:2] for r in on[0]]:
+        _fail("phase 14 (c): mixed tenancy AUs differ between occupancy off and on")
+    for env, (run, *_rest) in mixed_runs.items():
+        want = _fleet_launches_ok(run, 2, range(4, 6), range(4))
+        if [r[2] for r in run] != want:
+            _fail(f"phase 14 (c) occupancy {env}: launches {[r[2] for r in run]}, want {want}")
+    out["c"] = {"sha256": [r[0] for r in on[0]], "idrs": [r[1] for r in on[0]],
+                "launches_per_tick": {"off": [r[2] for r in off[0]],
+                                      "on": [r[2] for r in on[0]]},
+                "tick_ms": {"off": [r[3] for r in off[0]], "on": [r[3] for r in on[0]]},
+                "me_mc_launches": {"off": off[1], "on": on[1]}, "stats": on[3],
+                "seconds": time.perf_counter() - t0}
+    print(f"phase 14 (c) MixedTenancyService(4 x {SW}x{SH} batch, 2 x bands=2): AUs "
+          f"sha256-equal with occupancy off and on over {MIXED_TICKS} ticks; me_mc launches "
+          f"per tick {out['c']['launches_per_tick']['on']} (1 for the batch unit + 2 per banded "
+          f"P); {out['c']['seconds']:.1f} s")
+
+    # (d) sched:1@3:drop and sched:2@4:raise on (a)'s service
+    t0 = time.perf_counter()
+    spec = "sched:1@3:drop;sched:2@4:raise"
+    fi = faultinject.configure_faults(spec)
+    svc = TorchBandedFleetService(FLEET_N, W, H, qp=28, bands=2)
+    sched = OccupancyScheduler.for_service(svc)
+    errors = {}
+
+    def sched_tick(batch):
+        try:
+            return sched.encode_tick(batch)
+        except faultinject.InjectedFault:
+            errors[sched.ticks] = sorted(sched.stats()["errors"])
+            raise
+
+    drun = _drive_fleet(svc, sched_tick, bases)
+    faultinject.reset_faults()
+    sched.close()
+    svc.close()
+    injected = [tuple(x) for x in fi.injected]
+    if injected != [("sched:1", 3, "drop"), ("sched:2", 4, "raise")]:
+        _fail(f"phase 14 (d): injected {injected}")
+    if drun[3][0] != "InjectedFault" or errors != {4: ["2"]}:
+        _fail(f"phase 14 (d): tick 3 gave {drun[3][0]}, errors {errors}")
+    if drun[2][0][1] != empty:
+        _fail("phase 14 (d): the dropped tick delivered an AU")
+    a_rows = [r[0] for r in runs["serial"]]
+    for t in range(FLEET_TICKS):
+        if t == 3:
+            continue
+        others = [0, 3] + ([1] if t < 2 else []) + ([2] if t < 3 else [])
+        if any(drun[t][0][i] != a_rows[t][i] for i in others):
+            _fail(f"phase 14 (d): tick {t}: a session without a fault differs from (a)")
+    keep1 = [t for t in range(FLEET_TICKS) if t != 2]
+    if [drun[t][0][1] for t in keep1 if t != 3] != [
+            x for t, x in zip(keep1, _fleet_solo(bases, 1, keep1, W, H)) if t != 3]:
+        _fail("phase 14 (d): the dropped session differs from an oracle that never saw tick 2")
+    keep2 = [t for t in range(FLEET_TICKS) if t != 3]
+    if [drun[t][0][2] for t in keep2] != _fleet_solo(bases, 2, keep2, W, H):
+        _fail("phase 14 (d): the raised session differs from an oracle that never saw tick 3")
+    out["d"] = {"spec": spec, "injected": injected, "errors": errors,
+                "seconds": time.perf_counter() - t0}
+    print(f"phase 14 (d) {spec}: session 1's tick 2 AU empty and its later frames equal an "
+          f"oracle without that frame; tick 3 raised InjectedFault after the other sessions "
+          f"ran (errors {errors}), session 2 then equals an oracle without frame 3; every "
+          f"other session as (a); {out['d']['seconds']:.1f} s")
+
+    # (e) the placer over the pool's one card, admission, and a drain with
+    # the service's force-keyframe, flush and hand-off
+    t0 = time.perf_counter()
+    _set_hooks(True)
+    placer = SessionPlacer(bands=2)
+    rows = placer.place_initial(FLEET_N, 2)
+    if not placer.shared or rows != [[card]] * FLEET_N or placer.devices != [card]:
+        _fail(f"phase 14 (e): placer carve {rows}, shared {placer.shared}")
+    adm = placer.admit(FLEET_N)
+    if (adm.decision, adm.reason) != ("accept", "shared"):
+        _fail(f"phase 14 (e): admission {adm}")
+    svc = TorchBandedFleetService(FLEET_N, W, H, qp=28, bands=2, rows=rows, shared=True)
+    sched = OccupancyScheduler.for_service(svc)
+    for t in range(2):
+        sched.encode_tick(_fleet_batch(bases, t))
+
+    async def flush():
+        await asyncio.get_running_loop().run_in_executor(
+            None, sched.encode_tick, _fleet_batch(bases, 2))
+
+    drainer = DrainController(
+        "fleet", placer=placer, deadline_s=120.0,
+        force_idr=lambda: [svc.force_keyframe(k) for k in range(FLEET_N)], flush=flush,
+        handoff=lambda: [checkpoint_session(svc, k) for k in range(FLEET_N)])
+    ok = asyncio.run(drainer.drain())
+    cks = [(c.session, c.idr_pic_id, c.frames_since_idr, c.qp) for c in drainer.checkpoints]
+    health = telemetry.health()["status"]
+    late = placer.admit(FLEET_N + 1)
+    drain_gauge = telemetry._gauges.get(("selkies_drain_state", ()))
+    sched.close()
+    svc.close()
+    telemetry._lifecycle = None
+    _set_hooks(False)
+    if not ok or not drainer.completed_in_deadline or svc.last_idrs != [True] * FLEET_N:
+        _fail(f"phase 14 (e): drain ok {ok}, in deadline {drainer.completed_in_deadline}, "
+              f"IDRs {svc.last_idrs}")
+    if cks != [(k, 0, 1, 28) for k in range(FLEET_N)]:
+        _fail(f"phase 14 (e): checkpoints {cks}")
+    if health != "draining" or (late.decision, late.reason) != ("reject", "draining") \
+            or drain_gauge != 2:
+        _fail(f"phase 14 (e): health {health}, late admission {late}, gauge {drain_gauge}")
+    out["e"] = {"carve": placer.stats()["carve"], "checkpoints": cks,
+                "drain_s": time.perf_counter() - t0}
+    print(f"phase 14 (e) SessionPlacer(devices=None): shared carve of {FLEET_N} sessions on "
+          f"the pool's one card, admission accepted (shared); drain: forced IDRs flushed, "
+          f"{len(cks)} checkpoints, completed in deadline, then health 'draining' and "
+          f"admission rejected; {out['e']['drain_s']:.1f} s")
+    if env0 is None:
+        os.environ.pop("SELKIES_OCCUPANCY", None)
+    else:
+        os.environ["SELKIES_OCCUPANCY"] = env0
+    return out
+
+
+def _timed(obj, name: str, sink: list) -> None:
+    """Wrap obj.name so each call appends its host-clock ms to sink."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            sink.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(obj, name, wrapper)
+
+
+def _time_fleet(card: str, power_limit: str, pairs: int = 3, p_ticks: int = 6) -> dict:
+    """Phase 14's (a) and (c) configurations on full motion (_scrolled):
+    occupancy off and on in alternating pairs on one service (off, on, on,
+    off, ...; the banded service also runs its sessions one after another,
+    "in_turn", after each pair), p_ticks P ticks each; per run the median
+    tick ms, fps across sessions, the dispatch and complete ms per unit
+    (host clock), and with it on the scheduler's overlap and sched_wait
+    (the median of each tick's, and the scheduler's EWMA, which still
+    carries the IDR tick); then the device ops and idle share per tick
+    over 3 ticks each way (torch.profiler), and for the banded service the
+    ms from a checkpoint to the first AU after a re-carve."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from selkies_tpu_torch.parallel.occupancy import MixedTenancyService, OccupancyScheduler
+    from selkies_tpu_torch.parallel.serving import (
+        TorchBandedFleetService,
+        TorchMultiSessionH264Service,
+    )
+
+    env0 = os.environ.get("SELKIES_OCCUPANCY")
+    out: dict = {"card": card, "power_limit": power_limit}
+    for name in ("banded_4x1080_bands2", "mixed_4batch_2banded_1088"):
+        if name.startswith("banded"):
+            bases = _fleet_bases(FLEET_N, W, H)
+            svc = TorchBandedFleetService(FLEET_N, W, H, qp=28, bands=2)
+            sched = OccupancyScheduler.for_service(svc)
+            banded, batch = svc, None
+
+            def tick(frames, mode):
+                if mode == "in_turn":  # the serial tick's work, one session after another
+                    return [e.encode_frame(f) for e, f in zip(svc.encoders, frames)]
+                return (sched if mode == "on" else svc).encode_tick(frames)
+
+            def scheduler():
+                return sched
+        else:
+            bases = _fleet_bases(6, SW, SH)
+            batch = TorchMultiSessionH264Service(4, SW, SH, qp=28, device="cuda")
+            banded = TorchBandedFleetService(2, SW, SH, qp=28, bands=2)
+            svc = MixedTenancyService(batch, banded)
+
+            def tick(frames, mode):
+                os.environ["SELKIES_OCCUPANCY"] = "1" if mode == "on" else "0"
+                return svc.encode_tick(frames)
+
+            def scheduler():
+                return svc.scheduler()
+        n = len(bases)
+        times: dict = {}
+        for k, enc in enumerate(banded.encoders):
+            for m in ("dispatch_frame", "complete_frame"):
+                _timed(enc, m, times.setdefault(f"banded{k}.{m.split('_')[0]}", []))
+        if batch is not None:
+            for m in ("dispatch_tick", "complete_tick"):
+                _timed(batch, m, times.setdefault(f"batch.{m.split('_')[0]}", []))
+        # warm-up: the IDR tick scheduled (phase 14 (a) times the serial
+        # one), two serial P ticks, one scheduled
+        t0 = time.perf_counter()
+        tick(np.stack(_scrolled(bases, 0)), "on")
+        rec = {"sessions": n, "idr_tick_ms_occupancy": (time.perf_counter() - t0) * 1e3}
+        for t in (1, 2):
+            tick(np.stack(_scrolled(bases, t)), "off")
+        tick(np.stack(_scrolled(bases, 3)), "on")
+        # each tick's sched_wait per session, as the scheduler notes it
+        waits: list = []
+        note = scheduler()._note_tick
+
+        def noting(wall_s, stage_s, w, errors):
+            waits.append(dict(w))
+            return note(wall_s, stage_s, w, errors)
+
+        scheduler()._note_tick = noting
+        t = 4
+        # alternating off / on pairs; the banded service also runs its
+        # sessions one after another ("in_turn") after each pair
+        turn = ["in_turn"] if name.startswith("banded") else []
+        modes = [m for i in range(pairs) for m in (["off", "on"] if i % 2 == 0
+                                                   else ["on", "off"]) + turn]
+        runs = {m: [] for m in ("off", "on", *turn)}
+        for mode in modes:
+            frames = [np.stack(_scrolled(bases, t + j)) for j in range(p_ticks)]
+            t += p_ticks
+            for v in times.values():
+                v.clear()
+            waits.clear()
+            ms, overlaps = [], []
+            tw = time.perf_counter()
+            for f in frames:
+                tt = time.perf_counter()
+                tick(f, mode)
+                ms.append((time.perf_counter() - tt) * 1e3)
+                if mode == "on":
+                    overlaps.append(scheduler().last_overlap)
+            wall = time.perf_counter() - tw
+            r = {"tick_ms_median": statistics.median(ms), "fps": n * p_ticks / wall,
+                 "unit_ms_median": {k: statistics.median(v) for k, v in times.items() if v}}
+            if mode == "on":
+                st = scheduler().stats()
+                r.update(last_overlap_median=statistics.median(overlaps),
+                         overlap_ewma=st["overlap_ratio"],
+                         sched_wait_ms_median={s: statistics.median(w[s] for w in waits)
+                                               for s in sorted(waits[0])},
+                         sched_wait_ms_ewma=st["sched_wait_ms"])
+            runs[mode].append(r)
+        rec["runs"] = runs
+        for mode in ("off", "on"):
+            frames = [np.stack(_scrolled(bases, t + j)) for j in range(3)]
+            t += 3
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tw = time.perf_counter()
+                for f in frames:
+                    tick(f, mode)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - tw) * 1e3
+            act = _device_activity(prof, wall_ms)
+            act["ticks"] = 3
+            if isinstance(act.get("device_ops"), int):
+                act["device_ops_per_tick"] = act["device_ops"] / 3
+            act.pop("top", None)
+            rec[f"profile_{mode}"] = act
+        if name.startswith("banded"):
+            dev = torch.device("cuda", 0)
+            rc = []
+            for _ in range(3):
+                frames = np.stack(_scrolled(bases, t))
+                t += 1
+                tr = time.perf_counter()
+                svc.recarve(0, [dev])
+                tb = time.perf_counter()
+                sched.encode_tick(frames)
+                rc.append({"recarve_ms": (tb - tr) * 1e3,
+                           "checkpoint_to_first_au_ms": (time.perf_counter() - tr) * 1e3})
+            rec["recarve"] = rc
+            sched.close()
+        svc.close()
+        out[name] = rec
+    if env0 is None:
+        os.environ.pop("SELKIES_OCCUPANCY", None)
+    else:
+        os.environ["SELKIES_OCCUPANCY"] = env0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2116,7 +2706,12 @@ def main() -> int:
         record["band_path"]["1080p"]["bands4"]["sha256"])
     record["observability_path"]["seconds"] = time.perf_counter() - t0
     print(f"phase 13: {record['observability_path']['seconds']:.1f} s")
-    print(f"phases 1-9, 12 and 13: {time.perf_counter() - t_start:.1f} s")
+    # -- 14. the fleet's banded service, lifecycle and occupancy scheduler
+    t0 = time.perf_counter()
+    record["fleet_path"] = _fleet_phase()
+    record["fleet_path"]["seconds"] = time.perf_counter() - t0
+    print(f"phase 14: {record['fleet_path']['seconds']:.1f} s")
+    print(f"phases 1-9 and 12-14: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
@@ -2309,6 +2904,12 @@ def main() -> int:
     print(f"hybrid VP9/AV1 front-end and rows at 1920x1080 ({card}, {power_limit}): "
           + json.dumps(hyb_t))
 
+    # the fleet: phase 14's (a) and (c) configurations, occupancy off and on
+    fleet_t = _time_fleet(card, power_limit)
+    record["fleet_timing"] = fleet_t
+    print(f"fleet service and occupancy scheduler, full motion ({card}, {power_limit}): "
+          + json.dumps(fleet_t))
+
     kernels = [{
         "name": "me_mc", "route": "cuda", "source": "selkies_tpu_torch/csrc/me_mc.cu",
         "replaces": me_mc.REPLACES, "launches": launches, "max_abs_err": max_err,
@@ -2334,6 +2935,14 @@ def main() -> int:
         "launches_tpuh264enc_registry_path": record["hybrid_path"]["tpuh264enc"]["me_mc_launches"],
         "launches_observability_path_hooks_on": record["observability_path"]["a"][
             "me_mc_launches"],
+        "launches_fleet_path": {
+            "banded_serial": record["fleet_path"]["a"]["me_mc_launches"]["serial"],
+            "banded_occupancy": record["fleet_path"]["a"]["me_mc_launches"]["occupancy"],
+            "mixed_off": record["fleet_path"]["c"]["me_mc_launches"]["off"],
+            "mixed_on": record["fleet_path"]["c"]["me_mc_launches"]["on"]},
+        "launches_per_tick_fleet_path": {
+            "banded_4x1080_bands2": record["fleet_path"]["a"]["launches_per_tick"]["occupancy"],
+            "mixed_4batch_2banded": record["fleet_path"]["c"]["launches_per_tick"]["on"]},
         "card": card, "power_limit": power_limit,
     }, {
         "name": "me_mc (8 sessions, one launch)", "route": "cuda",

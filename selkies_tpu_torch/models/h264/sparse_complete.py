@@ -22,9 +22,13 @@ slice -- its final bits (CAVLC: the host splices the header,
 skip and terminate bins and runs the engine, ``assemble_p_cabac_nal``).
 
 Device buffers are torch tensors. The prefix arrives already fetched;
-each refetch, spill or dense-fallback fetch here is one blocking
-``.cpu()`` copy, which on the card also waits for the steps queued
-since (correct, only slower; these fetches are rare).
+each refetch, spill or dense-fallback fetch here is one more copy (rare).
+Given ``step_done``, the event recorded when the step that wrote the
+buffers finished, that copy runs on a side stream behind that event
+only, and the worker waits on the copy's own event: it neither waits for
+the steps other sessions enqueued since nor makes a synchronising call.
+Without it the copy is a blocking ``.cpu()``, which on the card waits for
+every step queued since (correct, only slower).
 """
 
 from __future__ import annotations
@@ -54,12 +58,26 @@ from selkies_tpu_torch.monitoring.tracing import tracer
 __all__ = ["complete_sparse_slice", "fetch_rest", "host"]
 
 
-def host(a) -> np.ndarray:
-    """One device-to-host copy of a tensor (numpy arrays pass through)."""
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+def host(a, after=None) -> np.ndarray:
+    """One device-to-host copy of a tensor (numpy arrays pass through).
+    ``after``: the CUDA event after which ``a`` is complete; the copy then
+    waits for that event only (a side stream) and for nothing else."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    if after is None or a.device.type != "cuda":
+        return a.cpu().numpy()
+    stream = torch.cuda.Stream(a.device)  # one of PyTorch's pooled streams
+    with torch.cuda.stream(stream):
+        stream.wait_event(after)
+        out = a.contiguous().to("cpu", non_blocking=True)
+        done = torch.cuda.Event(blocking=True)
+        done.record(stream)
+    done.synchronize()
+    return out.numpy()
 
 
-def _settle_device_bits(fused, need: int, note_need, link_bytes, prefix_bytes: int, full_d):
+def _settle_device_bits(fused, need: int, note_need, link_bytes, prefix_bytes: int, full_d,
+                        step_done=None):
     """The device-coded payload's shared plumbing, for both coders: the
     hint feedback, the ``down_bits`` accounting and the refetch when the
     hint-sized prefix fell short. -> the (possibly refetched) buffer."""
@@ -71,22 +89,23 @@ def _settle_device_bits(fused, need: int, note_need, link_bytes, prefix_bytes: i
         # the span marks only this extra transfer; the prefix's fetch rode
         # the caller's "fetch" span
         with tracer.span("bits_fetch"):
-            fused = host(full_d)
+            fused = host(full_d, step_done)
         if link_bytes is not None:
             link_bytes.add("down_bits_refetch", fused.nbytes)
     return fused
 
 
-def fetch_rest(buf, n: int, base: int = 4096) -> np.ndarray:
+def fetch_rest(buf, n: int, base: int = 4096, after=None) -> np.ndarray:
     """Rows [base, >=n) of a row buffer, fetched in power-of-two buckets
-    from 4096 (the whole buffer's tail once the bucket reaches it)."""
+    from 4096 (the whole buffer's tail once the bucket reaches it);
+    ``after`` as for :func:`host`."""
     total = buf.shape[0]
     bucket = max(base, 4096)
     while bucket < n:
         bucket <<= 1
     if bucket >= total:
-        return host(buf)[base:]
-    return host(buf[base:bucket])
+        return host(buf, after)[base:]
+    return host(buf[base:bucket], after)
 
 
 def complete_sparse_slice(
@@ -114,6 +133,7 @@ def complete_sparse_slice(
     first_mb: int = 0,
     entropy_coder: str = "cavlc",
     cabac_init_idc: int = 0,
+    step_done=None,
 ) -> tuple[bytes, int, float, str]:
     """One P slice's fetched sparse prefix -> (nal, skipped_mbs,
     t_unpacked, downlink_mode).
@@ -126,7 +146,9 @@ def complete_sparse_slice(
     device-coded payload), "coeff", or "dense" when the dense-header
     fallback ran. ``ltr_ref``, ``mark_ltr`` and ``mmco_evict`` go to the
     slice header (the LTR scene cache), as do ``first_mb`` (a band's first
-    macroblock, parallel/bands.py) and ``cabac_init_idc``."""
+    macroblock, parallel/bands.py) and ``cabac_init_idc``. ``step_done``:
+    the event after which the device buffers are complete (module
+    docstring)."""
     off = 0
     if device_bits:
         mode, nbits, trailing, nskip, ns = p_sparse_entropy_meta(fused)
@@ -137,7 +159,7 @@ def complete_sparse_slice(
             nw = (ntok + 1) // 2
             base = ENTROPY_META16 + 2 * sw
             fused = _settle_device_bits(fused, base + ns + 2 * nw, note_need, link_bytes,
-                                        prefix_bytes, full_d)
+                                        prefix_bytes, full_d, step_done)
             skip_words = np.ascontiguousarray(fused[ENTROPY_META16:base]).view(np.uint32)
             skip = (((skip_words[:, None].astype(np.int64) >> np.arange(32)) & 1)
                     .astype(bool).reshape(-1)[:m].reshape(mbh, mbw))
@@ -153,7 +175,7 @@ def complete_sparse_slice(
         if mode == 1:
             nw = (nbits + 31) // 32
             fused = _settle_device_bits(fused, ENTROPY_META16 + 2 * nw, note_need, link_bytes,
-                                        prefix_bytes, full_d)
+                                        prefix_bytes, full_d, step_done)
             words = np.ascontiguousarray(fused[ENTROPY_META16:ENTROPY_META16 + 2 * nw]).view(
                 np.uint32)
             t_unpacked = time.perf_counter()
@@ -174,12 +196,12 @@ def complete_sparse_slice(
         if note_need is not None:
             note_need(need + off)
         if need > len(fused):  # hint too small: refetch the live content
-            fused = host(full_d)[off:]
+            fused = host(full_d, step_done)[off:]
             if link_bytes is not None:
                 link_bytes.add("down_refetch", fused.nbytes)
         extra = None
         if n > cap_rows:  # rows spilled past the fused buffer
-            extra = fetch_rest(buf_d, n, cap_rows)
+            extra = fetch_rest(buf_d, n, cap_rows, step_done)
             if link_bytes is not None:
                 link_bytes.add("down_spill", extra.nbytes)
         wire = pfc = None
@@ -191,7 +213,7 @@ def complete_sparse_slice(
             if pfc is None:  # ns > nscap: dense-header fallback fetch
                 if dense_d is None:
                     raise RuntimeError("ns > nscap with no dense fallback buffer")
-                dense = host(dense_d)
+                dense = host(dense_d, step_done)
                 if link_bytes is not None:
                     link_bytes.add("down_spill", dense.nbytes)
                 pfc = unpack_p_compact(dense, rows, qp)

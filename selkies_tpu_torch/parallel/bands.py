@@ -34,7 +34,9 @@ card (ROADMAP). The host half completes each band's downlink as one
 slice (``sparse_complete.complete_sparse_slice`` with the band's
 ``first_mb``) on the pack pool. Each band's downlink copy is enqueued on
 the dispatching thread right behind the step (``encoder._Fetch``), and
-the completion waits on those events only.
+the completion waits on those events only: a refetch or spill copies on a
+side stream behind the band's step-done event (``sparse_complete.host``),
+so a completion never waits for steps other sessions dispatched since.
 
 As JAX's, ``dispatch_frame`` first consults the ``device:<chip>`` fault
 site over ``self.devices`` (``resilience/devhealth.py``), the completion
@@ -101,6 +103,7 @@ __all__ = [
     "bands_from_env",
     "grid_from_env",
     "halo_from_env",
+    "partition_devices",
     "tile_halo_from_env",
     "usable_bands",
     "usable_cols",
@@ -195,6 +198,22 @@ def band_spans(mb_height: int, bands: int) -> list[tuple[int, int]]:
         raise ValueError(f"{bands} bands do not divide {mb_height} MB rows")
     rows = mb_height // bands
     return [(b * rows, rows) for b in range(bands)]
+
+
+def partition_devices(n_sessions: int, bands: int, devices=None) -> list[list]:
+    """Carve the device list into per-session band rows — the fleet's
+    chips-per-session vs sessions-per-slice trade. Returns n_sessions
+    rows of ``bands`` devices; raises when there are too few (the caller
+    decides whether to drop bands or sessions). ``devices=None`` takes
+    the health plane's healthy cards (raising without a card)."""
+    devs = list(devices if devices is not None
+                else get_device_pool().healthy_devices())
+    need = n_sessions * bands
+    if len(devs) < need:
+        raise ValueError(
+            f"{n_sessions} sessions x {bands} bands needs {need} devices, "
+            f"have {len(devs)}")
+    return [devs[k * bands:(k + 1) * bands] for k in range(n_sessions)]
 
 
 # ---------------------------------------------------------------------------
@@ -606,7 +625,7 @@ class TorchBandedH264Encoder:
         self.link_bytes.add("down_prefix", prefix.nbytes)
         header, data, n = split_prefix(prefix, self._hdr_words_i)
         if n > self._cap_i:
-            rest = fetch_rest(buf_d, n, self._cap_i)
+            rest = fetch_rest(buf_d, n, self._cap_i, fetch.step_done)
             self.link_bytes.add("down_spill", rest.nbytes)
             data = np.concatenate([data, rest])
         # the QP held at completion, as JAX's (its coefficients were
@@ -632,7 +651,8 @@ class TorchBandedH264Encoder:
             cap_rows=self._cap_p, qp=qp, frame_num=frame_num, params=self.params,
             device_bits=self._entropy is not None, full_d=full_d, buf_d=buf_d,
             link_bytes=self.link_bytes, prefix_bytes=fused.nbytes, note_need=self._note_need,
-            first_mb=self.spans[band][0] * self._mbw, entropy_coder=self._coder)
+            first_mb=self.spans[band][0] * self._mbw, entropy_coder=self._coder,
+            step_done=fetch.step_done)
         return nal, skipped, fetch_ms / 1e3, t_u - t_f, time.perf_counter() - t_u, t_f, mode
 
     # -- static short-circuit --

@@ -23,10 +23,23 @@ every session, where JAX checks one chip per session), and opens the
 tracer's ``convert`` / ``device-step`` / ``fetch`` / ``pack`` spans beside
 ``last_timing``. JAX's persistent compilation cache has no counterpart:
 the port compiles nothing per geometry.
+
+``TorchBandedFleetService`` is the counterpart of JAX's
+``BandedFleetService``: N sessions, each a ``TorchBandedH264Encoder`` on
+its own row of devices, behind the same interface. A row runs on its
+first device (the band bytes do not depend on where a band is placed,
+tests/test_torch_bands.py), so on one card every carve of more than one
+chip is JAX's shared carve: single-device rows over the healthy cards,
+each session still band-sliced at the requested count. ``recarve``
+rebuilds a session on a new row through ``parallel/lifecycle.py``'s
+checkpoint / restore, and an empty row parks it. AV1 / VP9 sessions need
+the tile-column codec mesh, which is not ported: they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
@@ -39,11 +52,21 @@ from selkies_tpu_torch.models.h264.bitstream import StreamParams, write_pps, wri
 from selkies_tpu_torch.models.h264.encoder import _Fetch
 from selkies_tpu_torch.models.h264.native import pack_slice_fast, pack_slice_p_fast
 from selkies_tpu_torch.models.h264.numpy_ref import FrameCoeffs, PFrameCoeffs
+from selkies_tpu_torch.monitoring import jitprof
 from selkies_tpu_torch.monitoring.tracing import tracer
+from selkies_tpu_torch.parallel.bands import (
+    TorchBandedH264Encoder,
+    bands_from_env,
+    grid_from_env,
+    partition_devices,
+)
+from selkies_tpu_torch.parallel.lifecycle import checkpoint_session, restore_session
 from selkies_tpu_torch.parallel.sessions import I_ONLY, P_ONLY, TorchMultiSessionEncoder
-from selkies_tpu_torch.resilience.devhealth import check_device_faults
+from selkies_tpu_torch.resilience.devhealth import check_device_faults, get_device_pool
 
-__all__ = ["TorchMultiSessionH264Service"]
+logger = logging.getLogger("selkies_tpu_torch.parallel.serving")
+
+__all__ = ["TorchBandedFleetService", "TorchMultiSessionH264Service"]
 
 
 class _SessionState:
@@ -247,3 +270,210 @@ class TorchMultiSessionH264Service:
 
     def close(self) -> None:
         self._pool.shutdown(wait=False, cancel_futures=True)
+
+
+class TorchBandedFleetService:
+    """Band-sliced fleet service: N sessions, each a
+    ``TorchBandedH264Encoder`` on its own row of devices, behind the
+    ``TorchMultiSessionH264Service`` interface (``encode_tick`` /
+    ``set_qp`` / ``force_keyframe`` / ``last_idrs`` / ``last_modes`` /
+    ``close``).
+
+    The keywords are JAX's. ``rows`` is a placer-managed carve (one device
+    list per session, an empty list parks the session); without it the
+    service carves ``devices`` (None: the health plane's healthy cards,
+    raising without a card) with ``partition_devices``, and when that
+    carve does not fit it takes JAX's shared carve: one device per
+    session, round-robin, each session band-sliced at the requested count
+    (the same bytes). A session's encoder runs on its row's first device
+    with ``bands=_row_bands(row)``. Sessions are independent (per-session
+    GOP, QP, multi-slice AUs): ``encode_tick`` runs them concurrently on
+    the service pool, and ``parallel/occupancy.py`` schedules each as its
+    own unit through the encoders' ``dispatch_frame`` / ``complete_frame``.
+    """
+
+    def __init__(self, n_sessions: int, width: int, height: int, *,
+                 qp: int = 28, fps: int = 60, bands: int | None = None,
+                 cols: int | None = None, devices=None, rows: list[list] | None = None,
+                 codecs: list[str] | None = None, shared: bool | None = None):
+        self.n = n_sessions
+        # per-session negotiated codec: the placer's record seeds it on a
+        # service rebuild, so a restart keeps every session's codec
+        self.codecs = [c.lower() if c else "h264" for c in (codecs or ["h264"] * n_sessions)]
+        # sessions whose codec changed and whose re-carve has not landed:
+        # the recompile sentinel's attribution (set_codec -> recarve)
+        self._codec_pending: set[int] = set()
+        if bands is None and cols is None:
+            grid = grid_from_env()
+            if grid is not None:
+                bands, cols = grid  # SELKIES_TILE_GRID=RxC owns the carve
+            else:
+                bands = bands_from_env()
+        bands = 1 if bands is None else max(1, int(bands))
+        self.cols = 1 if cols is None else max(1, int(cols))
+        # the shared small-slice carve: one-device rows that still
+        # band-slice at the requested count, told apart from a row that a
+        # quarantine shrank, which re-slices into fewer bands (_row_bands)
+        self.shared_carve = bool(shared) if shared is not None else False
+        if rows is None:
+            try:
+                rows = partition_devices(n_sessions, bands * self.cols, devices)
+            except ValueError:
+                devs = list(devices if devices is not None
+                            else get_device_pool().healthy_devices())
+                rows = [[devs[k % len(devs)]] for k in range(n_sessions)]
+                self.shared_carve = True
+        self._width, self._height = width, height
+        self._qp, self._fps, self._bands_req = qp, fps, bands
+        # an empty row parks the session (its chips are lent out and it
+        # has no client) until recarve() hands it a row again
+        self.encoders = [self._build_encoder(k, rows[k]) if rows[k] else None
+                         for k in range(n_sessions)]
+        live = next((e for e in self.encoders if e is not None), None)
+        self.bands = live.bands if live is not None else bands
+        self.last_idrs: list[bool] = [True] * n_sessions
+        # per-session P downlink mode of the last tick ("" = IDR, static
+        # or parked)
+        self.last_modes: list[str] = [""] * n_sessions
+        self._pool = ThreadPoolExecutor(max_workers=n_sessions, thread_name_prefix="band-fleet")
+
+    def set_qp(self, session: int, qp: int) -> None:
+        enc = self.encoders[session]
+        if enc is not None:
+            enc.set_qp(qp)
+
+    def set_bitrate(self, session: int, kbps: int) -> None:
+        """Per-session rate retarget for a row that takes one (JAX's
+        library-CBR VP9 rows, not ported); the H.264 rows stay QP-driven
+        through set_qp, so today this changes nothing."""
+        enc = self.encoders[session]
+        if enc is not None and hasattr(enc, "set_bitrate"):
+            enc.set_bitrate(int(kbps))
+
+    def force_keyframe(self, session: int) -> None:
+        enc = self.encoders[session]
+        if enc is not None:
+            enc.force_keyframe()
+
+    def set_codec(self, session: int, codec: str) -> bool:
+        """Record a session's negotiated codec; True when it changed (the
+        caller then re-carves, which rebuilds the session's encoder)."""
+        codec = (codec or "h264").lower()
+        if codec == self.codecs[session]:
+            return False
+        self._codec_pending.add(session)
+        self.codecs[session] = codec
+        return True
+
+    def _build_encoder(self, session: int, devices: list):
+        """One session's encoder on its device row, by negotiated codec. A
+        codec the fleet has no session row for degrades to h264 (and the
+        record with it); av1 / vp9 raise, since their tile-column rows are
+        not ported."""
+        codec = self.codecs[session]
+        if codec not in ("av1", "vp9", "h264"):
+            logger.warning("fleet has no %s session row; session %d degrades to h264",
+                           codec, session)
+            self.codecs[session] = "h264"
+            codec = "h264"
+        if codec != "h264":
+            cls = "TileColumnAV1Encoder" if codec == "av1" else "TileColumnVP9Encoder"
+            raise NotImplementedError(
+                f"session {session}: a fleet {codec} session needs {cls} "
+                "(parallel/codec_mesh.py), not ported yet: ROADMAP.md queue 1, "
+                "'The tile-column codec mesh on one card'")
+        return TorchBandedH264Encoder(
+            self._width, self._height, qp=self._qp, fps=self._fps,
+            bands=self._row_bands(devices), cols=self.cols, device=devices[0])
+
+    def _row_bands(self, row) -> int:
+        """Band count for a device row. Borrowed chips enlarge it: a row
+        wider than the constructor's carve re-slices the frame into one
+        band per chip (whole band-rows of ``cols`` chips in a grid carve;
+        the encoder still clamps to what the MB rows divide into). A row
+        narrower than the carve outside the shared carve means a
+        quarantine shrank it: fewer bands, down to 1. The shared carve's
+        one-device rows always slice at the requested count."""
+        n = len(row) // self.cols
+        if self.shared_carve or n >= self._bands_req:
+            return max(self._bands_req, n)
+        return max(1, n)
+
+    def recarve(self, session: int, devices: list) -> None:
+        """Rebuild one session's encoder on a new device row. The GOP
+        phase and QP carry over by checkpoint / restore and the new
+        encoder opens with a forced IDR, so from that IDR on its bytes
+        equal an encoder that was never re-carved and was forced a
+        keyframe at the same frame (while the band count is unchanged).
+        No tick may be in flight. An empty row parks the session; a later
+        row un-parks it. On a failure the old encoder keeps serving: the
+        ``migrate`` fault fires in ``checkpoint_session`` before any state
+        is read, and a failed restore closes the half-built encoder."""
+        # the recompile sentinel: a pending set_codec makes this rebuild a
+        # negotiation's, otherwise it is a re-carve's
+        if session in self._codec_pending:
+            self._codec_pending.discard(session)
+            jitprof.mark("codec_switch", f"session-{session}:{self.codecs[session]}")
+        else:
+            jitprof.mark("recarve", f"session-{session}")
+        old = self.encoders[session]
+        if not devices:
+            self.encoders[session] = None
+            if old is not None:
+                try:
+                    old.close()
+                except Exception:
+                    logger.exception("closing parked encoder %d", session)
+            return
+        # checkpoint / restore carries the H.264 GOP across an h264 ->
+        # h264 rebuild only; a codec switch opens fresh
+        h264_to_h264 = (old is not None and self.codecs[session] == "h264"
+                        and getattr(old, "codec", "h264") == "h264")
+        ck = checkpoint_session(self, session) if h264_to_h264 else None
+        # built with the service's QP, not the session's dynamic one: the
+        # PPS's pic_init_qp and every slice_qp_delta derive from it. The
+        # dynamic QP comes back through restore_session -> set_qp
+        enc = self._build_encoder(session, devices)
+        if ck is not None:
+            try:
+                restore_session(ck, enc)
+            except Exception:
+                try:
+                    enc.close()
+                except Exception:
+                    logger.exception("closing failed replacement encoder %d", session)
+                raise
+        self.encoders[session] = enc
+        if old is not None:
+            try:
+                old.close()
+            except Exception:
+                logger.exception("closing re-carved encoder %d", session)
+
+    def encode_tick(self, frames: np.ndarray) -> list[bytes]:
+        """(N, H, W, 4) BGRx batch -> one Annex-B AU per session (``b""``
+        for a parked session), the sessions encoded concurrently."""
+        if frames.shape[0] != self.n:
+            raise ValueError(f"expected {self.n} frames, got {frames.shape[0]}")
+
+        def _one(i: int) -> bytes:
+            enc = self.encoders[i]
+            if enc is None:  # parked
+                return b""
+            return enc.encode_frame(frames[i])
+
+        # "encode", not "device-step": this covers the fetch and the host
+        # pack too; each encoder's own spans split device from host
+        with tracer.span("encode"):
+            aus = list(self._pool.map(_one, range(self.n)))
+        self.last_idrs = [bool(e.last_stats.idr) if e is not None else False
+                          for e in self.encoders]
+        self.last_modes = [getattr(e.last_stats, "downlink_mode", "") if e is not None else ""
+                           for e in self.encoders]
+        return aus
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        for enc in self.encoders:
+            if enc is not None:
+                enc.close()

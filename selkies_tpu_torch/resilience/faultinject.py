@@ -7,8 +7,10 @@ counters. The injector is this package's own: configuring or resetting one
 package's leaves the other's alone. The port wires the ``frontend`` site
 (``TorchH264Encoder.submit``) and the ``device:<chip>`` site (the banded
 encoder per frame, the session service per tick, and every probation
-probe, ``resilience/devhealth.py``); the other sites below belong to JAX
-modules not ported yet.
+probe, ``resilience/devhealth.py``), the fleet lifecycle's ``admission`` /
+``recarve`` / ``migrate`` / ``drain`` sites (``parallel/lifecycle.py``) and
+the occupancy scheduler's ``sched:<k>`` (``parallel/occupancy.py``); the
+other sites below belong to JAX modules not ported yet.
 
 Configured with the ``SELKIES_FAULTS`` environment variable (or
 programmatically via :func:`configure_faults`); when unset the hot paths

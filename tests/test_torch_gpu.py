@@ -812,6 +812,135 @@ def test_service_dispatch_never_syncs():
     assert len(aus) == 4 and aus[1][2][4] & 0x1F == 7
 
 
+# -- the fleet's banded service and the occupancy scheduler
+# (selkies_tpu_torch/parallel/serving.py, occupancy.py) -------------------------
+
+def _fleet_service(kind, dev):
+    """3 sessions at 320x192: the banded service at 2 bands (on the card
+    through the pool, which gives the shared carve) or the batch service."""
+    from selkies_tpu_torch.parallel.serving import (
+        TorchBandedFleetService,
+        TorchMultiSessionH264Service,
+    )
+
+    if kind == "banded":
+        devices = None if dev == "cuda" else [torch.device("cpu")]
+        return TorchBandedFleetService(3, W, H, qp=30, bands=2, devices=devices)
+    return TorchMultiSessionH264Service(3, W, H, qp=30, device=dev)
+
+
+def _drive_fleet(tick, svc, trace):
+    out = []
+    for t, batch in enumerate(trace):
+        if t == 2:
+            svc.set_qp(1, 36)
+            svc.force_keyframe(0)
+        out.append([hashlib.sha256(au).hexdigest() for au in tick(batch)])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["banded", "batch"])
+def test_scheduler_equals_serial_tick_on_card(kind):
+    """OccupancyScheduler.for_service over the banded service (a unit per
+    session) and over the batch service (one unit): the AUs equal the
+    serial tick's on the card and the CPU run's; K1 launches bands times
+    per banded P session, once per batch tick with a P session."""
+    _need_card()
+    from selkies_tpu_torch.parallel.occupancy import OccupancyScheduler
+
+    trace = _session_trace(3, H, W, ticks=5)
+    svc = _fleet_service(kind, "cuda")
+    sched = OccupancyScheduler.for_service(svc)
+    launches = me_mc.launches
+    got = _drive_fleet(sched.encode_tick, svc, trace)
+    launched = me_mc.launches - launches
+    sched.close()
+    svc.close()
+    serial = _fleet_service(kind, "cuda")
+    want = _drive_fleet(serial.encode_tick, serial, trace)
+    serial.close()
+    cpu = _fleet_service(kind, "cpu")
+    want_cpu = _drive_fleet(cpu.encode_tick, cpu, trace)
+    cpu.close()
+    assert got == want == want_cpu
+    # ticks 1-4 are P for every session but the forced one at tick 2
+    assert launched == (2 * (3 * 4 - 1) if kind == "banded" else 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["banded", "batch"])
+def test_scheduled_tick_never_syncs(kind):
+    """A scheduled tick, dispatch lane and completion workers together,
+    makes no synchronising CUDA call: each completion waits on its own
+    events only (torch's sync debug mode warns on a stream or device
+    synchronise, a blocking copy or .item(), recorded here by thread)."""
+    _need_card()
+    import threading
+    import traceback
+    import warnings
+
+    from selkies_tpu_torch.parallel.occupancy import OccupancyScheduler
+
+    trace = _session_trace(3, H, W, ticks=6)
+    svc = _fleet_service(kind, "cuda")
+    sched = OccupancyScheduler.for_service(svc)
+    for batch in trace[:2]:  # warm-up: tables reach the card, the hints settle
+        sched.encode_tick(batch)
+    seen = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        seen.append((threading.current_thread().name, str(message),
+                     "".join(traceback.format_stack(limit=8)[:-1])))
+
+    aus = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for t, batch in enumerate(trace[2:]):
+                if t == 1:
+                    svc.force_keyframe(2)  # an IDR among P sessions
+                aus.append(sched.encode_tick(batch))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sched.close()
+    svc.close()
+    syncs = [(name, st) for name, m, st in seen if "called a synchronizing CUDA operation" in m]
+    assert not syncs, f"{len(syncs)} syncs; first in {syncs[0][0]} at:\n{syncs[0][1]}"
+    assert len(aus) == 4 and all(au.startswith(b"\x00\x00\x00\x01") for a in aus for au in a)
+
+
+@pytest.mark.gpu
+def test_refetch_after_an_event_never_syncs():
+    """sparse_complete.host(t, after): the copy runs on a side stream behind
+    ``after`` only, returns t's values, and makes no synchronising call,
+    while the default stream is busy with later work."""
+    _need_card()
+    import warnings
+
+    from selkies_tpu_torch.models.h264.sparse_complete import fetch_rest, host
+
+    a = torch.arange(3 * 5000, dtype=torch.int32, device="cuda").reshape(5000, 3)[::2]
+    done = torch.cuda.Event()
+    done.record()
+    big = torch.randn(2048, 2048, device="cuda")
+    for _ in range(20):  # later work on the default stream
+        big = big @ big / 2048
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = host(a, done)
+            rest = fetch_rest(a, 2100, 2048, done)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    want = np.arange(3 * 5000, dtype=np.int32).reshape(5000, 3)[::2]
+    assert np.array_equal(got, want) and np.array_equal(rest, want[2048:])
+    assert not [w for w in seen if "synchronizing" in str(w.message)]
+
+
 # -- the hybrid VP9/AV1 rows and the registry (models/hybrid_frontend.py,
 # models/vp9, models/av1, models/registry.py) ---------------------------------
 
