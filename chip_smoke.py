@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-15 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-16 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -172,6 +172,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    matching oracle's, and the fleet's own ticks (counted around each tick,
    not the oracle's) launch K1 bands x cols times per non-static banded P
    session;
+16. (run after phase 15, before the timing) the solo serving app,
+   TorchWebRTCApp (selkies_tpu_torch/pipeline/app.py) with device=None (the
+   card), every encoder it builds recorded (each call that feeds or steers
+   the stream, with what it returned): (a) SyntheticSource(1920, 1080),
+   the registry's tpuh264enc row, 60 fps, 8000 kbps, served until 120
+   frames went out, then stopped and its encoder flushed: the first AU an
+   IDR with a 1920x1080 SPS, the sent AUs the head of what the encoder
+   returned, a direct card row fed the logged calls (frames, QPs,
+   timestamps, damage) gives the same AUs, its first 13 equal the CPU's
+   replay, and K1 launched once per non-static P frame (the prewarm's
+   apart); (b) the recovery ladder on the flat row under
+   ``encoder@9-14,21-32,39-50,57-68:raise`` with the supervisor's clock
+   frozen: a restart, degrade levels 1 (half the framerate), 2 (960x528)
+   and 3 (the x264enc row, which without libx264 serves tpuh264enc with the
+   registry's warning), then the reversal to 1920x1080 at 60 fps; each of
+   the six encoders starts with an SPS of its size, equals its card replay,
+   launches K1 once per non-static P frame, and the device memory at each
+   build is printed; (c) (a) again with SELKIES_POLICY=1 and SELKIES_SLO=1:
+   the replays equal (a replaced encoder's AUs the head of its replay's),
+   the engine's and the SLO plane's stats; (d) (with the timing) the app
+   at 60 and 30 fps, hooks off: 5 s of steady state each, delivered fps,
+   capture->send ms (median, p95) from stamps on the source and the
+   transport, dropped ticks and frames, the device's idle share over a few
+   ticks (torch.profiler), and the same registry row fed the source's
+   frames back to back (fps, submit->AU ms);
 10. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
@@ -223,8 +248,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    service, 6 more ticks);
 11. print the ``{"kernels": [...]}`` line (K1 at the solo shape and as the
     8-session launch, with its launches on every path, the fleet's, the
-    library rows' degrade and the software fleet's included), then the
-    ``{"ok": true, ...}`` line.
+    library rows' degrade, the software fleet's and the serving app's
+    included), then the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -2622,6 +2647,576 @@ def _time_fleet(card: str, power_limit: str, pairs: int = 3, p_ticks: int = 6) -
     return out
 
 
+# -- phase 16: the solo serving app -------------------------------------------
+
+APP_FRAMES = 120
+APP_KBPS = 8000
+APP_SEED = 16
+APP_CPU_FRAMES = 13
+# the ladder on the encoder site (ticks as the site counts them, one per
+# tick here): four bursts with six healthy ticks between them. Under a
+# frozen supervisor clock the first burst's sixth failure restarts the
+# encoder once; each later burst of 12 takes one degrade level (1: half
+# the framerate, 2: 960x528, 3: the software row); then ten healthy ticks
+# reverse each level
+LADDER_SPEC = "encoder@9-14,21-32,39-50,57-68:raise"
+LADDER_RECOVER = 10
+LADDER_TICKS = 104
+APP_TIMING_S = 5.0
+
+
+class _AppTransport:
+    """The app's byte plane: each video frame with the host clock at send,
+    and the data-channel messages."""
+
+    data_channel_ready = True
+
+    def __init__(self):
+        self.frames, self.sent_at, self.messages = [], [], []
+
+    def send_data_channel(self, message: str) -> None:
+        self.messages.append(message)
+
+    async def send_video(self, frame) -> None:
+        self.sent_at.append(time.perf_counter())
+        self.frames.append(frame)
+
+
+class _StampedSource:
+    """A frame source that stamps the host clock as each capture begins."""
+
+    def __init__(self, inner):
+        self.inner, self.captured_at = inner, []
+
+    def __getattr__(self, attr):
+        return getattr(self.inner, attr)
+
+    def capture(self):
+        self.captured_at.append(time.perf_counter())
+        return self.inner.capture()
+
+
+class _RecordingEncoder:
+    """Stands in for an encoder the app built: forwards every attribute;
+    logs each call that feeds or steers the stream, with what it returned,
+    and each attribute set on it; counts K1's launches inside its calls
+    (the prewarm's apart) and the host ms from its build to its first AU.
+    A close drops the encoder itself (the log replays without it), so the
+    recording keeps no closed encoder's device memory alive."""
+
+    CALLS = ("submit", "encode_frame", "flush", "force_keyframe", "prewarm", "close",
+             "set_tile_cache", "set_batch_cap", "retune_entropy")
+
+    def __init__(self, enc, name: str, kw: dict, build_ms: float):
+        self.__dict__.update(enc=enc, cls=type(enc).__name__, name=name, kw=kw, log=[],
+                             launches=0, prewarm_launches=0, build_ms=build_ms,
+                             t_built=time.perf_counter(), first_au_ms=None)
+
+    def __getattr__(self, attr):
+        from selkies_tpu_torch.models.h264 import me_mc
+
+        val = getattr(self.enc, attr)
+        if attr not in self.CALLS:
+            return val
+
+        def call(*a, **k):
+            k0 = me_mc.launches
+            try:
+                out = val(*a, **k)
+            except Exception as exc:
+                self.log.append((attr, a, k, exc))
+                raise
+            finally:
+                key = "prewarm_launches" if attr == "prewarm" else "launches"
+                self.__dict__[key] += me_mc.launches - k0
+            self.log.append((attr, a, k, out))
+            if self.first_au_ms is None and _returned(attr, out):
+                self.__dict__["first_au_ms"] = (time.perf_counter() - self.t_built) * 1e3
+            if attr == "close":
+                self.__dict__["enc"] = None
+            return out
+        return call
+
+    def __setattr__(self, attr, value):
+        setattr(self.enc, attr, value)
+        self.log.append(("set", attr, value, None))
+
+    def outputs(self) -> list:
+        """Every (au, stats, meta) the encoder handed back, in order."""
+        return [o for attr, _, _, out in self.log if not isinstance(out, Exception)
+                for o in _returned(attr, out)]
+
+
+def _mem() -> dict:
+    """The card's resident and peak allocated MiB, after a collection
+    (the app's objects form cycles)."""
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return {}
+    gc.collect()
+    return {"allocated_mb": torch.cuda.memory_allocated() / 2**20,
+            "peak_mb": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def _returned(attr, out) -> list:
+    if attr in ("submit", "flush"):
+        return list(out)
+    if attr == "encode_frame":
+        return [(out, None, None)]
+    return []
+
+
+def _replay(rec, submits: int | None = None, **overrides) -> list:
+    """Build rec's row again with its arguments (``overrides`` replace
+    some), feed it the logged calls (only the first ``submits`` submits,
+    if given) and flush it -> every (sha256, meta) it hands back. The
+    prewarm is left out (a prewarmed row codes as a fresh one); a logged
+    close ends the calls: the close discarded the frames then in flight,
+    which depends on the clock, so a closed encoder's AUs are the head of
+    its replay's."""
+    from selkies_tpu_torch.models.registry import create_encoder
+
+    enc = create_encoder(rec.name, **dict(rec.kw, **overrides))
+    outs, n = [], 0
+    try:
+        for attr, a, k, out in rec.log:
+            if attr == "close":
+                break
+            if attr == "prewarm":
+                continue
+            if attr == "set":
+                setattr(enc, a, k)
+                continue
+            if submits is not None and attr == "submit" and n == submits:
+                break
+            n += attr == "submit"
+            outs += _returned(attr, getattr(enc, attr)(*a, **k))
+        outs += enc.flush()
+    finally:
+        enc.close()
+    return [(hashlib.sha256(au).hexdigest(), m) for au, _, m in outs]
+
+
+def _shas(rec) -> list:
+    return [(hashlib.sha256(au).hexdigest(), m) for au, _, m in rec.outputs()]
+
+
+def _sps_size(au: bytes) -> tuple[int, int]:
+    """(width, height) an Annex-B AU's leading SPS codes, cropping applied."""
+    nal = au.split(b"\x00\x00\x00\x01")[1]
+    if nal[0] & 0x1F != 7:
+        _fail(f"phase 16: an encoder's first AU starts with NAL type {nal[0] & 0x1F}, not an SPS")
+    rbsp = nal[1:].replace(b"\x00\x00\x03", b"\x00\x00")
+    bits = "".join(f"{b:08b}" for b in rbsp)
+    pos = 24  # profile_idc, constraint flags, level_idc
+
+    def u(n):
+        nonlocal pos
+        pos += n
+        return int(bits[pos - n:pos], 2) if n else 0
+
+    def ue():
+        nonlocal pos
+        z = bits.index("1", pos) - pos
+        pos += z + 1
+        return (1 << z) - 1 + u(z)
+
+    ue()  # seq_parameter_set_id (Baseline / Main: no chroma_format_idc)
+    ue()  # log2_max_frame_num_minus4
+    if ue() == 0:  # pic_order_cnt_type
+        ue()
+    ue()  # max_num_ref_frames
+    u(1)
+    w_mbs, h_mbs = ue() + 1, ue() + 1
+    u(2)  # frame_mbs_only (1 here), direct_8x8_inference
+    crop = [ue() for _ in range(4)] if u(1) else [0, 0, 0, 0]
+    return 16 * w_mbs - 2 * (crop[0] + crop[1]), 16 * h_mbs - 2 * (crop[2] + crop[3])
+
+
+def _p_count(outs) -> int:
+    return sum(1 for _, st, _ in outs if st is not None and not st.idr
+               and st.upload_kind != "static")
+
+
+def _make_app(dev, framerate: int = 60, source=None):
+    """TorchWebRTCApp on the registry's tpuh264enc row (``dev`` None: the
+    card) over SyntheticSource(W, H, APP_SEED)."""
+    from selkies_tpu_torch.pipeline.app import TorchWebRTCApp
+    from selkies_tpu_torch.pipeline.elements import SyntheticSource
+
+    return TorchWebRTCApp(
+        source=source or SyntheticSource(W, H, seed=APP_SEED), transport=_AppTransport(),
+        encoder="tpuh264enc", framerate=framerate, video_bitrate_kbps=APP_KBPS, device=dev)
+
+
+def _recording_app(dev, mem: list | None = None):
+    """_make_app with every encoder the app builds recorded -> (app,
+    recorders, restore), ``restore`` undoing the recording. With ``mem``,
+    the card's memory is appended there before each build."""
+    from selkies_tpu_torch.pipeline import app as app_mod
+
+    built, real = [], app_mod.create_encoder
+
+    def create(name, **kw):
+        if mem is not None:
+            mem.append(_mem())
+        t0 = time.perf_counter()
+        enc = real(name, **kw)
+        rec = _RecordingEncoder(enc, name, kw, (time.perf_counter() - t0) * 1e3)
+        built.append(rec)
+        return rec
+    app_mod.create_encoder = create
+    try:
+        app = _make_app(dev)
+    except BaseException:
+        app_mod.create_encoder = real
+        raise
+    return app, built, lambda: setattr(app_mod, "create_encoder", real)
+
+
+def _serve_app(app, until, timeout_s: float = 180.0, during=None):
+    """Serve the app until ``until(app)`` holds (``during``, a coroutine
+    function, runs once the first frame is out), then stop it."""
+    import asyncio
+
+    async def go():
+        await app.start_pipeline()
+        t0 = time.perf_counter()
+        try:
+            if during is not None:
+                while not app.transport.frames:
+                    await asyncio.sleep(0.002)
+                await during(app)
+            while not until(app):
+                if time.perf_counter() - t0 > timeout_s:
+                    _fail(f"phase 16: {len(app.transport.frames)} frames in {timeout_s} s")
+                await asyncio.sleep(0.002)
+        finally:
+            await app.stop_pipeline()
+    asyncio.run(go())
+
+
+def _app_run(dev, label: str) -> dict:
+    """(a) / (c): serve APP_FRAMES frames, flush, and hold the AUs against
+    a direct card row's replay, the head against a CPU replay, and K1's
+    launches against the non-static P frames."""
+    app, built, restore = _recording_app(dev)
+    t0 = time.perf_counter()
+    try:
+        _serve_app(app, lambda a: len(a.transport.frames) >= APP_FRAMES)
+    finally:
+        restore()
+    serve_s = time.perf_counter() - t0
+    live = built[-1]
+    live.flush()
+    sent = [f.au for f in app.transport.frames]
+    recs = []
+    for i, rec in enumerate(built):
+        # the live encoder was flushed; a replaced one was closed with its
+        # frames in flight discarded, which launched K1 and never came back
+        outs = rec.outputs()
+        p = _p_count(outs)
+        if rec.launches != p if rec is live else rec.launches < p:
+            _fail(f"phase 16 ({label}): encoder {i} launched K1 {rec.launches} times for {p} "
+                  f"non-static P frames")
+        recs.append({"name": rec.name, "size": [rec.kw["width"], rec.kw["height"]],
+                     "frames": len(outs), "p_frames": p, "me_mc_launches": rec.launches})
+    outs = [o for rec in built for o in rec.outputs()]
+    if [au for au, _, _ in outs][:len(sent)] != sent:
+        _fail(f"phase 16 ({label}): the sent AUs are not the head of what the encoders returned")
+    first = sent[0]
+    if not first.startswith(b"\x00\x00\x00\x01\x67") or not app.transport.frames[0].idr \
+            or _sps_size(first) != (W, H):
+        _fail(f"phase 16 ({label}): the first AU is not an IDR with a {W}x{H} SPS")
+    t0 = time.perf_counter()
+    for i, rec in enumerate(built):
+        got, rep = _shas(rec), _replay(rec, device=rec.kw["device"])
+        if rep[:len(got)] != got or (rec is live and len(rep) != len(got)):
+            _fail(f"phase 16 ({label}): encoder {i}'s replay on the card differs from the app's AUs")
+    replay_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = _replay(built[0], submits=APP_CPU_FRAMES, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if cpu != _shas(built[0])[:APP_CPU_FRAMES]:
+        _fail(f"phase 16 ({label}): the first {APP_CPU_FRAMES} AUs differ from the CPU replay")
+    out = {"sent": len(sent), "returned": len(outs), "encoders": recs,
+           "me_mc_launches": sum(r.launches for r in built),
+           "p_frames": sum(r["p_frames"] for r in recs),
+           "prewarm_launches": built[0].prewarm_launches,
+           "qps": sorted({f.qp for f in app.transport.frames}),
+           "kinds": {k: sum(1 for _, st, _ in outs if st.upload_kind == k)
+                     for k in sorted({st.upload_kind for _, st, _ in outs})},
+           "idrs": sum(1 for _, st, _ in outs if st.idr),
+           "bytes": sum(len(au) for au in sent), "serve_s": serve_s,
+           "card_replay_s": replay_s, "cpu_replay_s": cpu_s, "messages": app.transport.messages,
+           "memory": _mem()}
+    if app.policy_engine is not None:
+        out["policy"] = app.policy_engine.stats()
+    if app.slo is not None:
+        out["slo"] = app.slo.stats()
+    for rec in built:
+        rec.log.clear()
+    return out
+
+
+def _ladder_run(dev) -> dict:
+    """(b): the recovery ladder under LADDER_SPEC on the flat row (each
+    submit hands back its own AU, so every stage's K1 launches are its
+    encoder's P frames)."""
+    import logging
+    import os
+
+    from selkies_tpu_torch.resilience import faultinject
+
+    class _Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    env = {"SELKIES_FRAME_BATCH": "1", "SELKIES_PIPELINE_DEPTH": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    faultinject.reset_faults()
+    faultinject.configure_faults(LADDER_SPEC)
+    caught = _Warnings()
+    logging.getLogger().addHandler(caught)
+    events, mem = [], []
+    try:
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        app, built, restore = _recording_app(dev, mem)
+        sup = app.supervisor
+        sup.clock = lambda: 0.0
+        sup.last_ok = 0.0
+        sup.recover_after = LADDER_RECOVER
+        for name in ("tick_ok", "failure"):
+            orig = getattr(sup, name)
+
+            def wrapped(*a, _o=orig, _n=name, **k):
+                r = _o(*a, **k)
+                events.append((_n, sup.rung.name, sup.degrade_level, app.encoder.width,
+                               app.encoder.height, app.software_fallback, app.framerate,
+                               len(built)))
+                return r
+            setattr(sup, name, wrapped)
+        t0 = time.perf_counter()
+        try:
+            _serve_app(app, lambda a: len(events) >= LADDER_TICKS, timeout_s=300.0)
+        finally:
+            restore()
+        serve_s = time.perf_counter() - t0
+    finally:
+        logging.getLogger().removeHandler(caught)
+        faultinject.reset_faults()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sw, dh = max(16, W // 2 // 16 * 16), max(16, H // 2 // 16 * 16)
+    want = [("tpuh264enc", W, H), ("tpuh264enc", W, H), ("tpuh264enc", sw, dh),
+            ("x264enc", sw, dh), ("tpuh264enc", sw, dh), ("tpuh264enc", W, H)]
+    got = [(r.name, r.kw["width"], r.kw["height"]) for r in built]
+    if got != want:
+        _fail(f"phase 16 (b): the ladder built {got}, want {want}")
+    rungs = [e[1] for e in events]
+    levels = [e[2] for e in events]
+    if not ("RESTART" in rungs and max(levels) == 3 and levels[-1] == 0
+            and events[-1][6] == 60 and not events[-1][5] and any(e[5] for e in events)):
+        _fail(f"phase 16 (b): the ladder's events {events}")
+    stages = []
+    for i, rec in enumerate(built):
+        outs = rec.outputs()
+        p = _p_count(outs)
+        if not outs or _sps_size(outs[0][0]) != tuple(got[i][1:]):
+            _fail(f"phase 16 (b): encoder {i} ({got[i]}) did not start with an SPS of its size")
+        # libx264, where it loads, codes the software rung: no K1, and its
+        # threaded bytes do not repeat, so no replay
+        if rec.cls == "TorchH264Encoder":
+            if not outs[0][1].idr or rec.launches != p or p == 0:
+                _fail(f"phase 16 (b): encoder {i} launched K1 {rec.launches} times for {p} "
+                      f"non-static P frames (first frame IDR: {outs[0][1].idr})")
+            flat = {k: 1 if k == "frame_batch" else 0 for k in ("frame_batch", "pipeline_depth")}
+            if _replay(rec, device=rec.kw["device"], **flat) != _shas(rec):
+                _fail(f"phase 16 (b): encoder {i}'s replay on the card differs from the app's AUs")
+        stages.append({"encoder": list(got[i]), "frames": len(outs), "p_frames": p,
+                       "me_mc_launches": rec.launches, "sps": list(_sps_size(outs[0][0])),
+                       "device": str(rec.kw["device"]), "build_ms": rec.build_ms,
+                       "first_au_ms": rec.first_au_ms, "memory_before_build": mem[i],
+                       "class": rec.cls})
+        rec.log.clear()
+    degrade = [m for m in caught.messages if "x264enc falls back to tpuh264enc" in m]
+    sw_row = stages[3]["class"]
+    if sw_row == "TorchH264Encoder" and not degrade:
+        _fail("phase 16 (b): the software rung degraded without the registry's warning")
+    end = _mem()
+    # before a build the encoder it replaces is still alive: builds 1 and 2
+    # and the end find one full-size encoder, builds 3-5 one 960x528 one.
+    # The closed ones must not pile up.
+    if end:
+        full = [mem[1]["allocated_mb"], mem[2]["allocated_mb"], end["allocated_mb"]]
+        half = [m["allocated_mb"] for m in mem[3:6]]
+        if max(full) - min(full) > 2.0 or max(half) - min(half) > 2.0:
+            _fail(f"phase 16 (b): resident memory grew across the rebuilds: before builds "
+                  f"{[m['allocated_mb'] for m in mem]} MiB, at the end {end['allocated_mb']}")
+    return {"events": events, "stages": stages, "software_rung": sw_row,
+            "software_fallback_warning": degrade[:1], "serve_s": serve_s,
+            "sent": len(app.transport.frames), "memory_end": end}
+
+
+def _time_app(dev, framerate: int) -> dict:
+    """(d): the app at ``framerate``, hooks off: after a warm-up, APP_TIMING_S
+    of steady state -> delivered fps, capture->send ms (median, p95, from
+    the source's and the transport's stamps, paired in order), dropped
+    ticks and frames; then torch.profiler over a few ticks."""
+    import asyncio
+
+    import torch
+
+    from selkies_tpu_torch.pipeline.elements import SyntheticSource
+
+    src = _StampedSource(SyntheticSource(W, H, seed=APP_SEED))
+    app = _make_app(dev, framerate=framerate, source=src)
+    win = {}
+
+    async def measure(app):
+        while len(app.transport.frames) < 2 * framerate // 3:  # warm-up
+            await asyncio.sleep(0.002)
+        p = app.pipeline
+        win["n0"], win["t0"] = len(app.transport.frames), time.perf_counter()
+        win["d0"] = (p.dropped_ticks, p.dropped_frames, p.frames)
+        await asyncio.sleep(APP_TIMING_S)
+        win["n1"], win["t1"] = len(app.transport.frames), time.perf_counter()
+        win["d1"] = (p.dropped_ticks, p.dropped_frames, p.frames)
+        ticks = max(3, framerate // 6)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            await asyncio.sleep(ticks / framerate)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        win["profile"] = _device_activity(prof, wall_ms)
+        win["profile"]["ticks"] = ticks
+
+    _serve_app(app, lambda a: "profile" in win, during=measure)
+    app.encoder.close()
+    t = app.transport
+    lat = sorted((t.sent_at[i] - src.captured_at[i]) * 1e3 for i in range(win["n0"], win["n1"]))
+    n = len(lat)
+    return {"framerate": framerate, "seconds": win["t1"] - win["t0"], "delivered": n,
+            "fps": n / (win["t1"] - win["t0"]), "capture_to_send_ms_median": statistics.median(lat),
+            "capture_to_send_ms_p95": lat[-(-95 * n // 100) - 1], "capture_to_send_ms_max": lat[-1],
+            "dropped_ticks": win["d1"][0] - win["d0"][0],
+            "dropped_frames": win["d1"][1] - win["d0"][1],
+            "encoded": win["d1"][2] - win["d0"][2], "profile": win["profile"]}
+
+
+def _time_direct_row(dev, n: int = 150) -> dict:
+    """The registry row the app serves, built directly and fed the same
+    source's frames back to back with the app's rate controller: frames
+    per second and a frame's submit() to the return of its AU."""
+    import torch
+
+    from selkies_tpu_torch.models.h264.ratecontrol import CbrRateController
+    from selkies_tpu_torch.models.registry import create_encoder
+    from selkies_tpu_torch.pipeline.elements import SyntheticSource
+
+    src = SyntheticSource(W, H, seed=APP_SEED)
+    frames = [src.capture() for _ in range(n + 10)]
+    enc = create_encoder("tpuh264enc", width=W, height=H, fps=60, device=dev)
+    enc.prewarm()
+    rc = CbrRateController(bitrate_kbps=APP_KBPS, fps=60)
+    for f in frames[:10]:
+        for au, st, _ in enc.submit(f, rc.frame_qp()):
+            rc.update(len(au), idr=st.idr or st.scene_cut)
+    for au, st, _ in enc.flush():
+        rc.update(len(au), idr=st.idr or st.scene_cut)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t_sub, lat = {}, {}
+
+    def take(outs):
+        now = time.perf_counter()
+        for au, st, m in outs:
+            lat[m] = (now - t_sub[m]) * 1e3
+            rc.update(len(au), idr=st.idr or st.scene_cut)
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames[10:]):
+        t_sub[i] = time.perf_counter()
+        take(enc.submit(f, rc.frame_qp(), i))
+    take(enc.flush())
+    wall = time.perf_counter() - t0
+    enc.close()
+    v = sorted(lat.values())
+    return {"frames": n, "fps": n / wall, "submit_to_au_ms_median": statistics.median(v),
+            "submit_to_au_ms_p95": v[-(-95 * n // 100) - 1]}
+
+
+def _app_phase(timing: bool, dev=None) -> dict:
+    """Phase 16: (a) the app on the registry row, (b) the ladder, (c) the
+    policy engine and the SLO plane, (d) timing (with ``timing``)."""
+    import os
+
+    from selkies_tpu_torch.monitoring.telemetry import telemetry
+
+    out = {}
+    t0 = time.perf_counter()
+    out["a"] = _app_run(dev, "a")
+    a = out["a"]
+    print(f"phase 16 (a) TorchWebRTCApp(SyntheticSource({W}, {H}), tpuh264enc, 60 fps, "
+          f"{APP_KBPS} kbps): {a['sent']} sent, {a['returned']} returned after the stop's flush; "
+          f"AUs equal a direct card row's replay and the first {APP_CPU_FRAMES} the CPU's; "
+          f"IDR + {W}x{H} SPS first; K1 {a['me_mc_launches']} launches = {a['p_frames']} "
+          f"non-static P frames; kinds {a['kinds']}, QPs {a['qps'][0]}-{a['qps'][-1]}; "
+          f"served {a['serve_s']:.1f} s, replays {a['card_replay_s']:.1f} s card, "
+          f"{a['cpu_replay_s']:.1f} s cpu; memory {a['memory']}")
+    out["b"] = _ladder_run(dev)
+    b = out["b"]
+    print(f"phase 16 (b) ladder {LADDER_SPEC}, recover_after {LADDER_RECOVER}: software rung "
+          f"{b['software_rung']} ({b['software_fallback_warning']}); stages [encoder, frames, "
+          f"K1, SPS, build ms, build-to-first-AU ms, MiB resident before the build] "
+          + json.dumps([[s["encoder"], s["frames"], s["me_mc_launches"], s["sps"],
+                         round(s["build_ms"], 1), round(s["first_au_ms"], 1),
+                         round(s["memory_before_build"].get("allocated_mb", 0.0), 2)]
+                        for s in b["stages"]])
+          + f"; every stage's AUs equal its card replay, K1 once per non-static P frame; "
+          f"memory at the end {b['memory_end']}; {b['serve_s']:.1f} s")
+    saved = {k: os.environ.get(k) for k in ("SELKIES_POLICY", "SELKIES_SLO")}
+    os.environ.update({"SELKIES_POLICY": "1", "SELKIES_SLO": "1"})
+    try:
+        out["c"] = _app_run(dev, "c")
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    c = out["c"]
+    print(f"phase 16 (c) SELKIES_POLICY=1 SELKIES_SLO=1 over (a)'s trace: {c['sent']} sent by "
+          f"{len(c['encoders'])} encoder(s), replays equal; policy "
+          + json.dumps({k: c['policy'][k] for k in ("scenario", "frames", "transitions",
+                                                     "congested", "disarmed")})
+          + "; slo " + json.dumps({k: c['slo'][k] for k in ("scenario", "frames", "evaluations",
+                                                           "breaches", "outliers")}))
+    out["seconds_checks"] = time.perf_counter() - t0
+    if timing:
+        card, limit = (s.strip() for s in _nvidia_smi().split(",", 1))
+        out["d"] = {"card": card, "power_limit": limit,
+                    "app": [_time_app(dev, fr) for fr in (60, 30)],
+                    "direct_row": _time_direct_row(dev)}
+        print(f"phase 16 (d) the app at {W}x{H} ({card}, {limit}): " + json.dumps(out["d"]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3088,7 +3683,12 @@ def main() -> int:
     record["mesh_path"] = _mesh_phase()
     record["mesh_path"]["seconds"] = time.perf_counter() - t0
     print(f"phase 15: {record['mesh_path']['seconds']:.1f} s")
-    print(f"phases 1-9 and 12-15: {time.perf_counter() - t_start:.1f} s")
+    # -- 16. the solo serving app (its timing, (d), only with the timing)
+    t0 = time.perf_counter()
+    record["app_path"] = _app_phase(timing)
+    record["app_path"]["seconds"] = time.perf_counter() - t0
+    print(f"phase 16: {record['app_path']['seconds']:.1f} s")
+    print(f"phases 1-9 and 12-16: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
@@ -3338,6 +3938,12 @@ def main() -> int:
         "launches_per_tick_software_fleet_path":
             record["mesh_path"]["software_fleet"]["launches_per_tick"],
         "launches_fleet_codec_path": record["mesh_path"]["fleet_codecs"]["me_mc_launches"],
+        "launches_app_path": {
+            "registry_row": record["app_path"]["a"]["me_mc_launches"],
+            "ladder": [s["me_mc_launches"] for s in record["app_path"]["b"]["stages"]],
+            "policy_slo": record["app_path"]["c"]["me_mc_launches"]},
+        "launches_per_p_frame_app_path": record["app_path"]["a"]["me_mc_launches"]
+        / record["app_path"]["a"]["p_frames"],
         "card": card, "power_limit": power_limit,
     }, {
         "name": "me_mc (8 sessions, one launch)", "route": "cuda",

@@ -1,10 +1,10 @@
-"""Resilience of the port: deterministic fault injection
-(``faultinject.py``, the ``SELKIES_FAULTS`` grammar) and the device health
-plane (``devhealth.py``: the CUDA device pool, quarantine, probation and
-readmission).
+"""Resilience of the port: the per-slot supervisor and its recovery ladder
+(``supervisor.py``), deterministic fault injection (``faultinject.py``, the
+``SELKIES_FAULTS`` grammar) and the device health plane (``devhealth.py``:
+the CUDA device pool, quarantine, probation and readmission).
 
-Counterpart of ``selkies_tpu/resilience/`` less its supervisor, which is
-not ported yet; the injector and the pool are this package's own.
+Counterpart of ``selkies_tpu/resilience/``; the injector and the pool are
+this package's own.
 """
 
 from selkies_tpu_torch.resilience.devhealth import (
@@ -25,12 +25,22 @@ from selkies_tpu_torch.resilience.faultinject import (
     get_injector,
     reset_faults,
 )
+from selkies_tpu_torch.resilience.supervisor import (
+    Backoff,
+    RecoveryActions,
+    Rung,
+    SlotSupervisor,
+)
 
 __all__ = [
+    "Backoff",
     "DeviceFault",
     "DevicePool",
     "FaultInjector",
     "InjectedFault",
+    "RecoveryActions",
+    "Rung",
+    "SlotSupervisor",
     "check_device_faults",
     "chip_key",
     "configure_faults",

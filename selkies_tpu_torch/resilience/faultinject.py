@@ -4,13 +4,19 @@ The port's copy of ``selkies_tpu/resilience/faultinject.py``: the same
 grammar, the same ``SELKIES_FAULTS`` variable (one spec string drives both
 packages), ``configure_faults`` / ``reset_faults`` and the per-site tick
 counters. The injector is this package's own: configuring or resetting one
-package's leaves the other's alone. The port wires the ``frontend`` site
-(``TorchH264Encoder.submit``) and the ``device:<chip>`` site (the banded
-encoder per frame, the session service per tick, and every probation
-probe, ``resilience/devhealth.py``), the fleet lifecycle's ``admission`` /
+package's leaves the other's alone. The port wires the ``capture`` and
+``encoder`` sites (``VideoPipeline._run``, ``pipeline/elements.py``, once
+per tick of the solo app), the ``frontend`` site
+(``TorchH264Encoder.submit``), the ``policy`` site (``PolicyEngine``,
+``policy/engine.py``), the ``device:<chip>`` site (the banded encoder per
+frame, the session service per tick, and every probation probe,
+``resilience/devhealth.py``), the fleet lifecycle's ``admission`` /
 ``recarve`` / ``migrate`` / ``drain`` sites (``parallel/lifecycle.py``) and
-the occupancy scheduler's ``sched:<k>`` (``parallel/occupancy.py``); the
-other sites below belong to JAX modules not ported yet.
+the occupancy scheduler's ``sched:<k>`` (``parallel/occupancy.py``). The
+fleet tick's ``capture:<k>`` and ``encoder`` (``parallel/fleet.py``),
+``send``, ``signalling``, ``cluster:*`` and ``net:*`` wait for the slices
+that port the fleet tick loop, the host server, the WebRTC stack and the
+cluster plane.
 
 Configured with the ``SELKIES_FAULTS`` environment variable (or
 programmatically via :func:`configure_faults`); when unset the hot paths

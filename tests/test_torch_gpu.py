@@ -1182,3 +1182,288 @@ def test_tile_column_rows_on_card_match_cpu(row, monkeypatch):
         enc.close()
         shas[dev] = [hashlib.sha256(au).hexdigest() for au in aus]
     assert shas["cuda"] == shas["cpu"]
+
+
+# -- the solo serving app (selkies_tpu_torch/pipeline/app.py) ------------------
+#
+# The app's recording harness: tests/test_torch_app.py (the CPU parity tests)
+# imports it from here, since this file imports no JAX.
+
+class FakeTransport:
+    """The app's byte plane: keeps every video frame and every data-channel
+    message (as sent, JSON text)."""
+
+    def __init__(self, ready: bool = True):
+        self.frames = []
+        self.messages: list[str] = []
+        self.data_channel_ready = ready
+
+    def send_data_channel(self, message: str) -> None:
+        self.messages.append(message)
+
+    async def send_video(self, frame) -> None:
+        self.frames.append(frame)
+
+
+class RecordingEncoder:
+    """Stands in for an encoder the app built: forwards every attribute,
+    and logs each call that feeds or steers the stream (with what it
+    returned) and each attribute set on it, so a fresh row fed the same
+    log must give the same AUs."""
+
+    CALLS = ("submit", "encode_frame", "flush", "force_keyframe", "prewarm", "close",
+             "set_tile_cache", "set_batch_cap", "retune_entropy")
+
+    def __init__(self, enc, name: str, kw: dict):
+        self.__dict__.update(enc=enc, name=name, kw=kw, log=[])
+
+    def __getattr__(self, attr):
+        val = getattr(self.enc, attr)
+        if attr not in self.CALLS:
+            return val
+
+        def call(*a, **k):
+            try:
+                out = val(*a, **k)
+            except Exception as exc:
+                self.log.append((attr, a, k, exc))
+                raise
+            self.log.append((attr, a, k, out))
+            return out
+        return call
+
+    def __setattr__(self, attr, value):
+        setattr(self.enc, attr, value)
+        self.log.append(("set", attr, value, None))
+
+
+def record_encoders(monkeypatch, app_mod) -> list:
+    """Wrap every encoder ``app_mod`` builds in a RecordingEncoder; -> the
+    list they are appended to, in build order."""
+    built = []
+    real = app_mod.create_encoder
+
+    def create(name, **kw):
+        rec = RecordingEncoder(real(name, **kw), name, kw)
+        built.append(rec)
+        return rec
+    monkeypatch.setattr(app_mod, "create_encoder", create)
+    return built
+
+
+def _returned(attr, out) -> list:
+    """-> [(au, stats, meta)] a logged call handed back."""
+    if attr in ("submit", "flush"):
+        return list(out)
+    if attr == "encode_frame":
+        return [(out, None, None)]
+    return []
+
+
+def logged_outputs(rec) -> list:
+    """Every (au, stats, meta) the recorded encoder returned, in order."""
+    return [o for attr, _, _, out in rec.log if not isinstance(out, Exception)
+            for o in _returned(attr, out)]
+
+
+def replay(rec, create, **overrides) -> list:
+    """Build ``rec.name`` with ``rec``'s arguments (``overrides`` replace
+    some, e.g. the device) through ``create``, feed it the logged calls,
+    flush it, and return every (au, meta) it hands back. ``prewarm`` is
+    left out: a prewarmed row codes as a fresh one. A logged ``close``
+    ends the calls: the close discarded the frames then in flight, and
+    which those were depends on the clock, so a closed encoder's AUs are
+    the head of its replay's."""
+    enc = create(rec.name, **dict(rec.kw, **overrides))
+    outs = []
+    try:
+        for attr, a, k, out in rec.log:
+            if attr == "close":
+                break
+            if attr == "set":
+                setattr(enc, a, k)
+            elif attr != "prewarm":
+                outs += _returned(attr, getattr(enc, attr)(*a, **k))
+        outs += enc.flush()
+    finally:
+        enc.close()
+    return [(au, m) for au, _, m in outs]
+
+
+def closed(rec) -> bool:
+    """Whether the app closed the recorded encoder (a replaced one)."""
+    return any(attr == "close" for attr, *_ in rec.log)
+
+
+def sps_size(au: bytes) -> tuple[int, int]:
+    """(width, height) an Annex-B AU's SPS codes (cropping applied)."""
+    nal = au.split(b"\x00\x00\x00\x01")[1]
+    assert nal[0] & 0x1F == 7, "the AU does not start with an SPS"
+    rbsp = nal[1:].replace(b"\x00\x00\x03", b"\x00\x00")
+    bits = "".join(f"{b:08b}" for b in rbsp)
+    pos = 24  # profile_idc, constraint flags, level_idc
+
+    def u(n):
+        nonlocal pos
+        pos += n
+        return int(bits[pos - n:pos], 2)
+
+    def ue():
+        nonlocal pos
+        z = bits.index("1", pos) - pos
+        pos += z + 1
+        return (1 << z) - 1 + (u(z) if z else 0)
+
+    profile = rbsp[0]
+    ue()  # seq_parameter_set_id
+    if profile in (100, 110, 122, 244, 44, 83, 86, 118, 128):
+        raise AssertionError(f"profile {profile}: not a stream this encoder writes")
+    ue()  # log2_max_frame_num_minus4
+    if ue() == 0:  # pic_order_cnt_type
+        ue()
+    ue()  # max_num_ref_frames
+    u(1)
+    w_mbs, h_mbs = ue() + 1, ue() + 1
+    assert u(1) == 1, "frame_mbs_only"
+    u(1)
+    crop = [ue() for _ in range(4)] if u(1) else [0, 0, 0, 0]
+    return 16 * w_mbs - 2 * (crop[0] + crop[1]), 16 * h_mbs - 2 * (crop[2] + crop[3])
+
+
+def serve_app(app, until, timeout_s: float = 240.0, during=None):
+    """Serve ``app`` until ``until(app)`` holds, then stop it; ``during``
+    (a coroutine function, optional) is awaited once the first frame has
+    gone out."""
+    import asyncio
+    import time as _time
+
+    async def go():
+        await app.start_pipeline()
+        t0, called = _time.monotonic(), False
+        try:
+            while not until(app):
+                if during is not None and not called and app.transport.frames:
+                    called = True
+                    await during()
+                if _time.monotonic() - t0 > timeout_s:
+                    raise TimeoutError(f"{len(app.transport.frames)} frames in {timeout_s} s")
+                await asyncio.sleep(0.005)
+        finally:
+            await app.stop_pipeline()
+    asyncio.run(go())
+
+
+def _card_app(monkeypatch):
+    """TorchWebRTCApp over SyntheticSource(W, H) with the registry row on
+    the card, every encoder it builds recorded -> (app, recorders)."""
+    from selkies_tpu_torch.pipeline import app as app_mod
+    from selkies_tpu_torch.pipeline.elements import SyntheticSource
+
+    built = record_encoders(monkeypatch, app_mod)
+    app = app_mod.TorchWebRTCApp(source=SyntheticSource(W, H, seed=12), transport=FakeTransport(),
+                                 framerate=60, video_bitrate_kbps=1500, device="cuda")
+    return app, built
+
+
+@pytest.mark.gpu
+def test_app_on_card_matches_cpu_replay(monkeypatch):
+    """The app serves the registry row on the card: its AUs (sent and
+    flushed after the stop) equal the same calls replayed into the row on
+    the CPU, the first is an IDR with the SPS, and K1 launched once per
+    non-static P frame (counted after the prewarm)."""
+    _need_card()
+    from selkies_tpu_torch.models.registry import create_encoder
+
+    app, built = _card_app(monkeypatch)
+    real = built[0].enc
+    orig = real.prewarm
+
+    def prewarm():
+        orig()
+        me_mc.launches = 0
+    real.prewarm = prewarm
+    serve_app(app, lambda a: len(a.transport.frames) >= 24)
+    built[0].flush()
+    launched = me_mc.launches
+    outs = logged_outputs(built[0])
+    sent = [f.au for f in app.transport.frames]
+    assert [au for au, _, _ in outs][:len(sent)] == sent and len(built) == 1
+    assert sent[0].startswith(b"\x00\x00\x00\x01\x67") and sps_size(sent[0]) == (W, H)
+    assert launched == sum(1 for _, st, _ in outs if not st.idr and st.upload_kind != "static")
+    assert replay(built[0], create_encoder, device="cpu") == [(au, m) for au, _, m in outs]
+
+
+@pytest.mark.gpu
+def test_app_tick_never_syncs(monkeypatch):
+    """Once warm, the app's ticks make no synchronising CUDA call on the
+    threads that capture and submit (asyncio.to_thread's workers, whose
+    thread changes from tick to tick) in the pattern of
+    test_scheduled_tick_never_syncs."""
+    _need_card()
+    import threading
+    import traceback
+    import warnings
+
+    app, _ = _card_app(monkeypatch)
+    seen, state = [], {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        seen.append((threading.current_thread().name, str(message),
+                     "".join(traceback.format_stack(limit=8)[:-1])))
+
+    async def watch():
+        import asyncio
+
+        while len(app.transport.frames) < 8:  # warm-up: tables on the card
+            await asyncio.sleep(0.005)
+        state["from"] = len(app.transport.frames)
+        torch.cuda.set_sync_debug_mode("warn")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        try:
+            serve_app(app, lambda a: "from" in state
+                      and len(a.transport.frames) >= state["from"] + 24, during=watch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [(name, st) for name, m, st in seen
+             if "called a synchronizing CUDA operation" in m and name.startswith("asyncio")]
+    assert not syncs, f"{len(syncs)} syncs; first in {syncs[0][0]} at:\n{syncs[0][1]}"
+
+
+@pytest.mark.gpu
+def test_app_restarts_return_device_memory():
+    """Three ladder restarts at 1920x1080 (each a new card encoder, the old
+    one closed) leave the card's resident memory within 2 MiB of one
+    encoder's (an encoder holds ~15 MiB there), and the peak of each
+    restarted run within 2 MiB of the first run's."""
+    _need_card()
+    import gc
+
+    from selkies_tpu_torch.pipeline.app import TorchWebRTCApp
+    from selkies_tpu_torch.pipeline.elements import SyntheticSource
+
+    slack = 2 << 20
+
+    def settled():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+
+    app = TorchWebRTCApp(source=SyntheticSource(1920, 1080, seed=13),
+                         transport=FakeTransport(), framerate=60, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    serve_app(app, lambda a: len(a.transport.frames) >= 12)
+    one, one_peak = settled()
+    runs = []
+    for _ in range(3):
+        app._restart_encoder()
+        torch.cuda.reset_peak_memory_stats()
+        n = len(app.transport.frames)
+        serve_app(app, lambda a, n=n: len(a.transport.frames) >= n + 8)
+        runs.append(settled())
+    app.encoder.close()
+    for resident, peak in runs:
+        assert abs(resident - one) <= slack, (one, runs)
+        assert peak <= one_peak + slack, (one_peak, runs)
