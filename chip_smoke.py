@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-16 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-17 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -197,6 +197,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    transport, dropped ticks and frames, the device's idle share over a few
    ticks (torch.profiler), and the same registry row fed the source's
    frames back to back (fps, submit->AU ms);
+17. (run after phase 16, before the timing) the fleet's serving core,
+   SessionFleet (selkies_tpu_torch/parallel/fleet.py) with the card
+   taken through the device pool (devices=None), its slots' WebSocket
+   planes recorders: (a) 8 slots of 1920x1088 at 60 fps (bands 1: the
+   batch service) fed phase 14's desktop trace, 4 ticks by
+   _capture_batch + _encode_tick (the IDR tick, a forced keyframe and a
+   bitrate retune): the AUs equal a direct TorchMultiSessionH264Service
+   fed the same batches and the slots' QPs, the same fleet at 4 x 640x368
+   equals the CPU's, K1 launches once per tick with a P session (read
+   around _encode_tick); (b) the live loop (start / _run / stop) over 8
+   slots of 1920x1088 at a 60 fps tick, sources cycling through 12
+   frames of phase 9's desktops, 5 s of steady state in 3 pairs of runs,
+   occupancy on then SELKIES_OCCUPANCY=0: delivered fps across sessions,
+   on_tick's tick ms and capture->send ms (median, p95; stamps on the
+   source and the plane), the supervisor's failures (0), device ops and
+   idle share over 5 ticks (torch.profiler), and the direct service's P
+   tick ms from the replay of the same run (the yardstick: the loop's
+   share of N x its ticks per second); the service is wrapped to record
+   each call, and every tick and sent AU equals that replay; the first run
+   idles 1 s with no slot connected first, with no K1 launch and no
+   service call; (c) SELKIES_BANDS=2, 4 slots of 1920x1080
+   (TorchBandedFleetService), occupancy on, 6 ticks: the AUs equal a
+   direct banded service's, K1 twice per non-static banded P session a
+   tick; negotiate_session(0, ["av1", "h264"]) settles on what
+   negotiate.resolve gives (h264 without libaom) and the session keeps
+   serving; (d) the ladder at 4 x 640x384 under ``encoder@3-26:raise``
+   with the supervisor's clock frozen: force-IDR, a restart, degrade
+   levels 1-3 (half and quarter fps, the software service) and the
+   reversal, each service the fleet builds recorded (its build ms, the ms
+   to its first AU, its K1 launches) and equal to its replay; (e)
+   dryrun(8) on the card;
 10. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
@@ -248,8 +279,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    service, 6 more ticks);
 11. print the ``{"kernels": [...]}`` line (K1 at the solo shape and as the
     8-session launch, with its launches on every path, the fleet's, the
-    library rows' degrade, the software fleet's and the serving app's
-    included), then the ``{"ok": true, ...}`` line.
+    library rows' degrade, the software fleet's, the serving app's and the
+    fleet loop's included), then the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -3217,6 +3248,606 @@ def _app_phase(timing: bool, dev=None) -> dict:
     return out
 
 
+# -- phase 17: the fleet's serving core ------------------------------------------
+
+LOOP_N, LOOP_W, LOOP_H = 8, 1920, 1088
+LOOP_SMALL = (4, 640, 368)  # phase 9 (b)'s geometry, where the card meets the CPU
+LOOP_FPS = 60
+LOOP_KBPS = 8000
+LOOP_TICKS = 4
+# tick -> ops before it: ("key", session) / ("kbps", session, kbps)
+LOOP_OPS = {2: [("key", 3), ("kbps", 0, 4000)]}
+LOOP_CYCLE = 12  # frames per session the live loop's sources cycle through
+LOOP_STEADY_S = 5.0
+LOOP_PAIRS = 3
+LOOP_IDLE_S = 1.0
+LOOP_PROFILE_TICKS = 5
+LOOP_BANDED = (4, 1920, 1080)
+LOOP_BANDED_TICKS = 6
+LOOP_LADDER = (4, 640, 384)
+# 24 encoder raises in a row from the third tick: warn, force-IDR (2),
+# restart (6), degrade 1 (12), 2 (18) and 3, the software service (24);
+# then LOOP_LADDER_RECOVER healthy ticks reverse one level each
+LOOP_LADDER_SPEC = "encoder@3-26:raise"
+LOOP_LADDER_RECOVER = 3
+LOOP_LADDER_EVENTS = 38
+
+
+class _RecordingService:
+    """Stands in for a fleet service: forwards every attribute; logs each
+    call that steers or feeds it (per tick the capture index of the batch
+    and the AUs with their IDR flags), counts K1's launches inside its
+    ticks and the host ms from its build to its first AUs."""
+
+    CALLS = ("set_qp", "set_bitrate", "force_keyframe", "encode_tick", "dispatch_tick",
+             "complete_tick")
+
+    def __init__(self, svc, kw: dict, sources, build_ms: float):
+        self.__dict__.update(svc=svc, cls=type(svc).__name__, kw=kw, sources=sources, log=[],
+                             launches=0, build_ms=build_ms, t_built=time.perf_counter(),
+                             first_au_ms=None)
+
+    def __getattr__(self, attr):
+        from selkies_tpu_torch.models.h264 import me_mc
+
+        val = getattr(self.svc, attr)
+        if attr not in self.CALLS:
+            return val
+
+        def call(*a, **k):
+            if attr in ("encode_tick", "dispatch_tick"):
+                self.log.append(("tick", len(self.sources[0].captured_at) - 1))
+            k0 = me_mc.launches
+            out = val(*a, **k)
+            if attr in ("encode_tick", "dispatch_tick"):
+                self.__dict__["launches"] += me_mc.launches - k0
+            if attr in ("encode_tick", "complete_tick"):
+                self.log.append(("aus", [hashlib.sha256(au).hexdigest() for au in out],
+                                 list(self.svc.last_idrs)))
+                if self.first_au_ms is None:
+                    self.__dict__["first_au_ms"] = (time.perf_counter() - self.t_built) * 1e3
+            elif attr != "dispatch_tick":
+                self.log.append((attr, *a))
+            return out
+        return call
+
+    def ticks(self) -> list:
+        """-> [(capture index, AU sha256s, IDR flags)] in order."""
+        idx = [e[1] for e in self.log if e[0] == "tick"]
+        aus = [e[1:] for e in self.log if e[0] == "aus"]
+        return [(i, *a) for i, a in zip(idx, aus)]
+
+
+def _cycles(n: int, w: int, h: int) -> list:
+    """Per session LOOP_CYCLE frames of phase 9's desktop trace (even
+    sessions scroll, odd ones type), cut to h rows."""
+    bases = _fleet_bases(n, w, h)
+    return [[np.ascontiguousarray(_session_frame(bases[i], i, t)) for t in range(LOOP_CYCLE)]
+            for i in range(n)]
+
+
+def _loop_fleet(n: int, w: int, h: int, dev, sources, *, connected: bool = True,
+                service=None):
+    """SessionFleet over n slots at LOOP_FPS, each slot's WebSocket plane
+    phase 16's recording transport, with the given sources (``dev`` None:
+    the card through the pool)."""
+    import torch
+
+    from selkies_tpu_torch.parallel.fleet import SessionFleet, SessionSlot
+
+    slots = [SessionSlot(k, bitrate_kbps=LOOP_KBPS, fps=LOOP_FPS, ws=_AppTransport())
+             for k in range(n)]
+    for s in slots:
+        s.connected = connected
+    devices = None if dev is None else [torch.device(dev)]
+    return SessionFleet(slots, width=w, height=h, fps=LOOP_FPS, devices=devices,
+                        service=service, sources=sources)
+
+
+def _sources(frames) -> list:
+    """Per session a source cycling through its frames, stamped at each
+    capture (phase 16's _StampedSource)."""
+    from functools import partial
+    from itertools import cycle
+    from types import SimpleNamespace
+
+    return [_StampedSource(SimpleNamespace(capture=partial(next, cycle(f)))) for f in frames]
+
+
+async def _quiesce(fleet) -> None:
+    """Disconnect every slot and wait out the tick in flight, so that the
+    stop that follows closes an idle service."""
+    import asyncio
+
+    for s in fleet.slots:
+        s.connected = False
+    while fleet._tick_in_flight:
+        await asyncio.sleep(0.001)
+
+
+def _loop_drive(fleet, ticks: int, ops=LOOP_OPS) -> list:
+    """Tick the fleet by hand as _run does -> per tick (AU sha256s, IDR
+    flags, QPs, K1 launches inside _encode_tick)."""
+    from selkies_tpu_torch.models.h264 import me_mc
+
+    out = []
+    for t in range(ticks):
+        for op in ops.get(t, ()):
+            if op[0] == "key":
+                fleet.force_keyframe(op[1])
+            else:
+                fleet.set_session_bitrate(op[1], op[2])
+        failed = fleet._capture_batch()
+        if failed:
+            _fail(f"phase 17: captures failed {failed}")
+        k0 = me_mc.launches
+        aus, idrs, qps, _ = fleet._encode_tick()
+        launched = me_mc.launches - k0
+        if not all(au.startswith(b"\x00\x00\x00\x01") for k, au in enumerate(aus)
+                   if fleet.session_codec(k) == "h264"):
+            _fail(f"phase 17 tick {t}: an H.264 access unit is not Annex-B")
+        for slot, au, idr in zip(fleet.slots, aus, idrs):
+            if au:
+                slot.rc.update(len(au), idr=idr)
+        out.append(([hashlib.sha256(au).hexdigest() for au in aus], list(idrs), list(qps),
+                    launched))
+    return out
+
+
+def _direct_drive(svc, batches, run, ops=LOOP_OPS, tick=None) -> list:
+    """A direct service fed the batches (through ``tick``, default its
+    serial encode_tick), each tick's QPs from ``run`` and the ops'
+    keyframes -> per tick the AU sha256s."""
+    tick = tick or svc.encode_tick
+    out = []
+    for t, batch in enumerate(batches):
+        for op in ops.get(t, ()):
+            if op[0] == "key":
+                svc.force_keyframe(op[1])
+        for k, qp in enumerate(run[t][2]):
+            svc.set_qp(k, qp)
+        out.append([hashlib.sha256(au).hexdigest() for au in tick(batch)])
+    return out
+
+
+def _replay_service(rec, frames, make) -> list:
+    """Feed a fresh service from ``make()`` the recorded calls, each tick's
+    batch rebuilt from its capture index -> [(capture index, AU sha256s,
+    IDR flags, tick ms)]; the tick ms is the host clock around the direct
+    service's synchronous encode_tick."""
+    svc = make()
+    out = []
+    try:
+        for ev in rec.log:
+            if ev[0] == "tick":
+                batch = np.stack([f[ev[1] % len(f)] for f in frames])
+                t0 = time.perf_counter()
+                aus = svc.encode_tick(batch)
+                ms = (time.perf_counter() - t0) * 1e3
+                out.append((ev[1], [hashlib.sha256(au).hexdigest() for au in aus],
+                            list(svc.last_idrs), ms))
+            elif ev[0] != "aus":
+                getattr(svc, ev[0])(*ev[1:])
+    finally:
+        svc.close()
+    return out
+
+
+def _check_replay(rec, replay, label: str) -> None:
+    got = rec.ticks()
+    if [r[:3] for r in replay] != got:
+        bad = [i for i, (a, b) in enumerate(zip(got, replay)) if a != tuple(b[:3])]
+        _fail(f"phase 17 {label}: the recorded ticks differ from their replay at {bad[:5]} "
+              f"({len(got)} recorded, {len(replay)} replayed)")
+
+
+def _check_sent(fleet, ticks, label: str) -> None:
+    """Every AU a slot's plane received is its session's AU of the
+    recorded ticks, in order (a stop may cut the last tick's sends)."""
+    for k, s in enumerate(fleet.slots):
+        sent = [hashlib.sha256(f.au).hexdigest() for f in s.ws.frames]
+        want = [t[1][k] for t in ticks if t[1][k] != hashlib.sha256(b"").hexdigest()]
+        if not sent or sent != want[:len(sent)] or len(want) - len(sent) > 1:
+            _fail(f"phase 17 {label}: slot {k} sent {len(sent)} AUs that are not its "
+                  f"{len(want)} recorded ones")
+
+
+def _pct(v: list, q: int) -> float:
+    v = sorted(v)
+    return v[-(-q * len(v) // 100) - 1]
+
+
+def _live_run(dev, frames, occupancy: str, idle: bool) -> dict:
+    """(b): the loop over LOOP_N slots with every slot connected: a warm-up,
+    LOOP_STEADY_S of steady state, torch.profiler over LOOP_PROFILE_TICKS
+    ticks; with ``idle``, LOOP_IDLE_S with no slot connected first."""
+    import asyncio
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+
+    os.environ["SELKIES_OCCUPANCY"] = occupancy
+    n, w, h = LOOP_N, LOOP_W, LOOP_H
+    t0 = time.perf_counter()
+    svc = TorchMultiSessionH264Service(n, w, h, qp=28, fps=LOOP_FPS, device=dev)
+    sources = _sources(frames)
+    rec = _RecordingService(svc, {}, sources, (time.perf_counter() - t0) * 1e3)
+    fleet = _loop_fleet(n, w, h, dev, sources, connected=not idle, service=rec)
+    ticks_at = []
+    fleet.on_tick = lambda ms: ticks_at.append((time.perf_counter(), ms))
+    win = {}
+
+    async def go():
+        await fleet.start()
+        try:
+            if idle:
+                k0 = me_mc.launches
+                await asyncio.sleep(LOOP_IDLE_S)
+                win["idle"] = {"seconds": LOOP_IDLE_S, "me_mc_launches": me_mc.launches - k0,
+                               "service_calls": len(rec.log), "ticks": fleet.ticks,
+                               "captures": len(sources[0].captured_at)}
+                for s in fleet.slots:
+                    s.connected = True
+            while fleet.ticks < 10:  # the IDR tick and the first P ticks
+                await asyncio.sleep(0.002)
+            win["n0"] = [len(s.ws.frames) for s in fleet.slots]
+            win["k0"], win["t0"], win["tick0"] = me_mc.launches, time.perf_counter(), fleet.ticks
+            await asyncio.sleep(LOOP_STEADY_S)
+            win["n1"] = [len(s.ws.frames) for s in fleet.slots]
+            win["k1"], win["t1"], win["tick1"] = me_mc.launches, time.perf_counter(), fleet.ticks
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                             if torch.cuda.is_available() else [])
+            with profile(activities=acts) as prof:
+                tp, k = time.perf_counter(), fleet.ticks
+                while fleet.ticks < k + LOOP_PROFILE_TICKS:
+                    await asyncio.sleep(0.001)
+                wall_ms = (time.perf_counter() - tp) * 1e3
+            win["profile"] = _device_activity(prof, wall_ms)
+            win["profile"]["ticks"] = LOOP_PROFILE_TICKS
+            await _quiesce(fleet)
+        finally:
+            await fleet.stop()
+    asyncio.run(go())
+    if fleet.supervisor.counters["failures"]:
+        _fail(f"phase 17 (b): the supervisor counted {fleet.supervisor.counters}")
+    if idle and (win["idle"]["me_mc_launches"] or win["idle"]["service_calls"]
+                 or win["idle"]["captures"]):
+        _fail(f"phase 17 (b): the idle fleet worked: {win['idle']}")
+    ticks = rec.ticks()
+    _check_sent(fleet, ticks, f"(b) occupancy {occupancy}")
+    if rec.launches != sum(1 for t in ticks if not all(t[2])):
+        _fail(f"phase 17 (b): K1 launched {rec.launches} times in {len(ticks)} ticks")
+    t_rep = time.perf_counter()
+    replay = _replay_service(rec, frames, lambda: TorchMultiSessionH264Service(
+        n, w, h, qp=28, fps=LOOP_FPS, device=dev))
+    replay_s = time.perf_counter() - t_rep
+    _check_replay(rec, replay, f"(b) occupancy {occupancy}")
+    secs = win["t1"] - win["t0"]
+    delivered = sum(b - a for a, b in zip(win["n0"], win["n1"]))
+    lat = []
+    for k, s in enumerate(fleet.slots):
+        cap = fleet.sources[k].captured_at
+        lat += [(s.ws.sent_at[j] - cap[j]) * 1e3 for j in range(win["n0"][k], win["n1"][k])]
+    tick_ms = [ms for t, ms in ticks_at if win["t0"] <= t <= win["t1"]]
+    direct_p = [r[3] for r in replay if not all(r[2])]
+    direct_ms = statistics.median(direct_p)
+    fps = delivered / secs
+    out = {"occupancy": occupancy, "seconds": secs, "ticks": win["tick1"] - win["tick0"],
+           "delivered": delivered, "fps": fps,
+           "tick_ms_median": statistics.median(tick_ms), "tick_ms_p95": _pct(tick_ms, 95),
+           "capture_to_send_ms_median": statistics.median(lat),
+           "capture_to_send_ms_p95": _pct(lat, 95),
+           "failures": fleet.supervisor.counters["failures"],
+           "me_mc_launches": win["k1"] - win["k0"], "me_mc_launches_run": rec.launches,
+           "ticks_run": len(ticks), "profile": win["profile"],
+           "direct_p_tick_ms_median": direct_ms, "direct_p_ticks": len(direct_p),
+           "share_of_direct": fps / (n * 1e3 / direct_ms), "replay_s": replay_s}
+    if idle:
+        out["idle"] = win["idle"]
+    return out
+
+
+def _ladder_loop(dev, frames) -> dict:
+    """(d): the ladder at LOOP_LADDER under LOOP_LADDER_SPEC with the
+    supervisor's clock frozen; every service the fleet builds recorded."""
+    import asyncio
+
+    from selkies_tpu_torch.parallel import serving
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+    from selkies_tpu_torch.resilience import faultinject
+
+    n, w, h = LOOP_LADDER
+    sources = _sources(frames)
+    built = []
+
+    def record(make, kw):
+        t0 = time.perf_counter()
+        svc = make()
+        rec = _RecordingService(svc, kw, sources, (time.perf_counter() - t0) * 1e3)
+        built.append(rec)
+        return rec
+
+    real_sw = serving.SoftwareFleetService
+
+    def software(*a, **kw):
+        return record(lambda: real_sw(*a, **kw), dict(kw, args=a))
+    first = record(lambda: TorchMultiSessionH264Service(n, w, h, qp=28, fps=LOOP_FPS,
+                                                        device=dev), {})
+    fleet = _loop_fleet(n, w, h, dev, sources, service=first)
+    make_tpu = fleet._make_tpu_service
+    fleet._make_tpu_service = lambda: record(make_tpu, {})
+    sup = fleet.supervisor
+    sup.clock = lambda: 0.0
+    sup.last_ok = 0.0
+    sup.recover_after = LOOP_LADDER_RECOVER
+    events = []
+    for name in ("tick_ok", "failure"):
+        real = getattr(sup, name)
+
+        def wrapped(*a, _real=real, _name=name, **k):
+            r = _real(*a, **k)
+            events.append((_name, sup.rung.name, sup.degrade_level, fleet.fps,
+                           fleet.service.cls, len(built)))
+            return r
+        setattr(sup, name, wrapped)
+
+    async def go():
+        await fleet.start()
+        t0 = time.perf_counter()
+        try:
+            while len(events) < LOOP_LADDER_EVENTS:
+                if time.perf_counter() - t0 > 300:
+                    _fail(f"phase 17 (d): {len(events)} ladder events in 300 s")
+                await asyncio.sleep(0.005)
+            await _quiesce(fleet)
+        finally:
+            await fleet.stop()
+    faultinject.reset_faults()
+    faultinject.configure_faults(LOOP_LADDER_SPEC)
+    serving.SoftwareFleetService = software
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(go())
+    finally:
+        serving.SoftwareFleetService = real_sw
+        faultinject.reset_faults()
+    serve_s = time.perf_counter() - t0
+    events = events[:LOOP_LADDER_EVENTS]
+    classes = [r.cls for r in built]
+    want = ["TorchMultiSessionH264Service"] * 2 + ["SoftwareFleetService",
+                                                   "TorchMultiSessionH264Service"]
+    levels = [e[2] for e in events]
+    if classes != want or max(levels) != 3 or levels[-1] != 0 or events[-1][3] != LOOP_FPS \
+            or {e[3] for e in events} != {LOOP_FPS, LOOP_FPS // 2, LOOP_FPS // 4}:
+        _fail(f"phase 17 (d): built {classes}, events {events}")
+    stages = []
+    for i, rec in enumerate(built):
+        ticks = rec.ticks()
+        if rec.cls == "SoftwareFleetService":
+            a, kw = rec.kw["args"], {k: v for k, v in rec.kw.items() if k != "args"}
+            make = (lambda a=a, kw=kw: real_sw(*a, **kw))
+            encoders = sorted({type(e).__name__ for e in rec.svc.encoders})
+            p = sum(sum(not x for x in t[2]) for t in ticks)
+            # without libx264 the rung serves solo tpuh264enc rows: K1 once
+            # per P session a tick (the cycle has no static repeat)
+            if encoders == ["TorchH264Encoder"] and rec.launches != p:
+                _fail(f"phase 17 (d): the software rung launched K1 {rec.launches} times for "
+                      f"{p} P session-frames")
+        else:
+            make = (lambda: TorchMultiSessionH264Service(n, w, h, qp=28, fps=LOOP_FPS,
+                                                         device=dev))
+            encoders = None
+            if rec.launches != sum(1 for t in ticks if not all(t[2])):
+                _fail(f"phase 17 (d): service {i} launched K1 {rec.launches} times")
+        replay = _replay_service(rec, frames, make)
+        _check_replay(rec, replay, f"(d) service {i} ({rec.cls})")
+        stages.append({"service": rec.cls, "encoders": encoders, "ticks": len(ticks),
+                       "me_mc_launches": rec.launches, "build_ms": rec.build_ms,
+                       "first_au_ms": rec.first_au_ms,
+                       "first_tick_idr": all(ticks[0][2]) if ticks else None})
+    ticks = [t for rec in built for t in rec.ticks()]
+    _check_sent(fleet, sorted(ticks), "(d)")
+    rungs = [e[1] for e in events]
+    return {"events": events, "rungs": sorted(set(rungs), key=rungs.index), "stages": stages,
+            "counters": dict(sup.counters), "serve_s": serve_s,
+            "sent": [len(s.ws.frames) for s in fleet.slots]}
+
+
+def _fleet_loop_phase(dev=None) -> dict:
+    """Phase 17: (a) SessionFleet tick by tick at full width against a
+    direct service and the CPU, (b) the live loop, (c) the banded fleet and
+    a negotiation, (d) the ladder, (e) dryrun (``dev`` None: the card)."""
+    import os
+
+    import torch
+
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.parallel.fleet import dryrun
+    from selkies_tpu_torch.parallel.occupancy import OccupancyScheduler
+    from selkies_tpu_torch.parallel.serving import (
+        TorchBandedFleetService,
+        TorchMultiSessionH264Service,
+    )
+    from selkies_tpu_torch.resilience import faultinject, reset_device_pool
+    from selkies_tpu_torch.signalling import negotiate
+
+    out: dict = {}
+    _set_hooks(False)
+    faultinject.reset_faults()
+    reset_device_pool()
+    saved = {k: os.environ.get(k) for k in ("SELKIES_OCCUPANCY", "SELKIES_BANDS")}
+    os.environ.pop("SELKIES_BANDS", None)
+    os.environ.pop("SELKIES_OCCUPANCY", None)
+    try:
+        # (a) full width, tick by tick, against a direct service; the small
+        # geometry against the CPU
+        t0 = time.perf_counter()
+        n, w, h = LOOP_N, LOOP_W, LOOP_H
+        bases = _fleet_bases(n, w, h)
+        batches = [_fleet_batch(bases, t) for t in range(LOOP_TICKS)]
+        fleet = _loop_fleet(n, w, h, dev, _sources([[b[i] for b in batches] for i in range(n)]))
+        svc_cls, svc_dev = type(fleet.service).__name__, str(fleet.service.device)
+        me_mc.launches = 0
+        run = _loop_drive(fleet, LOOP_TICKS)
+        a_launches = me_mc.launches
+        fleet.service.close()
+        if fleet._occ is not None:
+            fleet._occ.close()
+        direct = TorchMultiSessionH264Service(n, w, h, qp=28, fps=LOOP_FPS, device=dev)
+        want = _direct_drive(direct, batches, run)
+        direct.close()
+        if [r[0] for r in run] != want:
+            _fail("phase 17 (a): the fleet's AUs differ from a direct service fed the same "
+                  "batches and QPs")
+        want_k1 = [0 if all(r[1]) else 1 for r in run]
+        if [r[3] for r in run] != want_k1 or svc_cls != "TorchMultiSessionH264Service":
+            _fail(f"phase 17 (a): {svc_cls} launched K1 {[r[3] for r in run]} per tick, "
+                  f"want {want_k1}")
+        sn, sw, sh = LOOP_SMALL
+        sbases = _fleet_bases(sn, sw, sh)
+        sbatches = [_fleet_batch(sbases, t) for t in range(LOOP_TICKS)]
+        small = {}
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            f = _loop_fleet(sn, sw, sh, d, _sources([[b[i] for b in sbatches] for i in range(sn)]))
+            small[name] = _loop_drive(f, LOOP_TICKS)
+            f.service.close()
+            if f._occ is not None:
+                f._occ.close()
+        if [r[:3] for r in small["card"]] != [r[:3] for r in small["cpu"]]:
+            _fail(f"phase 17 (a): {sn} x {sw}x{sh} on the card differs from the CPU fleet")
+        out["a"] = {"service": svc_cls, "device": svc_dev, "sha256": [r[0] for r in run],
+                    "idrs": [r[1] for r in run], "qps": [r[2] for r in run],
+                    "launches_per_tick": [r[3] for r in run], "me_mc_launches": a_launches,
+                    "small_sha256": [r[0] for r in small["card"]],
+                    "seconds": time.perf_counter() - t0}
+        print(f"phase 17 (a) SessionFleet({n} slots, {w}x{h}, {LOOP_FPS} fps, bands 1) -> "
+              f"{svc_cls} on {svc_dev}: {LOOP_TICKS} ticks (the IDR tick, a forced keyframe and "
+              f"a retune at tick 2) by _capture_batch + _encode_tick equal a direct service fed "
+              f"the same batches and the slots' QPs {out['a']['qps'][-1]}; K1 per tick "
+              f"{out['a']['launches_per_tick']}; {sn} x {sw}x{sh} equal the CPU fleet; "
+              f"{out['a']['seconds']:.1f} s")
+
+        # (b) the live loop, occupancy on / off in turns
+        t0 = time.perf_counter()
+        frames = _cycles(n, w, h)
+        runs = []
+        for p in range(LOOP_PAIRS):
+            for occ in ("1", "0"):
+                runs.append(_live_run(dev, frames, occ, idle=not runs))
+        del frames
+        card, limit = (s.strip() for s in _nvidia_smi().split(",", 1)) if dev is None \
+            else ("cpu", "none")
+        keys = ("fps", "tick_ms_median", "tick_ms_p95", "capture_to_send_ms_median",
+                "capture_to_send_ms_p95", "direct_p_tick_ms_median", "share_of_direct")
+        out["b"] = {"card": card, "power_limit": limit, "runs": runs,
+                    "by_occupancy": {occ: {k: [r[k] for r in runs if r["occupancy"] == occ]
+                                           for k in keys} for occ in ("1", "0")},
+                    "idle": runs[0]["idle"], "seconds": time.perf_counter() - t0}
+        print(f"phase 17 (b) the live loop, {n} x {w}x{h} at a {LOOP_FPS} fps tick, "
+              f"{LOOP_STEADY_S:.0f} s of steady state x {len(runs)} runs ({card}, {limit}); "
+              f"idle {LOOP_IDLE_S:.0f} s: {runs[0]['idle']}; every sent AU equals its direct "
+              f"replay; failures 0: " + json.dumps(out["b"]["by_occupancy"])
+              + " profile " + json.dumps([{k: r["profile"].get(k) for k in
+                                           ("device_ops", "device_idle_share", "wall_ms")}
+                                          for r in runs])
+              + f"; {out['b']['seconds']:.1f} s")
+
+        # (c) the banded fleet, then a negotiation
+        t0 = time.perf_counter()
+        os.environ["SELKIES_BANDS"] = "2"
+        os.environ["SELKIES_OCCUPANCY"] = "1"
+        bn, bw, bh = LOOP_BANDED
+        bbases = _fleet_bases(bn, bw, bh)
+        bbatches = [_fleet_batch(bbases, t) for t in range(LOOP_BANDED_TICKS + 2)]
+        fleet = _loop_fleet(bn, bw, bh, dev,
+                            _sources([[b[i] for b in bbatches] for i in range(bn)]))
+        bcls = type(fleet.service).__name__
+        me_mc.launches = 0
+        brun = _loop_drive(fleet, LOOP_BANDED_TICKS)
+        c_launches = me_mc.launches
+        row = fleet.placer.row(0)
+        neg = fleet.negotiate_session(0, ["av1", "h264"])
+        expect = negotiate.resolve(["av1", "h264"], session_chips=max(1, len(row)),
+                                   per_session_carve=True)
+        after = _loop_drive(fleet, 2, ops={})
+        codec = fleet.session_codec(0)
+        if fleet._occ is not None:
+            fleet._occ.close()
+        fleet.service.close()
+        os.environ.pop("SELKIES_OCCUPANCY", None)
+        direct = TorchBandedFleetService(bn, bw, bh, qp=28, fps=LOOP_FPS, bands=2,
+                                         devices=None if dev is None else [torch.device(dev)])
+        # scheduled, as phase 14 (a) holds equal to the serial tick: the
+        # serial 1080p IDR tick takes tens of seconds (PERF.md section 5)
+        sched = OccupancyScheduler.for_service(direct)
+        bwant = _direct_drive(direct, bbatches, brun + after, tick=sched.encode_tick)
+        sched.close()
+        direct.close()
+        if bcls != "TorchBandedFleetService" or [r[0] for r in brun] != bwant[:len(brun)]:
+            _fail(f"phase 17 (c): {bcls}'s AUs differ from a direct banded service's")
+        bk1 = [r[3] for r in brun]
+        want_bk1 = [2 * sum(1 for i in range(bn) if not r[1][i] and (i, t) not in FLEET_STATIC)
+                    for t, r in enumerate(brun)]
+        if bk1 != want_bk1:
+            _fail(f"phase 17 (c): K1 per tick {bk1}, want {want_bk1}")
+        if (neg.codec, neg.reason) != (expect.codec, expect.reason) or codec != neg.codec \
+                or not all(r[0][0] != hashlib.sha256(b"").hexdigest() for r in after):
+            _fail(f"phase 17 (c): negotiated {neg}, resolve gave {expect}, session codec "
+                  f"{codec}")
+        if codec == "h264" and [r[0] for r in after] != bwant[len(brun):]:
+            _fail("phase 17 (c): the AUs after the negotiation differ from the direct service's")
+        out["c"] = {"service": bcls, "sha256": [r[0] for r in brun],
+                    "launches_per_tick": bk1, "me_mc_launches": c_launches,
+                    "negotiated": {"codec": neg.codec, "reason": neg.reason, "cols": neg.cols,
+                                   "av1_available": negotiate.codec_available("av1")},
+                    "seconds": time.perf_counter() - t0}
+        print(f"phase 17 (c) SELKIES_BANDS=2, {bn} x {bw}x{bh}, occupancy on: {bcls}; "
+              f"{LOOP_BANDED_TICKS} ticks equal a direct banded service; K1 per tick {bk1} "
+              f"(2 per non-static banded P session); negotiate_session(0, ['av1', 'h264']) -> "
+              f"{neg.codec} ({neg.reason}; av1 available: "
+              f"{out['c']['negotiated']['av1_available']}) and session 0 keeps serving; "
+              f"{out['c']['seconds']:.1f} s")
+        os.environ.pop("SELKIES_BANDS", None)
+
+        # (d) the ladder at the small geometry
+        t0 = time.perf_counter()
+        ln, lw, lh = LOOP_LADDER
+        out["d"] = _ladder_loop(dev, _cycles(ln, lw, lh))
+        out["d"]["seconds"] = time.perf_counter() - t0
+        d = out["d"]
+        print(f"phase 17 (d) ladder {LOOP_LADDER_SPEC} at {ln} x {lw}x{lh}, recover_after "
+              f"{LOOP_LADDER_RECOVER}, clock frozen: rungs {d['rungs']}; fps "
+              f"{sorted({e[3] for e in d['events']}, reverse=True)}; services [class, encoders, "
+              f"ticks, K1, build ms, build-to-first-AU ms] "
+              + json.dumps([[s["service"], s["encoders"], s["ticks"], s["me_mc_launches"],
+                             round(s["build_ms"], 1), round(s["first_au_ms"] or 0.0, 1)]
+                            for s in d["stages"]])
+              + f"; every service's ticks equal its replay; {d['seconds']:.1f} s")
+
+        # (e) dryrun on the card
+        t0 = time.perf_counter()
+        me_mc.launches = 0
+        dryrun(8, devices=None if dev is None else [torch.device(dev)])
+        out["e"] = {"sessions": 8, "me_mc_launches": me_mc.launches,
+                    "seconds": time.perf_counter() - t0}
+        if dev is None and out["e"]["me_mc_launches"] != 1:
+            _fail(f"phase 17 (e): dryrun(8) launched K1 {out['e']['me_mc_launches']} times")
+        print(f"phase 17 (e) dryrun(8): 8 sessions of 64x64 on one card, K1 "
+              f"{out['e']['me_mc_launches']}; {out['e']['seconds']:.1f} s")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset_device_pool()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3688,7 +4319,12 @@ def main() -> int:
     record["app_path"] = _app_phase(timing)
     record["app_path"]["seconds"] = time.perf_counter() - t0
     print(f"phase 16: {record['app_path']['seconds']:.1f} s")
-    print(f"phases 1-9 and 12-16: {time.perf_counter() - t_start:.1f} s")
+    # -- 17. the fleet's serving core: SessionFleet's tick loop on the card
+    t0 = time.perf_counter()
+    record["fleet_loop_path"] = _fleet_loop_phase()
+    record["fleet_loop_path"]["seconds"] = time.perf_counter() - t0
+    print(f"phase 17: {record['fleet_loop_path']['seconds']:.1f} s")
+    print(f"phases 1-9 and 12-17: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
@@ -3944,6 +4580,15 @@ def main() -> int:
             "policy_slo": record["app_path"]["c"]["me_mc_launches"]},
         "launches_per_p_frame_app_path": record["app_path"]["a"]["me_mc_launches"]
         / record["app_path"]["a"]["p_frames"],
+        "launches_fleet_loop_path": {
+            "ticks_8x1088": record["fleet_loop_path"]["a"]["me_mc_launches"],
+            "live_runs": [r["me_mc_launches_run"] for r in record["fleet_loop_path"]["b"]["runs"]],
+            "banded_4x1080": record["fleet_loop_path"]["c"]["me_mc_launches"],
+            "ladder": [s["me_mc_launches"] for s in record["fleet_loop_path"]["d"]["stages"]],
+            "dryrun_8": record["fleet_loop_path"]["e"]["me_mc_launches"]},
+        "launches_per_tick_fleet_loop_path": {
+            "batch_8x1088": record["fleet_loop_path"]["a"]["launches_per_tick"],
+            "banded_4x1080_bands2": record["fleet_loop_path"]["c"]["launches_per_tick"]},
         "card": card, "power_limit": power_limit,
     }, {
         "name": "me_mc (8 sessions, one launch)", "route": "cuda",

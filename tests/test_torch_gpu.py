@@ -1467,3 +1467,99 @@ def test_app_restarts_return_device_memory():
     for resident, peak in runs:
         assert abs(resident - one) <= slack, (one, runs)
         assert peak <= one_peak + slack, (one_peak, runs)
+
+
+# -- the fleet's serving core (selkies_tpu_torch/parallel/fleet.py) ---------------
+
+def _card_fleet(n, devices=None):
+    """SessionFleet over n slots with recording WebSocket planes at 320x192
+    (``devices=None``: the card through the pool)."""
+    from selkies_tpu_torch.parallel.fleet import SessionFleet, SessionSlot
+
+    slots = [SessionSlot(k, bitrate_kbps=2000, fps=30, ws=FakeTransport()) for k in range(n)]
+    return SessionFleet(slots, width=W, height=H, fps=30, devices=devices)
+
+
+def _drive_card_fleet(fleet, ticks):
+    """-> per tick (AU sha256s, K1 launches inside _encode_tick)."""
+    out = []
+    for t in range(ticks):
+        if t == 2:
+            fleet.force_keyframe(1)
+        fleet._capture_batch()
+        k0 = me_mc.launches
+        aus, idrs, _, _ = fleet._encode_tick()
+        out.append(([hashlib.sha256(au).hexdigest() for au in aus], me_mc.launches - k0))
+        for slot, au, idr in zip(fleet.slots, aus, idrs):
+            slot.rc.update(len(au), idr=idr)
+    return out
+
+
+@pytest.mark.gpu
+def test_fleet_devices_none_runs_on_the_card():
+    """SessionFleet(devices=None) builds its batch service on the card
+    (through the device pool), launches K1 once per tick with a P session,
+    and gives the AUs of the same fleet on the CPU."""
+    _need_card()
+    from selkies_tpu_torch.resilience import reset_device_pool
+
+    reset_device_pool()
+    fleet = _card_fleet(3)
+    try:
+        assert fleet.service.device.type == "cuda"
+        got = _drive_card_fleet(fleet, 5)
+    finally:
+        fleet.service.close()
+        reset_device_pool()
+    cpu = _card_fleet(3, devices=[torch.device("cpu")])
+    try:
+        want = _drive_card_fleet(cpu, 5)
+    finally:
+        cpu.service.close()
+    assert [g[0] for g in got] == [w[0] for w in want]
+    assert [g[1] for g in got] == [0, 1, 1, 1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("occupancy", ["1", "0"], ids=["scheduled", "serial"])
+def test_fleet_encode_tick_never_syncs(monkeypatch, occupancy):
+    """The fleet's _encode_tick on the card, the scheduler's lanes and
+    workers or the serial tick, makes no synchronising CUDA call on any
+    thread: each wait is on the tick's own events."""
+    _need_card()
+    import threading
+    import traceback
+    import warnings
+
+    monkeypatch.setenv("SELKIES_OCCUPANCY", occupancy)
+    fleet = _card_fleet(3, devices=[torch.device("cuda")])
+    for _ in range(2):  # warm-up: tables reach the card, the kernel builds
+        fleet._capture_batch()
+        fleet._encode_tick()
+    seen = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        seen.append((threading.current_thread().name, str(message),
+                     "".join(traceback.format_stack(limit=8)[:-1])))
+
+    aus = []
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for t in range(4):
+                    if t == 1:
+                        fleet.force_keyframe(2)  # an IDR among P sessions
+                    fleet._capture_batch()
+                    aus.append(fleet._encode_tick()[0])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        if fleet._occ is not None:
+            fleet._occ.close()
+        fleet.service.close()
+    syncs = [(name, st) for name, m, st in seen if "called a synchronizing CUDA operation" in m]
+    assert not syncs, f"{len(syncs)} syncs; first in {syncs[0][0]} at:\n{syncs[0][1]}"
+    assert len(aus) == 4 and all(au.startswith(b"\x00\x00\x00\x01") for a in aus for au in a)
