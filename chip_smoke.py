@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-17 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-18 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -208,7 +208,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    equals the CPU's, K1 launches once per tick with a P session (read
    around _encode_tick); (b) the live loop (start / _run / stop) over 8
    slots of 1920x1088 at a 60 fps tick, sources cycling through 12
-   frames of phase 9's desktops, 5 s of steady state in 3 pairs of runs,
+   frames of phase 9's desktops, 5 s of steady state in 2 pairs of runs,
    occupancy on then SELKIES_OCCUPANCY=0: delivered fps across sessions,
    on_tick's tick ms and capture->send ms (median, p95; stamps on the
    source and the plane), the supervisor's failures (0), device ops and
@@ -228,6 +228,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    reversal, each service the fleet builds recorded (its build ms, the ms
    to its first AU, its K1 launches) and equal to its replay; (e)
    dryrun(8) on the card;
+18. (run after phase 17, before the timing) the solo server: (a)
+   ``Orchestrator(cfg, device="cuda")`` (selkies_tpu_torch/orchestrator.py)
+   on the tpuh264enc row at 1920x1080 over the synthetic source (no
+   display), 60 fps, 8000 kbps, port 0, telemetry and the metrics
+   exporter on; an aiohttp client on /media reads 5 s of video: the first
+   frame is a keyframe with its SPS; every encoder call is recorded, and a
+   direct card row fed the log gives every AU (sha256), the received ones
+   its head; K1 launched once per non-static P frame the row coded, and on
+   one of the session's P frames its output equals its plain version on
+   the same inputs; keyboard and mouse messages reach the FakeBackend the
+   server opened; ``vb,6000`` retunes the rate controller and lands in
+   the JSON overlay; /healthz answers 200, /statz JSON, the exporter the
+   selkies_ families and the parity gauges; delivered fps and
+   capture->send ms (median, p95; stamps on the source and the mux) over
+   a steady window, dropped ticks and captures, and the device's idle
+   share over 10 ticks (torch.profiler); (b) ``python3 -m
+   selkies_tpu_torch --addr 127.0.0.1 --port <free> --capture_width 1920
+   --capture_height 1080 --json_config <tmp>`` as a subprocess (its log in
+   chiprun_out/phase18_server.log): /healthz, 30 frames over /media (the
+   first a keyframe), the seconds from the process start to the first AU;
+   then SIGTERM: /healthz 503 "draining" while it drains, an IDR reaches
+   the client, and the process exits 0 within 120 s;
 10. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
@@ -279,8 +301,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    service, 6 more ticks);
 11. print the ``{"kernels": [...]}`` line (K1 at the solo shape and as the
     8-session launch, with its launches on every path, the fleet's, the
-    library rows' degrade, the software fleet's, the serving app's and the
-    fleet loop's included), then the ``{"ok": true, ...}`` line.
+    library rows' degrade, the software fleet's, the serving app's, the
+    fleet loop's and the solo server's included), then the
+    ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -2883,10 +2906,10 @@ def _make_app(dev, framerate: int = 60, source=None):
         encoder="tpuh264enc", framerate=framerate, video_bitrate_kbps=APP_KBPS, device=dev)
 
 
-def _recording_app(dev, mem: list | None = None):
-    """_make_app with every encoder the app builds recorded -> (app,
-    recorders, restore), ``restore`` undoing the recording. With ``mem``,
-    the card's memory is appended there before each build."""
+def _record_builds(mem: list | None = None):
+    """Record every encoder the serving app builds -> (recorders, restore),
+    ``restore`` undoing the recording. With ``mem``, the card's memory is
+    appended there before each build."""
     from selkies_tpu_torch.pipeline import app as app_mod
 
     built, real = [], app_mod.create_encoder
@@ -2900,12 +2923,19 @@ def _recording_app(dev, mem: list | None = None):
         built.append(rec)
         return rec
     app_mod.create_encoder = create
+    return built, lambda: setattr(app_mod, "create_encoder", real)
+
+
+def _recording_app(dev, mem: list | None = None):
+    """_make_app with every encoder the app builds recorded -> (app,
+    recorders, restore)."""
+    built, restore = _record_builds(mem)
     try:
         app = _make_app(dev)
     except BaseException:
-        app_mod.create_encoder = real
+        restore()
         raise
-    return app, built, lambda: setattr(app_mod, "create_encoder", real)
+    return app, built, restore
 
 
 def _serve_app(app, until, timeout_s: float = 180.0, during=None):
@@ -3259,7 +3289,7 @@ LOOP_TICKS = 4
 LOOP_OPS = {2: [("key", 3), ("kbps", 0, 4000)]}
 LOOP_CYCLE = 12  # frames per session the live loop's sources cycle through
 LOOP_STEADY_S = 5.0
-LOOP_PAIRS = 3
+LOOP_PAIRS = 2  # the script's time budget (ROADMAP) has no room for a third pair
 LOOP_IDLE_S = 1.0
 LOOP_PROFILE_TICKS = 5
 LOOP_BANDED = (4, 1920, 1080)
@@ -3848,8 +3878,379 @@ def _fleet_loop_phase(dev=None) -> dict:
     return out
 
 
-def main() -> int:
+# -- phase 18: the solo server ------------------------------------------------------
+
+SERVER_FPS = 60
+SERVER_KBPS = 8000
+SERVER_RETUNE_KBPS = 6000
+SERVER_S = 5.0  # seconds of video the in-process client reads after the first frame
+SERVER_PROFILE_TICKS = 10
+ENTRY_FRAMES = 30
+ENTRY_START_S = 300.0  # process start to /healthz 200
+# SIGTERM to exit: the drain, then aiohttp's shutdown timeout, which the
+# open WebSocket handlers hold (the reference's behaviour)
+ENTRY_EXIT_S = 120.0
+SERVER_CMD = [sys.executable, "-m", "selkies_tpu_torch"]
+SERVER_EXPORTER_FAMILIES = ("fps", "fps_hist", "gpu_utilization", "latency")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _ServerClient:
+    """A browser on /media: reads until closed, keeps each video frame with
+    the host clock at its arrival, each control message, answers pings."""
+
+    def __init__(self, ws):
+        self.ws, self.video, self.texts, self.closed = ws, [], [], False
+
+    async def read(self):
+        import aiohttp
+
+        from selkies_tpu_torch.transport.websocket import KIND_VIDEO, parse_media_frame
+
+        async for msg in self.ws:
+            if msg.type == aiohttp.WSMsgType.BINARY:
+                kind, flags, ts, payload = parse_media_frame(msg.data)
+                if kind == KIND_VIDEO:
+                    self.video.append((time.perf_counter(), flags, ts, payload))
+            elif msg.type == aiohttp.WSMsgType.TEXT:
+                obj = json.loads(msg.data)
+                self.texts.append(obj)
+                if obj["type"] == "ping":
+                    await self.ws.send_str(f"pong,{obj['data']['start_time']}")
+        self.closed = True
+
+
+async def _wait_for(cond, timeout_s: float, what: str):
+    import asyncio
+
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout_s:
+            _fail(f"phase 18: {what} within {timeout_s} s")
+        await asyncio.sleep(0.01)
+
+
+def _server_in_process(dev) -> dict:
+    """(a): Orchestrator(cfg, device) on the tpuh264enc row at W x H, 60 fps,
+    SERVER_KBPS, telemetry and the exporter on; one client over /media."""
+    import asyncio
+    import os
+    import tempfile
+
+    import aiohttp
     import torch
+
+    from selkies_tpu_torch.config import FLAGS, Config
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.monitoring.telemetry import telemetry
+    from selkies_tpu_torch.orchestrator import Orchestrator
+    from selkies_tpu_torch.transport.websocket import FLAG_KEYFRAME
+
+    tmp = Path(tempfile.mkdtemp(prefix="selkies-phase18-"))
+    mport = _free_port()
+    values = {fl.name: fl.default for fl in FLAGS}
+    values.update(addr="127.0.0.1", port=0, capture_width=W, capture_height=H,
+                  framerate=SERVER_FPS, video_bitrate=SERVER_KBPS, encoder="tpuh264enc",
+                  enable_metrics_http=True, metrics_http_port=mport,
+                  json_config=str(tmp / "selkies_config.json"),
+                  rtc_config_json=str(tmp / "rtc.json"), enable_cursors=False)
+    saved_display = os.environ.pop("DISPLAY", None)  # the synthetic source
+    telemetry.enable()
+    built, restore = _record_builds()
+    real_me_mc, grab, sends = me_mc.me_mc, {}, []
+
+    def grabbing(*args):
+        # one of the session's P frames: its inputs and the kernel's outputs
+        out = real_me_mc(*args)
+        if grab.get("armed") and "args" not in grab:
+            grab["args"] = [a.clone() for a in args]
+            grab["out"] = [o.clone() for o in out]
+        return out
+    out: dict = {}
+    try:
+        orch = Orchestrator(Config(values=values), device=dev)
+        if len(built) != 1 or built[0].name != "tpuh264enc":
+            _fail(f"phase 18 (a): the server built {[r.name for r in built]}")
+        src = orch.app.source = _StampedSource(orch.app.source)
+        mux_send = orch.transport.send_video
+
+        async def send_video(ef):
+            sends.append((ef.timestamp_90k, time.perf_counter()))
+            return await mux_send(ef)
+        orch.transport.send_video = send_video
+        me_mc.me_mc = grabbing
+
+        async def go():
+            task = asyncio.ensure_future(orch.run())
+            await _wait_for(lambda: orch.server._runner is not None
+                            and orch.server._runner.addresses, 60, "the server listening")
+            base = f"http://127.0.0.1:{orch.server.bound_port}"
+            async with aiohttp.ClientSession() as http:
+                r = await http.get(base + "/healthz")
+                out["healthz_before"] = r.status
+                ws = await http.ws_connect(base + "/media")
+                c = _ServerClient(ws)
+                reader = asyncio.ensure_future(c.read())
+                await _wait_for(lambda: c.video, 120, "a first video frame")
+                t_first = c.video[0][0]
+                await _wait_for(lambda: time.perf_counter() - t_first > 1.0, 5, "")
+                grab["armed"] = True
+                for msg in ("kd,65", "ku,65", "m,10,20,1,0", "m,10,20,0,0",
+                            f"vb,{SERVER_RETUNE_KBPS}"):
+                    await ws.send_str(msg)
+                await _wait_for(lambda: any(
+                    t["type"] == "system"
+                    and t["data"]["action"] == f"video_bitrate,{SERVER_RETUNE_KBPS}"
+                    for t in c.texts), 10, "the bitrate retune's system message")
+                pipe = orch.app.pipeline
+                # the steady window: from 2 s after the first frame to SERVER_S
+                await _wait_for(lambda: time.perf_counter() - t_first > 2.0, 5, "")
+                n0, t0 = len(c.video), time.perf_counter()
+                d0 = (pipe.dropped_ticks, pipe.dropped_frames, pipe.frames)
+                await _wait_for(lambda: time.perf_counter() - t_first > SERVER_S, 30, "")
+                n1, t1 = len(c.video), time.perf_counter()
+                d1 = (pipe.dropped_ticks, pipe.dropped_frames, pipe.frames)
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                with torch.profiler.profile(activities=acts) as prof:
+                    tp = time.perf_counter()
+                    await asyncio.sleep(SERVER_PROFILE_TICKS / SERVER_FPS)
+                    wall_ms = (time.perf_counter() - tp) * 1e3
+                out["profile"] = dict(_device_activity(prof, wall_ms), ticks=SERVER_PROFILE_TICKS)
+                out["window"] = {"frames": n1 - n0, "seconds": t1 - t0,
+                                 "fps": (n1 - n0) / (t1 - t0),
+                                 "dropped_ticks": d1[0] - d0[0], "dropped_captures": d1[1] - d0[1],
+                                 "encoded": d1[2] - d0[2], "t": (t0, t1)}
+                r = await http.get(base + "/healthz")
+                out["healthz"] = (r.status, json.loads(await r.text())["status"])
+                r = await http.get(base + "/statz")
+                statz = json.loads(await r.text())
+                out["statz"] = (r.status, sorted(statz), sorted(statz.get("histograms", {})))
+                r = await http.get(f"http://127.0.0.1:{mport}/metrics")
+                text = await r.text()
+                names = {line.split("{")[0].split(" ")[0] for line in text.splitlines()
+                         if line and not line.startswith("#")}
+                out["exporter"] = (r.status, sorted(n for n in names if n.startswith("selkies_")),
+                                   [f for f in SERVER_EXPORTER_FAMILIES
+                                    if f in names or f + "_bucket" in names])
+                await ws.close()
+                await asyncio.wait_for(reader, 30)
+            await _wait_for(lambda: orch.app.pipeline is None or not orch.app.pipeline.running,
+                            30, "the session's stop")
+            for t in orch._tasks:  # the in-process signalling client's /ws
+                if t.get_coro().__name__ == "_signalling_loop":
+                    t.cancel()
+            await orch.server.stop()
+            await asyncio.wait_for(task, 60)
+            return c
+        c = asyncio.run(go())
+    finally:
+        me_mc.me_mc = real_me_mc
+        restore()
+        telemetry.disable()
+        telemetry.reset()
+        if saved_display is not None:
+            os.environ["DISPLAY"] = saved_display
+    rec = built[0]
+    rec.flush()
+    launches = rec.launches  # read before the comparison launch below
+    outs = rec.outputs()
+    sent = [payload for _, _, _, payload in c.video]
+    if [au for au, _, _ in outs][:len(sent)] != sent:
+        _fail("phase 18 (a): the received AUs are not the head of what the encoder returned")
+    first = c.video[0]
+    if not first[1] & FLAG_KEYFRAME or not first[3].startswith(b"\x00\x00\x00\x01\x67") \
+            or _sps_size(first[3]) != (W, H):
+        _fail(f"phase 18 (a): the first frame is not a keyframe with a {W}x{H} SPS")
+    p = _p_count(outs)
+    p_sent = _p_count(outs[:len(sent)])
+    if launches != p or p == 0:
+        _fail(f"phase 18 (a): K1 launched {launches} times for {p} non-static P frames")
+    t0 = time.perf_counter()
+    if _replay(rec, device=rec.kw["device"]) != _shas(rec):
+        _fail("phase 18 (a): the server's AUs differ from a direct card row's replay")
+    replay_s = time.perf_counter() - t0
+    if "args" not in grab:
+        _fail("phase 18 (a): no K1 launch after the warm-up to hold against its plain version")
+    plain = me_mc.me_mc_plain(*grab["args"])
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(grab["out"], plain))
+    if err:
+        _fail(f"phase 18 (a): K1 differs from its plain version on a session P frame by {err}")
+    events = orch.input.backend.events
+    if type(orch.input.backend).__name__ != "FakeBackend" or not {
+            ("key", 65, True), ("key", 65, False), ("pos", 10, 20), ("button", 1, True),
+            ("button", 1, False)} <= set(events):
+        _fail(f"phase 18 (a): the input backend got {events}")
+    overlay = json.loads((tmp / "selkies_config.json").read_text())
+    if orch.app.video_bitrate_kbps != SERVER_RETUNE_KBPS or \
+            orch.app.rc.bitrate_kbps != SERVER_RETUNE_KBPS or \
+            overlay.get("video_bitrate") != SERVER_RETUNE_KBPS:
+        _fail(f"phase 18 (a): the bitrate retune did not land (app "
+              f"{orch.app.video_bitrate_kbps}, rc {orch.app.rc.bitrate_kbps}, overlay {overlay})")
+    if out["healthz_before"] != 200 or out["healthz"] != (200, "ok") or out["statz"][0] != 200 \
+            or "histograms" not in out["statz"][1]:
+        _fail(f"phase 18 (a): /healthz {out['healthz']}, /statz {out['statz']}")
+    ex_status, ex_selkies, ex_parity = out["exporter"]
+    if ex_status != 200 or not ex_selkies or list(ex_parity) != list(SERVER_EXPORTER_FAMILIES):
+        _fail(f"phase 18 (a): the exporter served {out['exporter']}")
+    types = {t["type"] for t in c.texts}
+    want_types = {"codec", "system", "ping", "system_stats", "latency_measurement"}
+    if dev != "cpu":
+        want_types.add("gpu_stats")  # the device monitor, on the card only
+    if not want_types <= types:
+        _fail(f"phase 18 (a): control messages {sorted(types)}, want {sorted(want_types)}")
+    # capture -> send on the host clock: the i-th submit is the i-th capture
+    submits = [a[2] for attr, a, _, _ in rec.log if attr == "submit"]
+    if len(submits) > len(src.captured_at):
+        _fail("phase 18 (a): more submits than captures")
+    cap_at = dict(zip(submits, src.captured_at))
+    w0, w1 = out["window"].pop("t")
+    lat = sorted((t - cap_at[ts]) * 1e3 for ts, t in sends if w0 <= t <= w1 and ts in cap_at)
+    n = len(lat)
+    out["window"].update(capture_to_send_ms_median=statistics.median(lat),
+                         capture_to_send_ms_p95=lat[-(-95 * n // 100) - 1])
+    out.update(sent=len(sent), returned=len(outs), p_frames=p, p_frames_sent=p_sent,
+               me_mc_launches=launches, prewarm_launches=rec.prewarm_launches,
+               me_mc_plain_max_abs_err=err, me_mc_checked_shape=list(grab["args"][1].shape),
+               card_replay_s=replay_s, overlay=overlay, input_events=len(events), control_types=sorted(types),
+               idrs=sum(1 for _, st, _ in outs if st.idr),
+               bytes=sum(len(au) for au in sent))
+    rec.log.clear()
+    return out
+
+
+def _server_entry_point() -> dict:
+    """(b): ``python3 -m selkies_tpu_torch`` as a user starts it: /healthz,
+    ENTRY_FRAMES frames over /media, then SIGTERM through the drain."""
+    import asyncio
+    import os
+    import signal
+    import tempfile
+
+    import aiohttp
+
+    from selkies_tpu_torch.transport.websocket import FLAG_KEYFRAME
+
+    tmp = Path(tempfile.mkdtemp(prefix="selkies-phase18-"))
+    port = _free_port()
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    log_path = out_dir / "phase18_server.log"
+    env = {k: v for k, v in os.environ.items() if k != "DISPLAY"}
+    cmd = SERVER_CMD + ["--addr", "127.0.0.1", "--port", str(port), "--capture_width", str(W),
+                        "--capture_height", str(H), "--json_config", str(tmp / "c.json")]
+    out: dict = {"cmd": " ".join(cmd[1:])}
+    with open(log_path, "w") as log:
+        t_start = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                                cwd=Path(__file__).resolve().parent)
+        try:
+            async def go():
+                base = f"http://127.0.0.1:{port}"
+                async with aiohttp.ClientSession() as http:
+                    while True:
+                        if proc.poll() is not None:
+                            _fail(f"phase 18 (b): the server exited {proc.returncode} before "
+                                  f"/healthz answered (log: {log_path})")
+                        if time.perf_counter() - t_start > ENTRY_START_S:
+                            _fail(f"phase 18 (b): no /healthz within {ENTRY_START_S} s")
+                        try:
+                            r = await http.get(base + "/healthz")
+                            if r.status == 200:
+                                break
+                        except aiohttp.ClientError:
+                            pass
+                        await asyncio.sleep(0.1)
+                    out["healthz_s"] = time.perf_counter() - t_start
+                    ws = await http.ws_connect(base + "/media")
+                    c = _ServerClient(ws)
+                    reader = asyncio.ensure_future(c.read())
+                    await _wait_for(lambda: len(c.video) >= ENTRY_FRAMES, 300,
+                                    f"{ENTRY_FRAMES} video frames from the entry point")
+                    out["first_au_s"] = c.video[0][0] - t_start
+                    n0 = len(c.video)
+                    t_term = time.perf_counter()
+                    proc.send_signal(signal.SIGTERM)
+                    health = []
+                    while proc.poll() is None and time.perf_counter() - t_term < ENTRY_EXIT_S:
+                        try:
+                            r = await http.get(base + "/healthz")
+                            health.append((r.status, json.loads(await r.text())["status"]))
+                        except (aiohttp.ClientError, ValueError):
+                            health.append(None)
+                        await asyncio.sleep(0.05)
+                        if c.closed and health[-1] is None:
+                            break
+                    await asyncio.wait_for(reader, ENTRY_EXIT_S)
+                    return c, n0, t_term, health
+            c, n0, t_term, health = asyncio.run(go())
+            try:
+                rc = proc.wait(timeout=ENTRY_EXIT_S)
+            except subprocess.TimeoutExpired:
+                _fail(f"phase 18 (b): no exit within {ENTRY_EXIT_S} s of SIGTERM "
+                      f"(log: {log_path})")
+            out["sigterm_to_exit_s"] = time.perf_counter() - t_term
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    first = c.video[0]
+    if not first[1] & FLAG_KEYFRAME or _sps_size(first[3]) != (W, H):
+        _fail("phase 18 (b): the entry point's first frame is not a keyframe with its SPS")
+    statuses = [h for h in health if h is not None]
+    draining = [h for h in statuses if h == (503, "draining")]
+    idr_after = sum(1 for _, flags, _, _ in c.video[n0:] if flags & FLAG_KEYFRAME)
+    if rc != 0 or not draining or not idr_after:
+        tail = log_path.read_text()[-3000:]
+        _fail(f"phase 18 (b): exit {rc}, /healthz after SIGTERM {sorted(set(statuses))}, "
+              f"{idr_after} IDRs after it; log tail:\n{tail}")
+    out.update(rc=rc, frames=len(c.video), frames_after_sigterm=len(c.video) - n0,
+               idrs_after_sigterm=idr_after, healthz_after_sigterm=sorted(set(statuses)),
+               draining_polls=len(draining), log=str(log_path.relative_to(out_dir.parent)))
+    return out
+
+
+def _server_phase(dev=None) -> dict:
+    """Phase 18: (a) the solo server in process, (b) the entry point
+    (``dev`` None: the card)."""
+    out = {"a": _server_in_process("cuda" if dev is None else dev)}
+    a = out["a"]
+    card, limit = (s.strip() for s in _nvidia_smi().split(",", 1))
+    out["card"], out["power_limit"] = card, limit
+    print(f"phase 18 (a) Orchestrator(device={dev or 'cuda'}) tpuh264enc {W}x{H} {SERVER_FPS} fps "
+          f"{SERVER_KBPS} kbps, one /media client: {a['sent']} frames received, "
+          f"{a['returned']} returned after the stop's flush; first a keyframe with its SPS; "
+          f"AUs equal a direct card row's replay ({a['card_replay_s']:.1f} s); K1 "
+          f"{a['me_mc_launches']} launches = {a['p_frames']} non-static P frames "
+          f"({a['p_frames_sent']} of them sent), max |K1 - plain| {a['me_mc_plain_max_abs_err']} "
+          f"on a session P frame; input reached the FakeBackend; vb,{SERVER_RETUNE_KBPS} "
+          f"retuned the row and the overlay; /healthz {a['healthz']}, /statz 200, exporter "
+          f"{len(a['exporter'][1])} selkies_ families + {a['exporter'][2]}; "
+          f"({card}, {limit}) " + json.dumps({"window": a["window"], "profile": a["profile"]}))
+    out["b"] = _server_entry_point()
+    b = out["b"]
+    print(f"phase 18 (b) python3 -m selkies_tpu_torch {W}x{H}: /healthz after "
+          f"{b['healthz_s']:.2f} s, first AU {b['first_au_s']:.2f} s after the process start; "
+          f"{b['frames']} frames; SIGTERM -> /healthz {b['healthz_after_sigterm']}, "
+          f"{b['idrs_after_sigterm']} IDR(s) after it, exit {b['rc']} in "
+          f"{b['sigterm_to_exit_s']:.2f} s (limit {ENTRY_EXIT_S:.0f} s) ({card}, {limit})")
+    return out
+
+
+def main() -> int:
+    import faulthandler
+
+    import torch
+
+    faulthandler.enable()  # a crash in native code prints every thread's stack
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4324,7 +4725,12 @@ def main() -> int:
     record["fleet_loop_path"] = _fleet_loop_phase()
     record["fleet_loop_path"]["seconds"] = time.perf_counter() - t0
     print(f"phase 17: {record['fleet_loop_path']['seconds']:.1f} s")
-    print(f"phases 1-9 and 12-17: {time.perf_counter() - t_start:.1f} s")
+    # -- 18. the solo server: Orchestrator in process, then python -m selkies_tpu_torch
+    t0 = time.perf_counter()
+    record["server_path"] = _server_phase()
+    record["server_path"]["seconds"] = time.perf_counter() - t0
+    print(f"phase 18: {record['server_path']['seconds']:.1f} s")
+    print(f"phases 1-9 and 12-18: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
@@ -4589,6 +4995,10 @@ def main() -> int:
         "launches_per_tick_fleet_loop_path": {
             "batch_8x1088": record["fleet_loop_path"]["a"]["launches_per_tick"],
             "banded_4x1080_bands2": record["fleet_loop_path"]["c"]["launches_per_tick"]},
+        "launches_server_path": record["server_path"]["a"]["me_mc_launches"],
+        "launches_per_p_frame_server_path": record["server_path"]["a"]["me_mc_launches"]
+        / record["server_path"]["a"]["p_frames"],
+        "p_frames_sent_server_path": record["server_path"]["a"]["p_frames_sent"],
         "card": card, "power_limit": power_limit,
     }, {
         "name": "me_mc (8 sessions, one launch)", "route": "cuda",

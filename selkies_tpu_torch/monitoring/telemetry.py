@@ -4,11 +4,12 @@ The port's copy of ``selkies_tpu/monitoring/telemetry.py``: the same
 family specs, ``Telemetry`` with ``count`` / ``gauge`` / ``observe`` /
 ``stage_ms`` / ``event`` / ``frame_done``, the providers, ``rollup``,
 ``statz_json`` and ``health``, and the same ``SELKIES_TELEMETRY`` switch.
-Three parts wait for the modules they read (ROADMAP): the capacity digest
-(the cluster's ``build_digest``), the probe of the codec rows a host can
-serve (signalling's negotiation), and the Prometheus collector
-(``register_into`` / ``registry``: no ``prometheus_client`` is required by
-the port). ``health()`` therefore carries no ``capacity`` block.
+The Prometheus collector (``register_into`` / ``registry``, which
+``metrics.py`` calls; ``prometheus_client`` is imported only when they
+run) and ``_supported_codecs`` (the codec rows the port's negotiation
+probes) are copied too. One part waits for the module it reads (ROADMAP queue 1, item
+3.4): the capacity digest (the cluster's ``build_digest``), so
+``health()`` carries no ``capacity`` block.
 
 Where monitoring/tracing.py answers "how long did each stage take?"
 (anonymous spans on a timeline), this bus answers "what happened to
@@ -406,6 +407,7 @@ class Telemetry:
         self._seq_map: dict[tuple[str, int], int] = {}  # (session, seq) -> fid
         self._frame_ids = itertools.count(1)
         self._epoch = time.time()
+        self._registry = None
         self.recorder = None
         if self.enabled:
             self._ensure_recorder()
@@ -805,6 +807,23 @@ class Telemetry:
     def statz_json(self) -> str:
         return json.dumps(self.rollup(), indent=2)
 
+    # -- prometheus fold -----------------------------------------------
+
+    def register_into(self, registry) -> None:
+        """Fold this bus into an existing prometheus CollectorRegistry
+        (Metrics does this so one scrape port serves both)."""
+        registry.register(_TelemetryCollector(self))
+
+    @property
+    def registry(self):
+        """A standalone registry exporting only this bus."""
+        if self._registry is None:
+            from prometheus_client import CollectorRegistry
+
+            self._registry = CollectorRegistry()
+            self.register_into(self._registry)
+        return self._registry
+
     # -- black box -----------------------------------------------------
 
     def escalation(self, session: str, reason: str):
@@ -863,6 +882,96 @@ class Telemetry:
             with self._lock:
                 self._counters[key] = self._counters.get(key, 0) + 1
         return path
+
+
+# the process-global bus every emission site uses
+telemetry = Telemetry()
+
+
+class _TelemetryCollector:
+    """prometheus_client custom collector: converts the bus state (and
+    the link-bytes provider) into metric families at scrape time — no
+    per-event prometheus objects on the hot path."""
+
+    def __init__(self, t: Telemetry):
+        self._t = t
+
+    def collect(self):
+        from prometheus_client.core import (
+            CounterMetricFamily,
+            GaugeMetricFamily,
+            HistogramMetricFamily,
+        )
+
+        t = self._t
+        if not t.enabled:
+            return  # off means off: no families, not even provider reads
+        with t._lock:
+            counters = dict(t._counters)
+            gauges = dict(t._gauges)
+            hists = {k: (list(v[0]), v[1]) for k, v in t._hists.items()}
+        # live link bytes: the provider snapshot IS the counter value
+        # ("up_delta" -> direction=up, stage=delta)
+        link = t._provider_values().get("link_bytes", {})
+        for stage_key, nbytes in link.items():
+            direction, _, stage = str(stage_key).partition("_")
+            key = ("selkies_link_bytes_total", (direction, stage or "?"))
+            counters[key] = counters.get(key, 0) + nbytes
+
+        def group(d: dict) -> dict:
+            by_fam: dict[str, list] = {}
+            for (family, vals), v in sorted(d.items()):
+                by_fam.setdefault(family, []).append((vals, v))
+            return by_fam
+
+        for family, rows in group(counters).items():
+            f = CounterMetricFamily(
+                family, METRIC_FAMILIES.get(family, family),
+                labels=_FAMILY_LABELS.get(family, ()))
+            for vals, v in rows:
+                f.add_metric(list(vals), v)
+            yield f
+        for family, rows in group(gauges).items():
+            f = GaugeMetricFamily(
+                family, METRIC_FAMILIES.get(family, family),
+                labels=_FAMILY_LABELS.get(family, ()))
+            for vals, v in rows:
+                f.add_metric(list(vals), v)
+            yield f
+        for family, rows in group(hists).items():
+            f = HistogramMetricFamily(
+                family, METRIC_FAMILIES.get(family, family),
+                labels=_FAMILY_LABELS.get(family, ()))
+            for vals, (bucket_counts, total) in rows:
+                # edges resolve per SERIES: selkies_stage_ms stages carry
+                # per-stage ladders (sub-ms front-end stages)
+                edges = [str(b) for b in _buckets_for(family, vals)] + ["+Inf"]
+                cum = list(itertools.accumulate(bucket_counts))
+                f.add_metric(list(vals), list(zip(edges, cum)),
+                             sum_value=total)
+            yield f
+
+
+_codec_cache: list[str] | None = None
+
+
+def _supported_codecs() -> list[str]:
+    """Codec rows this image can actually serve (negotiate.py probes,
+    cached — library availability cannot change mid-process). Part of
+    the capacity digest so a router never lands an AV1 client on an
+    h264-only host."""
+    global _codec_cache
+    if _codec_cache is None:
+        try:
+            from selkies_tpu_torch.signalling.negotiate import (
+                CODEC_ROWS, codec_available)
+
+            _codec_cache = sorted(c for c in CODEC_ROWS if codec_available(c))
+        except Exception:
+            logger.exception("codec availability probe failed; digesting "
+                             "h264 only")
+            _codec_cache = ["h264"]
+    return list(_codec_cache)
 
 
 # the process-global bus every emission site uses

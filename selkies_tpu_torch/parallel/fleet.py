@@ -16,7 +16,7 @@ policy and SLO planes. Where it departs from JAX (ROADMAP queue 3,
 * A slot's planes are passed in: ``ws=None`` builds the port's
   ``WebSocketTransport`` (so this module imports without ``aiohttp``
   until a slot needs one), and ``webrtc=None`` gives
-  ``orchestrator.AbsentPeerPlane`` until the port has a WebRTC stack. With
+  ``transport.mux.AbsentPeerPlane`` until the port has a WebRTC stack. With
   no peer connected the mux routes media and control to the WebSocket
   plane, as JAX's does.
 * ``FleetOrchestrator`` (``fleet.py:1077-1768``: signalling, WebRTC,
@@ -59,9 +59,9 @@ import numpy as np
 from selkies_tpu_torch.models.h264.ratecontrol import CbrRateController
 from selkies_tpu_torch.monitoring.telemetry import telemetry
 from selkies_tpu_torch.monitoring.tracing import tracer
-from selkies_tpu_torch.orchestrator import AbsentPeerPlane, TransportMux
 from selkies_tpu_torch.pipeline.elements import EncodedFrame, SyntheticSource
 from selkies_tpu_torch.resilience import SlotSupervisor, get_injector
+from selkies_tpu_torch.transport.mux import AbsentPeerPlane, TransportMux
 from selkies_tpu_torch.transport.congestion import GccController
 from selkies_tpu_torch.transport.recovery import RecoveryController
 
@@ -105,7 +105,7 @@ class SessionSlot:
         self.rc = CbrRateController(bitrate_kbps=bitrate_kbps, fps=fps)
         self.gcc: GccController | None = None
         self.recovery: RecoveryController | None = None  # _wire_slots
-        self.input = None  # the host input plane (a later slice)
+        self.input = None  # the host input plane (FleetOrchestrator wires it)
         self.audio = None  # per-session AudioPipeline (fleet._wire_audio)
         self.audio_lock = asyncio.Lock()  # serializes audio start/stop
         self.connected = False

@@ -1563,3 +1563,90 @@ def test_fleet_encode_tick_never_syncs(monkeypatch, occupancy):
     syncs = [(name, st) for name, m, st in seen if "called a synchronizing CUDA operation" in m]
     assert not syncs, f"{len(syncs)} syncs; first in {syncs[0][0]} at:\n{syncs[0][1]}"
     assert len(aus) == 4 and all(au.startswith(b"\x00\x00\x00\x01") for a in aus for au in a)
+
+
+# -- the solo server (selkies_tpu_torch/orchestrator.py) -----------------------------
+
+@pytest.mark.gpu
+def test_server_session_on_card_launches_k1_and_never_syncs(monkeypatch, tmp_path):
+    """``Orchestrator(cfg)`` (device None: the card) at 640x384 serves a
+    client over /media: once warm, its ticks make no synchronising CUDA
+    call on the threads that capture and submit, and K1 launched once per
+    non-static P frame the recorded encoder coded (the prewarm's apart)."""
+    _need_card()
+    import asyncio
+    import threading
+    import traceback
+    import warnings
+
+    import aiohttp
+
+    from selkies_tpu_torch.config import FLAGS, Config
+    from selkies_tpu_torch.input_host import FakeBackend, MemoryClipboard
+    from selkies_tpu_torch.orchestrator import Orchestrator
+    from selkies_tpu_torch.pipeline import app as app_mod
+    from selkies_tpu_torch.transport.websocket import KIND_VIDEO, parse_media_frame
+
+    for k in ("DISPLAY", "SELKIES_CLUSTER_PEERS", "SELKIES_FAULTS"):
+        monkeypatch.delenv(k, raising=False)
+    values = {fl.name: fl.default for fl in FLAGS}
+    values.update(addr="127.0.0.1", port=0, capture_width=640, capture_height=384,
+                  framerate=60, video_bitrate=4000, enable_cursors=False,
+                  json_config=str(tmp_path / "c.json"), rtc_config_json=str(tmp_path / "rtc.json"))
+    built = record_encoders(monkeypatch, app_mod)
+    seen, state = [], {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        seen.append((threading.current_thread().name, str(message),
+                     "".join(traceback.format_stack(limit=8)[:-1])))
+
+    async def scenario():
+        orch = Orchestrator(Config(values=values))
+        assert orch.device.type == "cuda" and orch.device_mon is not None
+        orch.input.backend, orch.input.clipboard = FakeBackend(), MemoryClipboard()
+        real = built[0].enc
+        orig = real.prewarm
+
+        def prewarm():
+            orig()
+            state["k0"] = me_mc.launches
+        real.prewarm = prewarm
+        task = asyncio.ensure_future(orch.run())
+        while orch.server._runner is None or not orch.server._runner.addresses:
+            await asyncio.sleep(0.05)
+        frames = 0
+        async with aiohttp.ClientSession() as http:
+            ws = await http.ws_connect(f"http://127.0.0.1:{orch.server.bound_port}/media")
+            while frames < 48:
+                msg = await asyncio.wait_for(ws.receive(), 120)
+                if msg.type == aiohttp.WSMsgType.BINARY and \
+                        parse_media_frame(msg.data)[0] == KIND_VIDEO:
+                    frames += 1
+                    if frames == 16:  # warm: tables on the card, the kernel built
+                        torch.cuda.set_sync_debug_mode("warn")
+            torch.cuda.set_sync_debug_mode("default")
+            await ws.close()
+            while orch.app.pipeline is not None and orch.app.pipeline.running:
+                await asyncio.sleep(0.05)
+        for t in orch._tasks:  # the in-process signalling client's /ws
+            if t.get_coro().__name__ == "_signalling_loop":
+                t.cancel()
+        await orch.server.stop()
+        await asyncio.wait_for(task, 60)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        try:
+            asyncio.run(scenario())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    built[0].flush()
+    launched = me_mc.launches - state["k0"]
+    outs = logged_outputs(built[0])
+    syncs = [(name, st) for name, m, st in seen
+             if "called a synchronizing CUDA operation" in m and name.startswith("asyncio")]
+    assert not syncs, f"{len(syncs)} syncs; first in {syncs[0][0]} at:\n{syncs[0][1]}"
+    p_frames = sum(1 for _, st, _ in outs if not st.idr and st.upload_kind != "static")
+    assert p_frames > 0 and launched == p_frames
+    assert sps_size(outs[0][0]) == (640, 384)
