@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-19 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-20 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -208,7 +208,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    equals the CPU's, K1 launches once per tick with a P session (read
    around _encode_tick); (b) the live loop (start / _run / stop) over 8
    slots of 1920x1088 at a 60 fps tick, sources cycling through 12
-   frames of phase 9's desktops, 4 s of steady state in 2 pairs of runs,
+   frames of phase 9's desktops, 4 s of steady state in one pair of runs,
    occupancy on then SELKIES_OCCUPANCY=0: delivered fps across sessions,
    on_tick's tick ms and capture->send ms (median, p95; stamps on the
    source and the plane), the supervisor's failures (0), device ops and
@@ -273,6 +273,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    handshake, a keyframe first, every complete AU equal to the row's AU
    of its RTP timestamp, and retransmissions for its NACKs; the freezes,
    the ladder's rung and the fps are recorded;
+20. (run after phase 19, before the timing) the fleet server and the
+   cluster plane: (a) ``FleetOrchestrator`` as ``main(["--tpu_sessions",
+   "8", ...])`` builds it on the card (devices=None), 8 sessions of
+   1920x1088 at 60 fps and 8000 kbps, the batch service with occupancy at
+   its default, the synthetic sources (no display), STUN a silent
+   loopback socket; seven aiohttp clients on /media/0-6 and an RtcBrowser
+   on session 7 (HELLO 71). Every session's received AUs are a run of its
+   recorded service ticks (a keyframe with its SPS among the first two);
+   the recorded ticks equal their replay on a direct card service, the
+   first two the CPU's, and so do the first and the last tick after a QP
+   change and the drain's IDR tick, each coded on the CPU from the card
+   replay's state before it (its reference planes after it compared too);
+   the supervisor counts no failure; K1 launches once per tick with a P
+   session and its plain versions never run
+   (``launches_fleet_server_path``), and on one tick's inputs K1 equals
+   ``me_mc_batch_plain``; fps across sessions
+   over 3 s (its share of phase 17 (b)'s occupancy-on loop), capture->send
+   ms (median, p95) and the idle share over 10 ticks (torch.profiler);
+   then the drain with no cluster: every client sees an IDR after it
+   began and the 8 sessions are handed off as checkpoints. (b) Two fleet
+   servers of 2 x 1920x1088 on the one card, each built with
+   SELKIES_CLUSTER_SELF / _PEERS naming the other, SELKIES_CLUSTER_SECRET
+   set (signed heartbeats, HttpMigrationChannel) and heartbeats every
+   0.25 s: a client with signalling (HELLO 1) and /media/0 on host A;
+   A drains; the session ships to B, the client follows the REDIRECT to
+   B's /ws and /media/<landing>; B's first AUs of the session, the first
+   the recovery IDR, equal the card's uninterrupted oracle (A's recorded
+   calls replayed into one direct service that then codes B's frames at
+   B's QPs); K1, counted from 0 over both hosts, launches once per tick
+   with a P session on A and B and its plain versions never run
+   (``launches_cluster_path``). Recorded: heartbeat -> alive s, ship ->
+   ack ms, checkpoint -> B's first AU ms and redirect -> the client's first AU ms;
 10. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
@@ -325,7 +357,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 11. print the ``{"kernels": [...]}`` line (K1 at the solo shape and as the
     8-session launch, with its launches on every path, the fleet's, the
     library rows' degrade, the software fleet's, the serving app's, the
-    fleet loop's, the solo server's and the WebRTC session's included), then the
+    fleet loop's, the solo server's, the WebRTC session's and the fleet
+    server's included), then the
     ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
@@ -3410,7 +3443,7 @@ LOOP_TICKS = 4
 LOOP_OPS = {2: [("key", 3), ("kbps", 0, 4000)]}
 LOOP_CYCLE = 12  # frames per session the live loop's sources cycle through
 LOOP_STEADY_S = 4.0
-LOOP_PAIRS = 2  # the script's time budget (ROADMAP) has no room for a third pair
+LOOP_PAIRS = 1  # the script's time budget (ROADMAP) has room for one pair beside phase 20
 LOOP_IDLE_S = 1.0
 LOOP_PROFILE_TICKS = 5
 LOOP_BANDED = (4, 1920, 1080)
@@ -3561,27 +3594,44 @@ def _direct_drive(svc, batches, run, ops=LOOP_OPS, tick=None) -> list:
     return out
 
 
-def _replay_service(rec, frames, make) -> list:
-    """Feed a fresh service from ``make()`` the recorded calls, each tick's
-    batch rebuilt from its capture index -> [(capture index, AU sha256s,
-    IDR flags, tick ms)]; the tick ms is the host clock around the direct
-    service's synchronous encode_tick."""
-    svc = make()
+def _cycle_batch(frames):
+    """Phase 17's capture i: frame i of each session's cycle."""
+    return lambda i: np.stack([f[i % len(f)] for f in frames])
+
+
+def _feed(svc, log: list, batch, ticks: int | None = None, before=None) -> list:
+    """Feed ``svc`` a recorder's calls (the first ``ticks`` ticks), each
+    tick's frames ``batch(capture index)``, calling ``before(i, svc)`` ahead
+    of tick i and once after the last (i = ticks fed) -> [(capture index,
+    AU sha256s, IDR flags, tick ms)]; the tick ms is the host clock around
+    the direct service's synchronous encode_tick."""
     out = []
+    for ev in log:
+        if ev[0] == "tick":
+            if ticks is not None and len(out) == ticks:
+                break
+            if before is not None:
+                before(len(out), svc)
+            frames = batch(ev[1])
+            t0 = time.perf_counter()
+            aus = svc.encode_tick(frames)
+            ms = (time.perf_counter() - t0) * 1e3
+            out.append((ev[1], [hashlib.sha256(au).hexdigest() for au in aus],
+                        list(svc.last_idrs), ms))
+        elif ev[0] != "aus":
+            getattr(svc, ev[0])(*ev[1:])
+    if before is not None:
+        before(len(out), svc)
+    return out
+
+
+def _replay_service(rec, batch, make, **kw) -> list:
+    """:func:`_feed` a fresh service from ``make()`` the recorded calls."""
+    svc = make()
     try:
-        for ev in rec.log:
-            if ev[0] == "tick":
-                batch = np.stack([f[ev[1] % len(f)] for f in frames])
-                t0 = time.perf_counter()
-                aus = svc.encode_tick(batch)
-                ms = (time.perf_counter() - t0) * 1e3
-                out.append((ev[1], [hashlib.sha256(au).hexdigest() for au in aus],
-                            list(svc.last_idrs), ms))
-            elif ev[0] != "aus":
-                getattr(svc, ev[0])(*ev[1:])
+        return _feed(svc, rec.log, batch, **kw)
     finally:
         svc.close()
-    return out
 
 
 def _check_replay(rec, replay, label: str) -> None:
@@ -3669,8 +3719,8 @@ def _live_run(dev, frames, occupancy: str, idle: bool) -> dict:
     if rec.launches != sum(1 for t in ticks if not all(t[2])):
         _fail(f"phase 17 (b): K1 launched {rec.launches} times in {len(ticks)} ticks")
     t_rep = time.perf_counter()
-    replay = _replay_service(rec, frames, lambda: TorchMultiSessionH264Service(
-        n, w, h, qp=28, fps=LOOP_FPS, device=dev))
+    replay = _replay_service(rec, _cycle_batch(frames), lambda: (
+        TorchMultiSessionH264Service(n, w, h, qp=28, fps=LOOP_FPS, device=dev)))
     replay_s = time.perf_counter() - t_rep
     _check_replay(rec, replay, f"(b) occupancy {occupancy}")
     secs = win["t1"] - win["t0"]
@@ -3790,7 +3840,7 @@ def _ladder_loop(dev, frames) -> dict:
             encoders = None
             if rec.launches != sum(1 for t in ticks if not all(t[2])):
                 _fail(f"phase 17 (d): service {i} launched K1 {rec.launches} times")
-        replay = _replay_service(rec, frames, make)
+        replay = _replay_service(rec, _cycle_batch(frames), make)
         _check_replay(rec, replay, f"(d) service {i} ({rec.cls})")
         stages.append({"service": rec.cls, "encoders": encoders, "ticks": len(ticks),
                        "me_mc_launches": rec.launches, "build_ms": rec.build_ms,
@@ -4698,8 +4748,8 @@ def _is_idr(au: bytes) -> bool:
     return any(n and n[0] & 0x1F == 5 for n in au.split(b"\x00\x00\x00\x01"))
 
 
-async def _rtc_connect(http, base: str, b: RtcBrowser) -> tuple:
-    """The browser's choreography on /ws: HELLO 1, the server's offer
+async def _rtc_connect(http, base: str, b: RtcBrowser, peer: int = 1) -> tuple:
+    """The browser's choreography on /ws: HELLO ``peer``, the server's offer
     answered with 127.0.0.1 trickled back, ICE, DTLS, the input channel
     -> (socket, signalling task, feedback task, host clock at each step)."""
     import asyncio
@@ -4708,7 +4758,7 @@ async def _rtc_connect(http, base: str, b: RtcBrowser) -> tuple:
 
     ws = await http.ws_connect(base + "/ws")
     t = {"hello": time.perf_counter()}
-    await ws.send_str("HELLO 1")
+    await ws.send_str(f"HELLO {peer}")
 
     async def signalling():
         async for msg in ws:
@@ -5088,6 +5138,686 @@ def _webrtc_phase(dev=None) -> dict:
           f"ladder {b['recovery']['rung_name']} (fec {b['recovery']['fec_pct']}%); "
           f"{b['fps']:.2f} fps ({card}, {limit}) " + json.dumps({"times": b["times"]}))
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# -- phase 20: the fleet server and the cluster plane -------------------------------
+
+FS_N, FS_W, FS_H = 8, 1920, 1088
+FS_FPS = 60
+FS_KBPS = 8000
+FS_STEADY_S = 3.0
+FS_PROFILE_TICKS = 10
+FS_CPU_TICKS = 2  # the recorded ticks replayed on the CPU from the start
+FC_N = 2  # sessions on each cluster host
+FC_STREAM_S = 1.0  # seconds host A streams before it drains
+FC_HEARTBEAT_S = 0.25
+FC_SECRET = "phase20-cluster-secret"
+
+
+def _fleet_argv(tmp: Path, n: int, w: int, h: int, port: int = 0) -> list:
+    """``python -m selkies_tpu_torch``'s arguments for an n-session fleet
+    server on the loopback, its STUN a silent loopback socket's."""
+    return ["--tpu_sessions", str(n), "--addr", "127.0.0.1", "--port", str(port),
+            "--capture_width", str(w), "--capture_height", str(h),
+            "--framerate", str(FS_FPS), "--video_bitrate", str(FS_KBPS),
+            "--encoder", "tpuh264enc", "--enable_clipboard", "false",
+            "--json_config", str(tmp / "selkies_config.json"),
+            "--rtc_config_json", str(tmp / "rtc.json")]
+
+
+def _silent_stun(tmp: Path):
+    """A STUN server on the loopback that never answers, named in the
+    server's rtc.json: no outside host is contacted."""
+    import socket
+
+    silent = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    silent.bind(("127.0.0.1", 0))
+    (tmp / "rtc.json").write_text(json.dumps({"iceServers": [
+        {"urls": [f"stun:127.0.0.1:{silent.getsockname()[1]}"]}]}))
+    return silent
+
+
+def _fleet_server(argv: list, dev):
+    """FleetOrchestrator as ``main(argv, device=dev)`` builds it, its
+    sources stamped and its batch service recorded behind a gate ->
+    (orchestrator, recorder, gate)."""
+    import torch
+
+    from selkies_tpu_torch.config import parse_config
+    from selkies_tpu_torch.parallel.fleet import FleetOrchestrator
+
+    orch = FleetOrchestrator(parse_config(argv),
+                             devices=None if dev is None else [torch.device(dev)])
+    fleet = orch.fleet
+    fleet.sources = [_StampedSource(s) for s in fleet.sources]
+    gate = _Gate()
+    rec = _RecordingService(fleet.service, {}, fleet.sources, 0.0)
+    fleet.service = _Gated(rec, gate, ("encode_tick", "dispatch_tick", "complete_tick"))
+    return orch, rec, gate
+
+
+class _SyntheticFrames:
+    """Session k's capture i of the fleet's synthetic source (seed k),
+    rebuilt for a replay."""
+
+    def __init__(self, n: int, w: int, h: int):
+        from selkies_tpu_torch.pipeline.elements import SyntheticSource
+
+        self.srcs = [SyntheticSource(w, h, seed=k) for k in range(n)]
+
+    def batch(self, i: int):
+        out = []
+        for s in self.srcs:
+            s._tick = i  # a capture's pixels depend on its tick alone
+            out.append(s.capture())
+        return np.stack(out)
+
+
+def _probe_ticks(rec, ticks: list, n: int) -> dict:
+    """(a)'s later ticks held against the CPU: the first and the last tick
+    that codes a P frame of a session whose QP the rate control changed
+    since its last tick, and the drain's IDR tick (the last with an IDR)
+    -> {name: tick index}."""
+    qp, at = [28] * n, []
+    for ev in rec.log:
+        if ev[0] == "set_qp":
+            qp[ev[1]] = ev[2]
+        elif ev[0] == "tick":
+            at.append(list(qp))
+    changed = [i for i in range(1, len(ticks))
+               if any(at[i][k] != at[i - 1][k] and not ticks[i][2][k] for k in range(n))]
+    idr = [i for i in range(1, len(ticks)) if any(ticks[i][2])]
+    if not changed or not idr:
+        _fail(f"phase 20 (a): no P tick after a QP change ({len(changed)}) or no IDR tick "
+              f"after the first ({len(idr)}) among {len(ticks)} recorded ticks")
+    return {"first_after_qp_change": changed[0], "last_after_qp_change": changed[-1],
+            "drain_idr": idr[-1]}
+
+
+def _check_probes(ticks: list, frames: _SyntheticFrames, snaps: dict, probes: dict,
+                  cpu) -> None:
+    """Each probed tick coded on the CPU from the card replay's state just
+    before it (every session's GOP state and QP, the reference planes)
+    gives the recorded AUs, and the reference planes the card replay held
+    after it."""
+    import torch
+
+    try:
+        for name, i in probes.items():
+            state, ref = snaps[i]
+            for sess, st in zip(cpu.sessions, state):
+                sess.frames_since_idr, sess.idr_pic_id, sess.force_idr, sess.qp = st
+            cpu.enc._ref = tuple(r.clone() for r in ref)
+            aus = cpu.encode_tick(frames.batch(ticks[i][0]))
+            got = [hashlib.sha256(au).hexdigest() for au in aus]
+            if got != ticks[i][1] or list(cpu.last_idrs) != ticks[i][2]:
+                _fail(f"phase 20 (a): tick {i} ({name}) differs on the CPU")
+            if not all(torch.equal(x, y) for x, y in zip(cpu.enc._ref, snaps[i + 1][1])):
+                _fail(f"phase 20 (a): tick {i}'s ({name}) reference planes differ on the CPU")
+    finally:
+        cpu.close()
+
+
+def _contiguous(got: list, want: list) -> bool:
+    """``got`` is a run of consecutive items of ``want``."""
+    if not got or got[0] not in want:
+        return False
+    i = want.index(got[0])
+    return want[i:i + len(got)] == got
+
+
+def _counting(fn, calls: dict):
+    """``fn`` adding one to ``calls[fn.__name__]`` at each call."""
+    def call(*args):
+        calls[fn.__name__] += 1
+        return fn(*args)
+    return call
+
+
+def _fleet_server_run(dev, n: int, w: int, h: int) -> dict:
+    """(a): the n-session fleet server on the card (``dev`` None), n - 1
+    clients on /media/<k> and an RtcBrowser on the last session; the steady
+    window, a profile over FS_PROFILE_TICKS ticks, then the drain."""
+    import asyncio
+    import os
+    import tempfile
+
+    import aiohttp
+
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.parallel.fleet import browser_peer_id
+    from selkies_tpu_torch.resilience import reset_device_pool
+    from selkies_tpu_torch.transport.websocket import FLAG_KEYFRAME
+
+    tmp = Path(tempfile.mkdtemp(prefix="selkies-phase20-"))
+    silent = _silent_stun(tmp)
+    saved_display = os.environ.pop("DISPLAY", None)  # the synthetic sources
+    reset_device_pool()
+    real = (me_mc.me_mc_batch, me_mc.me_mc_plain, me_mc.me_mc_batch_plain)
+    grab, plain_calls = {}, {"me_mc_plain": 0, "me_mc_batch_plain": 0}
+
+    def grabbing(*args):
+        out = real[0](*args)
+        if grab.get("armed") and "args" not in grab:
+            grab["args"] = [a.clone() for a in args]
+            grab["out"] = [o.clone() for o in out]
+        return out
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        orch, rec, gate = _fleet_server(_fleet_argv(tmp, n, w, h), dev)
+        fleet = orch.fleet
+        sends = [[] for _ in range(n)]
+        for k, slot in enumerate(orch.slots):
+            mux_send = slot.transport.send_video
+
+            async def send_video(ef, k=k, mux_send=mux_send):
+                sends[k].append((time.perf_counter(), len(fleet.sources[k].captured_at) - 1))
+                return await mux_send(ef)
+            slot.transport.send_video = send_video
+        me_mc.me_mc_batch = grabbing
+        me_mc.me_mc_plain, me_mc.me_mc_batch_plain = (_counting(f, plain_calls)
+                                                      for f in real[1:])
+        me_mc.launches = 0  # the main path's count starts here
+
+        async def go():
+            task = asyncio.ensure_future(orch.run())
+            await _wait_for(lambda: orch.server._runner is not None
+                            and orch.server._runner.addresses, 120, "the fleet listening",
+                            phase="20")
+            base = f"http://127.0.0.1:{orch.server.bound_port}"
+            async with aiohttp.ClientSession() as http:
+                out["healthz"] = (await http.get(base + "/healthz")).status
+                clients = [await _media_client(http, base, k) for k in range(n - 1)]
+                b = RtcBrowser()
+                rws, sig, fb, t = await _rtc_connect(http, base, b, peer=browser_peer_id(n - 1))
+                out["rtc_times"] = _rtc_times(t)
+                await _wait_for(lambda: all(c.video for c in clients) and b.aus, 180,
+                                "a first AU on every session", phase="20")
+                t_all = time.perf_counter()
+                await _wait_for(lambda: time.perf_counter() - t_all > 1.0, 5, "", phase="20")
+                grab["armed"] = True
+
+                def counts():
+                    return [len(c.video) for c in clients] + [len(b.aus)]
+                n0, t0, tick0 = counts(), time.perf_counter(), fleet.ticks
+                await asyncio.sleep(FS_STEADY_S)
+                n1, t1, tick1 = counts(), time.perf_counter(), fleet.ticks
+                out["window"] = {"seconds": t1 - t0, "ticks": tick1 - tick0,
+                                 "delivered": [y - x for x, y in zip(n0, n1)], "t": (t0, t1)}
+
+                async def ticks(k=fleet.ticks):
+                    while fleet.ticks < k + FS_PROFILE_TICKS:
+                        await asyncio.sleep(0.001)
+                prof, wall_ms = await _live_profile(gate, ticks)
+                out["profile"] = dict(_device_activity(prof, wall_ms), ticks=FS_PROFILE_TICKS)
+                # the drain with no cluster: every client must see an IDR and
+                # stay until the hand-off, then leave so the server can stop
+                for tk in orch._tasks:
+                    if tk.get_coro().__name__ == "_slot_signalling_loop":
+                        tk.cancel()
+                marks = counts()
+                t_drain = time.perf_counter()
+                drain = asyncio.ensure_future(orch.drain())
+                await _wait_for(lambda: orch.drain_checkpoints or drain.done(), 60,
+                                "the drain's hand-off", phase="20")
+                out["drain_idr"] = [any(f & FLAG_KEYFRAME for _, f, _, _ in c.video[m:])
+                                    for c, m in zip(clients, marks)] + [
+                    any(_is_idr(au) for _, _, au in b.aus[marks[-1]:])]
+                await _rtc_leave(rws, sig, fb, b)
+                # the readers stop first: a close racing a reader leaves the
+                # server's handler open for aiohttp's close timeout
+                for c in clients:
+                    c.reader.cancel()
+                await asyncio.gather(*(c.reader for c in clients), return_exceptions=True)
+                await asyncio.gather(*(c.ws.close() for c in clients))
+                out["drained"] = await asyncio.wait_for(drain, 60)
+                out["drain_s"] = time.perf_counter() - t_drain
+            await asyncio.wait_for(task, 60)
+            return clients, b
+        clients, b = asyncio.run(go())
+        launches = me_mc.launches  # read before the checks launch below
+    finally:
+        me_mc.me_mc_batch, me_mc.me_mc_plain, me_mc.me_mc_batch_plain = real
+        silent.close()
+        reset_device_pool()
+        if saved_display is not None:
+            os.environ["DISPLAY"] = saved_display
+    out["drive_s"] = time.perf_counter() - t_phase
+    out.update(orch=orch, rec=rec, clients=clients, browser=b, sends=sends, grab=grab,
+               launches=launches, plain_calls=plain_calls)
+    return out
+
+
+def _fleet_server_checks(run: dict, dev, n: int, w: int, h: int) -> dict:
+    """(a)'s checks: the sent AUs are their session's recorded ones, the
+    recorded ticks equal their replay on the card (and their head on the
+    CPU), K1 once per tick with a P session and its plain version never."""
+    import torch
+
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+    from selkies_tpu_torch.transport.websocket import FLAG_KEYFRAME
+
+    orch, rec, clients, b = run["orch"], run["rec"], run["clients"], run["browser"]
+    ticks = rec.ticks()
+    empty = hashlib.sha256(b"").hexdigest()
+    for k in range(n):
+        want = [t[1][k] for t in ticks if t[1][k] != empty]
+        got = ([hashlib.sha256(p).hexdigest() for *_, p in clients[k].video] if k < n - 1
+               else [hashlib.sha256(au).hexdigest() for _, _, au in b.aus])
+        if not _contiguous(got, want):
+            _fail(f"phase 20 (a): session {k}'s {len(got)} AUs are not a run of its "
+                  f"{len(want)} recorded ones")
+    # a client that connects while a tick encodes gets that tick's P frame
+    # first (JAX's fleet does the same); its forced keyframe is the next
+    keys = [next((p for _, f, _, p in c.video[:2] if f & FLAG_KEYFRAME), None)
+            for c in clients] + [next((au for _, _, au in b.aus[:2] if _is_idr(au)), None)]
+    if not all(p is not None and _sps_size(p) == (w, h) for p in keys):
+        _fail(f"phase 20 (a): a session's first two AUs hold no keyframe with a {w}x{h} SPS")
+    with_p = sum(1 for t in ticks if not all(t[2]))
+    # on the card the kernel, never its plain version; on the CPU (a
+    # rehearsal) the plain version, never the kernel
+    # the stop may cancel a last tick between its dispatch and its completion
+    cut = sum(1 for e in rec.log if e[0] == "tick") - len(ticks)
+    plain = run["plain_calls"]["me_mc_batch_plain"]
+    kernel, other = (run["launches"], plain) if dev is None else (plain, run["launches"])
+    if run["launches"] != rec.launches or not with_p <= kernel <= with_p + cut or \
+            with_p == 0 or other or \
+            (dev is None and run["plain_calls"]["me_mc_plain"]):
+        _fail(f"phase 20 (a): K1 launched {run['launches']} times ({rec.launches} inside the "
+              f"service's ticks), its plain versions {run['plain_calls']}, for {with_p} ticks "
+              "with a P session")
+    card = dev or "cuda"
+    t0 = time.perf_counter()
+    frames = _SyntheticFrames(n, w, h)
+    probes = _probe_ticks(rec, ticks, n)
+    snaps = {}
+
+    def snap(i, svc):
+        if i in probes.values() or i - 1 in probes.values():
+            snaps[i] = ([(s.frames_since_idr, s.idr_pic_id, s.force_idr, s.qp)
+                         for s in svc.sessions],
+                        tuple(r.to("cpu", copy=True) for r in svc.enc._ref))
+
+    def service(device):
+        return lambda: TorchMultiSessionH264Service(n, w, h, qp=28, fps=FS_FPS, device=device)
+    replay = _replay_service(rec, frames.batch, service(card), before=snap)
+    replay_s = time.perf_counter() - t0
+    if [r[:3] for r in replay[:len(ticks)]] != ticks or len(replay) - len(ticks) > 1:
+        _fail(f"phase 20 (a): the {len(ticks)} recorded ticks differ from their card replay")
+    t0 = time.perf_counter()
+    cpu = _replay_service(rec, frames.batch, service("cpu"), ticks=FS_CPU_TICKS)
+    if [r[:3] for r in cpu] != ticks[:FS_CPU_TICKS]:
+        _fail(f"phase 20 (a): the first {FS_CPU_TICKS} ticks differ on the CPU")
+    _check_probes(ticks, frames, snaps, probes, service("cpu")())
+    cpu_s = time.perf_counter() - t0
+    grab = run["grab"]
+    if "args" not in grab:
+        _fail("phase 20 (a): no K1 launch after the warm-up to hold against its plain version")
+    plain = me_mc.me_mc_batch_plain(*grab["args"])
+    err = max(int((x.long() - y.long()).abs().max()) for x, y in zip(grab["out"], plain))
+    if err:
+        _fail(f"phase 20 (a): K1 differs from its plain version on a fleet tick by {err}")
+    if not run["drained"] or not all(run["drain_idr"]) or \
+            sorted(ck.session for ck in orch.drain_checkpoints) != list(range(n)):
+        _fail(f"phase 20 (a): drain {run['drained']}, IDR after the drain {run['drain_idr']}, "
+              f"checkpoints {[ck.session for ck in orch.drain_checkpoints]}")
+    if run["healthz"] != 200 or orch.fleet.supervisor.counters["failures"]:
+        _fail(f"phase 20 (a): /healthz {run['healthz']}, supervisor "
+              f"{orch.fleet.supervisor.counters}")
+    if (dev is None) != (orch.device_mon is not None) or \
+            str(getattr(orch.fleet.service, "device", card)).split(":")[0] != \
+            torch.device(card).type:
+        _fail(f"phase 20 (a): device monitor {orch.device_mon}, service on "
+              f"{orch.fleet.service.device}")
+    win = run["window"]
+    t0w, t1w = win.pop("t")
+    lat = sorted((t - orch.fleet.sources[k].captured_at[i]) * 1e3
+                 for k in range(n) for t, i in run["sends"][k] if t0w <= t <= t1w)
+    ck = json.loads(orch.drain_checkpoints[0].to_json())
+    return {"sessions": n, "geometry": f"{w}x{h}", "fps": sum(win["delivered"]) / win["seconds"],
+            "window": win, "capture_to_send_ms_median": statistics.median(lat),
+            "capture_to_send_ms_p95": _pct(lat, 95), "profile": run["profile"],
+            "rtc_times": run["rtc_times"], "ticks_recorded": len(ticks),
+            "ticks_with_p": with_p, "me_mc_launches": run["launches"],
+            "me_mc_plain_calls": run["plain_calls"], "me_mc_plain_max_abs_err": err,
+            "me_mc_checked_shape": list(grab["args"][1].shape), "card_replay_s": replay_s,
+            "cpu_replay_ticks": FS_CPU_TICKS, "cpu_probe_ticks": probes, "cpu_replay_s": cpu_s,
+            "drain_s": run["drain_s"], "checkpoints": len(orch.drain_checkpoints),
+            "checkpoint_fields": sorted(ck), "drive_s": run["drive_s"]}
+
+
+async def _media_client(http, base: str, k: int):
+    """A _ServerClient reading /media/<k> in a task of its own."""
+    import asyncio
+
+    c = _ServerClient(await http.ws_connect(f"{base}/media/{k}"))
+    c.reader = asyncio.ensure_future(c.read())
+    return c
+
+
+def _cluster_run(dev, n: int, w: int, h: int) -> dict:
+    """(b): hosts A and B, each an n-session fleet server on the one card
+    with SELKIES_CLUSTER_* naming the other (read as each is built), a
+    real HttpMigrationChannel under SELKIES_CLUSTER_SECRET. A client holds
+    signalling (HELLO 1) and /media/0 on A; A drains; the session ships to
+    B; the client follows the REDIRECT to B's /ws and /media/<landing>."""
+    import asyncio
+    import base64
+    import os
+    import tempfile
+
+    import aiohttp
+
+    from selkies_tpu_torch.cluster import parse_redirect
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.parallel.fleet import browser_peer_id
+    from selkies_tpu_torch.resilience import reset_device_pool
+
+    ports = [_free_port(), _free_port()]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    keys = ("SELKIES_CLUSTER_PEERS", "SELKIES_CLUSTER_SELF", "SELKIES_CLUSTER_SECRET",
+            "SELKIES_CLUSTER_HEARTBEAT_S", "SELKIES_CLUSTER_LEASE_S", "DISPLAY")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.pop("DISPLAY", None)
+    reset_device_pool()
+    hosts, silent = [], []
+    out: dict = {}
+    try:
+        for i in range(2):
+            tmp = Path(tempfile.mkdtemp(prefix=f"selkies-phase20-{'ab'[i]}-"))
+            silent.append(_silent_stun(tmp))
+            os.environ.update({"SELKIES_CLUSTER_SELF": urls[i],
+                               "SELKIES_CLUSTER_PEERS": urls[1 - i],
+                               "SELKIES_CLUSTER_SECRET": FC_SECRET,
+                               "SELKIES_CLUSTER_HEARTBEAT_S": str(FC_HEARTBEAT_S),
+                               "SELKIES_CLUSTER_LEASE_S": str(40 * FC_HEARTBEAT_S)})
+            hosts.append(_fleet_server(_fleet_argv(tmp, n, w, h, port=ports[i]), dev))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            elif k != "DISPLAY":
+                os.environ[k] = v
+    (a, rec_a, _), (b, rec_b, _) = hosts
+    if a.cluster is None or b.cluster is None or a.drainer._migrate is None:
+        _fail("phase 20 (b): the cluster plane was not wired on both hosts")
+    stamps = {}
+    handle = b.cluster.target.handle
+
+    def handle_tap(payload):
+        stamps["restore_at"] = time.perf_counter()
+        ack = handle(payload)
+        stamps["acked_at"] = time.perf_counter()
+        stamps["checkpoint"] = payload["checkpoint"]
+        return ack
+    b.cluster.target.handle = handle_tap
+    redirect_peer = a.server.redirect_peer
+
+    async def redirect_tap(uid, rd):
+        stamps["redirect_at"] = time.perf_counter()
+        return await redirect_peer(uid, rd)
+    a.server.redirect_peer = redirect_tap
+    start_b, receive_a = b.cluster.start, a.cluster.node.receive
+
+    async def start_tap():
+        stamps["b_beats_at"] = time.perf_counter()
+        await start_b()
+    b.cluster.start = start_tap
+
+    def receive_tap(body, sig=""):
+        ok = receive_a(body, sig)
+        if ok and "b_alive_at" not in stamps and a.cluster.node.peer_alive(urls[1]):
+            stamps["b_alive_at"] = time.perf_counter()
+        return ok
+    a.cluster.node.receive = receive_tap
+    send_a = a.cluster.channel.send
+
+    async def ship_tap(host, payload):
+        stamps["ship_at"] = time.perf_counter()
+        ack = await send_a(host, payload)
+        stamps["ship_acked_at"] = time.perf_counter()
+        return ack
+    a.cluster.channel.send = ship_tap
+    b_send = b.slots[0].transport.send_video
+
+    async def b_send_tap(ef):
+        stamps.setdefault("b_first_send_at", time.perf_counter())
+        return await b_send(ef)
+    b.slots[0].transport.send_video = b_send_tap
+    meta = base64.b64encode(json.dumps({"codecs": ["h264"]}).encode()).decode()
+    t_phase = time.perf_counter()
+
+    async def go():
+        tasks = [asyncio.ensure_future(o.run()) for o in (a, b)]
+        for o in (a, b):
+            await _wait_for(lambda o=o: o.server._runner is not None
+                            and o.server._runner.addresses, 120, "a cluster host listening",
+                            phase="20")
+        await _wait_for(lambda: "b_alive_at" in stamps, 30, "host B alive on host A",
+                        phase="20")
+        async with aiohttp.ClientSession() as http:
+            sig = await http.ws_connect(urls[0] + "/ws")
+            await sig.send_str(f"HELLO {browser_peer_id(0)} {meta}")
+            hello = await sig.receive()
+            if hello.data != "HELLO":
+                _fail(f"phase 20 (b): host A answered the HELLO with {hello.data!r}")
+            ca = await _media_client(http, urls[0], 0)
+            await _wait_for(lambda: len(ca.video) >= 2, 120, "AUs on host A", phase="20")
+            t_a = time.perf_counter()
+            await _wait_for(lambda: time.perf_counter() - t_a > FC_STREAM_S, 5, "", phase="20")
+            n_a = len(ca.video)
+            drain = asyncio.ensure_future(a.drain())
+            while True:  # the slot's offer may come first: the client reads on
+                msg = await asyncio.wait_for(sig.receive(), 60)
+                if msg.type != aiohttp.WSMsgType.TEXT or msg.data.startswith("REDIRECT "):
+                    break
+            stamps["redirect_seen_at"] = time.perf_counter()
+            rd = parse_redirect(msg.data) if msg.type == aiohttp.WSMsgType.TEXT else None
+            if rd is None or rd.host != urls[1] or rd.reason != "migrated":
+                _fail(f"phase 20 (b): the client got {msg.type} {str(msg.data)[:80]!r}")
+            # host A's slots' in-process signalling clients leave once the
+            # record is out (their sessions' partner is the client; A's
+            # server stops only when every socket has closed)
+            for tk in a._tasks:
+                if tk.get_coro().__name__ == "_slot_signalling_loop":
+                    tk.cancel()
+            await ca.ws.close()
+            await sig.close()
+            landing = rd.session if rd.session is not None else 0
+            sig_b = await http.ws_connect(urls[1] + "/ws")
+            await sig_b.send_str(f"HELLO {browser_peer_id(landing)} {meta}")
+            hello_b = await sig_b.receive()
+            cb = await _media_client(http, urls[1], landing)
+            await _wait_for(lambda: cb.video, 120, "the first AU on host B", phase="20")
+            stamps["client_first_au_at"] = cb.video[0][0]
+            out["drained"] = await asyncio.wait_for(drain, 60)
+            await _wait_for(lambda: len(cb.video) >= 3, 60, "AUs on host B", phase="20")
+            out["hello_b"] = hello_b.data
+            out["landing"] = landing
+            out["a_video_before_drain"] = n_a
+            out["migrated"] = list(a.drainer.migrated)
+            out["b_connected"] = b.slots[landing].connected
+            # the claimed slot leaves the claim window; nothing expires
+            out["expired"] = b.cluster.target.expire_claims()
+            out["claims_after"] = sorted(b.cluster.target.pending_claims)
+            out["alive_b_on_a"] = a.cluster.node.peer_alive(urls[1])
+            out["statz_b"] = await (await http.get(urls[1] + "/statz")).text()
+            for tk in b._tasks:
+                if tk.get_coro().__name__ == "_slot_signalling_loop":
+                    tk.cancel()
+            await sig_b.close()
+            await cb.ws.close()
+            await asyncio.gather(ca.reader, cb.reader, return_exceptions=True)
+        await asyncio.wait_for(tasks[0], 60)  # A's drain stopped its server
+        await b.server.stop()
+        await asyncio.wait_for(tasks[1], 60)
+        return ca, cb
+    real = (me_mc.me_mc_plain, me_mc.me_mc_batch_plain)
+    plain_calls = {"me_mc_plain": 0, "me_mc_batch_plain": 0}
+    me_mc.me_mc_plain, me_mc.me_mc_batch_plain = (_counting(f, plain_calls) for f in real)
+    me_mc.launches = 0  # the cluster path's count starts here: both hosts' ticks
+    try:
+        ca, cb = asyncio.run(go())
+        launches = me_mc.launches  # read before the oracle launches below
+    finally:
+        me_mc.me_mc_plain, me_mc.me_mc_batch_plain = real
+        for s in silent:
+            s.close()
+        reset_device_pool()
+        if saved["DISPLAY"] is not None:
+            os.environ["DISPLAY"] = saved["DISPLAY"]
+    out.update(drive_s=time.perf_counter() - t_phase, a=a, b=b, rec_a=rec_a, rec_b=rec_b,
+               ca=ca, cb=cb, stamps=stamps, launches=launches, plain_calls=plain_calls)
+    return out
+
+
+def _cluster_checks(run: dict, dev, n: int, w: int, h: int) -> dict:
+    """(b)'s checks: the session moved (released on A, claimed on B), B's
+    first AU of it is the recovery IDR, and it and the P frames after it
+    equal the card's own uninterrupted oracle: A's recorded calls replayed
+    into one direct service that then codes B's frames with B's QPs."""
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+
+    a, b, st = run["a"], run["b"], run["stamps"]
+    k2 = run["landing"]
+    if not run["drained"] or run["migrated"] != [0] or a.fleet.placer.row(0) or \
+            not run["b_connected"] or run["expired"] or run["claims_after"] or \
+            run["hello_b"] != "HELLO":
+        _fail(f"phase 20 (b): drained {run['drained']}, migrated {run['migrated']}, A's row 0 "
+              f"{a.fleet.placer.row(0)}, B's slot connected {run['b_connected']}, expired "
+              f"{run['expired']}, claims {run['claims_after']}, B's HELLO {run['hello_b']!r}")
+    ticks_a, ticks_b = run["rec_a"].ticks(), run["rec_b"].ticks()
+    # the two hosts tick in one process: K1's count is both hosts' ticks
+    # with a P session (a stop may cut a host's last tick after its launch)
+    with_p = sum(1 for t in ticks_a + ticks_b if not all(t[2]))
+    cut = sum(1 for rec in (run["rec_a"], run["rec_b"]) for e in rec.log
+              if e[0] == "tick") - len(ticks_a) - len(ticks_b)
+    plain = run["plain_calls"]["me_mc_batch_plain"]
+    kernel, other = (run["launches"], plain) if dev is None else (plain, run["launches"])
+    if not with_p <= kernel <= with_p + cut or with_p == 0 or other or \
+            (dev is None and run["plain_calls"]["me_mc_plain"]):
+        _fail(f"phase 20 (b): K1 launched {run['launches']} times, its plain versions "
+              f"{run['plain_calls']}, for {with_p} ticks with a P session on A and B "
+              f"({cut} cut)")
+    ck = json.loads(st["checkpoint"])
+    frames = _SyntheticFrames(n, w, h)
+    card = dev or "cuda"
+    oracle = TorchMultiSessionH264Service(n, w, h, qp=28, fps=FS_FPS, device=card)
+    try:
+        _feed(oracle, run["rec_a"].log, frames.batch)
+        # A serves the session on while the ship is in flight, so its last
+        # P frames may postdate the checkpoint; no IDR does (the drain's
+        # forced IDR came before the migrate-off), so the GOP phase agrees
+        if ck["idr_pic_id"] != oracle.sessions[0].idr_pic_id or \
+                ck["frames_since_idr"] > oracle.sessions[0].frames_since_idr:
+            _fail(f"phase 20 (b): the checkpoint {ck} is not A's state")
+        oracle.force_keyframe(0)
+        # B's ticks with the landing session's frame and QP in session 0's place
+        log_b = run["rec_b"].log
+        got, want, qp = [], [], None
+        for ev in log_b:
+            if ev[0] == "set_qp" and ev[1] == k2:
+                qp = ev[2]
+            elif ev[0] == "tick":
+                batch = frames.batch(ev[1])
+                batch[0] = batch[k2].copy()
+                if qp is not None:
+                    oracle.set_qp(0, qp)
+                want.append((hashlib.sha256(oracle.encode_tick(batch)[0]).hexdigest(),
+                             bool(oracle.last_idrs[0])))
+            elif ev[0] == "aus":
+                got.append((ev[1][k2], bool(ev[2][k2])))
+            if len(got) == 3:
+                break
+    finally:
+        oracle.close()
+    if not got or not got[0][1] or got != want[:len(got)]:
+        _fail(f"phase 20 (b): B's first AUs of the session {got} differ from the oracle's "
+              f"{want[:len(got)]}")
+    sent = [hashlib.sha256(p).hexdigest() for *_, p in run["cb"].video]
+    if sent[:len(got)] != [g[0] for g in got]:
+        _fail("phase 20 (b): the client's first AUs on B are not B's first AUs of the session")
+    first_tick_b = next(i for i, t in enumerate(ticks_b) if t[1][k2] != hashlib.sha256(
+        b"").hexdigest())
+    return {"hosts": 2, "sessions_per_host": n, "geometry": f"{w}x{h}",
+            "heartbeat_s": FC_HEARTBEAT_S,
+            "heartbeat_to_alive_s": st["b_alive_at"] - st["b_beats_at"],
+            "ship_to_ack_ms": (st["ship_acked_at"] - st["ship_at"]) * 1e3,
+            "restore_ms": (st["acked_at"] - st["restore_at"]) * 1e3,
+            "checkpoint_to_first_au_ms": (st["b_first_send_at"] - st["ship_at"]) * 1e3,
+            "redirect_to_client_first_au_ms": (st["client_first_au_at"] - st["redirect_at"])
+            * 1e3,
+            "redirect_sent_to_seen_ms": (st["redirect_seen_at"] - st["redirect_at"]) * 1e3,
+            "landing": k2, "oracle_equal_aus": len(got), "ticks_a": len(ticks_a),
+            "ticks_b": len(ticks_b), "first_tick_b_with_session": first_tick_b,
+            "me_mc_launches": run["launches"], "ticks_with_p": with_p,
+            "me_mc_plain_calls": run["plain_calls"],
+            "signed": True, "drive_s": run["drive_s"]}
+
+
+def _fleet_server_phase(dev=None, loop_fps: float | None = None, n: int = FS_N,
+                        w: int = FS_W, h: int = FS_H, cluster_n: int = FC_N) -> dict:
+    """Phase 20: (a) the fleet server, (b) two cluster hosts and a live
+    migration (``dev`` None: the card)."""
+    from selkies_tpu_torch.monitoring.telemetry import telemetry
+    from selkies_tpu_torch.resilience import faultinject
+
+    _set_hooks(False)
+    faultinject.reset_faults()
+    out: dict = {}
+    t0 = time.perf_counter()
+    run = _fleet_server_run(dev, n, w, h)
+    out["a"] = _fleet_server_checks(run, dev, n, w, h)
+    out["a"]["seconds"] = time.perf_counter() - t0
+    a = out["a"]
+    if loop_fps:
+        a["share_of_phase17_loop"] = a["fps"] / loop_fps
+    card, limit = (s.strip() for s in _nvidia_smi().split(",", 1)) if dev is None else (dev, "-")
+    print(f"phase 20 (a) FleetOrchestrator --tpu_sessions {n} {w}x{h} {FS_FPS} fps {FS_KBPS} "
+          f"kbps, {n - 1} /media clients and an RtcBrowser: every session's AUs a run of its "
+          f"recorded ones, a keyframe with its SPS among the first two; {a['ticks_recorded']} "
+          f"ticks equal "
+          f"their card replay, the first {FS_CPU_TICKS} and ticks "
+          f"{json.dumps(a['cpu_probe_ticks'])} (each from the card replay's state) the "
+          f"CPU's; K1 {a['me_mc_launches']} "
+          f"launches = {a['ticks_with_p']} ticks with a P session, plain versions "
+          f"{json.dumps(a['me_mc_plain_calls'])}, max |K1 - plain| "
+          f"{a['me_mc_plain_max_abs_err']}; "
+          f"the drain force-IDRed every client and handed off {a['checkpoints']} checkpoints; "
+          f"{a['fps']:.2f} fps across sessions"
+          + (f" = {a['share_of_phase17_loop']:.3f} of phase 17's loop ({loop_fps:.2f})"
+             if loop_fps else "")
+          + f"; capture->send {a['capture_to_send_ms_median']:.2f} ms median, "
+          f"{a['capture_to_send_ms_p95']:.2f} p95 ({card}, {limit}) "
+          + json.dumps({"window": a["window"], "profile": a["profile"],
+                        "rtc_times": a["rtc_times"],
+                        "seconds": {k: a[k] for k in ("drive_s", "drain_s", "card_replay_s",
+                                                      "cpu_replay_s")}})
+          + f"; {a['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    telemetry.disable()
+    run = _cluster_run(dev, cluster_n, w, h)
+    out["b"] = _cluster_checks(run, dev, cluster_n, w, h)
+    out["b"]["seconds"] = time.perf_counter() - t0
+    bo = out["b"]
+    print(f"phase 20 (b) two hosts x --tpu_sessions {cluster_n} at {w}x{h}, signed heartbeats "
+          f"every {FC_HEARTBEAT_S} s, HttpMigrationChannel: host A drained, session 0 landed on "
+          f"B's slot {bo['landing']}, the client followed the REDIRECT; B's first "
+          f"{bo['oracle_equal_aus']} AUs of it (the first the recovery IDR) equal the card's "
+          f"uninterrupted oracle; K1 {bo['me_mc_launches']} launches = {bo['ticks_with_p']} "
+          f"ticks with a P session on A and B, plain versions "
+          f"{json.dumps(bo['me_mc_plain_calls'])}; heartbeat -> alive "
+          f"{bo['heartbeat_to_alive_s']:.3f} s, ship "
+          f"-> ack {bo['ship_to_ack_ms']:.1f} ms (B's restore {bo['restore_ms']:.1f} ms), "
+          f"checkpoint -> B's first AU "
+          f"{bo['checkpoint_to_first_au_ms']:.1f} ms, redirect -> the client's first AU "
+          f"{bo['redirect_to_client_first_au_ms']:.1f} ms ({card}, {limit}); "
+          f"{bo['seconds']:.1f} s")
+    out.update(card=card, power_limit=limit)
     return out
 
 
@@ -5579,7 +6309,15 @@ def main() -> int:
     # -- 19. the solo server over WebRTC: a clean link, then a lossy one
     record["webrtc_path"] = _webrtc_phase()
     print(f"phase 19: {record['webrtc_path']['seconds']:.1f} s")
-    print(f"phases 1-9 and 12-19: {time.perf_counter() - t_start:.1f} s")
+    # -- 20. the fleet server (--tpu_sessions 8) and two cluster hosts
+    t0 = time.perf_counter()
+    loop_runs = [r["fps"] for r in record["fleet_loop_path"]["b"]["runs"]
+                 if r["occupancy"] == "1"]
+    record["fleet_server_path"] = _fleet_server_phase(
+        loop_fps=statistics.median(loop_runs) if loop_runs else None)
+    record["fleet_server_path"]["seconds"] = time.perf_counter() - t0
+    print(f"phase 20: {record['fleet_server_path']['seconds']:.1f} s")
+    print(f"phases 1-9 and 12-20: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
@@ -5851,6 +6589,10 @@ def main() -> int:
         "launches_webrtc_path": record["webrtc_path"]["me_mc_launches"],
         "launches_per_p_frame_webrtc_path": record["webrtc_path"]["k1_session_launches"]
         / record["webrtc_path"]["p_frames"],
+        "launches_fleet_server_path": record["fleet_server_path"]["a"]["me_mc_launches"],
+        "ticks_with_p_fleet_server_path": record["fleet_server_path"]["a"]["ticks_with_p"],
+        "plain_calls_fleet_server_path": record["fleet_server_path"]["a"]["me_mc_plain_calls"],
+        "launches_cluster_path": record["fleet_server_path"]["b"]["me_mc_launches"],
         "card": card, "power_limit": power_limit,
     }, {
         "name": "me_mc (8 sessions, one launch)", "route": "cuda",

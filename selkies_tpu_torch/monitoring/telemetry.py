@@ -6,10 +6,9 @@ family specs, ``Telemetry`` with ``count`` / ``gauge`` / ``observe`` /
 ``statz_json`` and ``health``, and the same ``SELKIES_TELEMETRY`` switch.
 The Prometheus collector (``register_into`` / ``registry``, which
 ``metrics.py`` calls; ``prometheus_client`` is imported only when they
-run) and ``_supported_codecs`` (the codec rows the port's negotiation
-probes) are copied too. One part waits for the module it reads (ROADMAP queue 1, item
-3.4): the capacity digest (the cluster's ``build_digest``), so
-``health()`` carries no ``capacity`` block.
+run), ``_supported_codecs`` (the codec rows the port's negotiation
+probes) and ``capacity_digest`` (over the port's ``cluster.membership.
+build_digest``, the ``capacity`` block of ``health()``) are copied too.
 
 Where monitoring/tracing.py answers "how long did each stage take?"
 (anonymous spans on a timeline), this bus answers "what happened to
@@ -710,6 +709,36 @@ class Telemetry:
 
     # -- read side -----------------------------------------------------
 
+    def capacity_digest(self) -> dict:
+        """The ONE machine-readable capacity/drain summary of this
+        process — shared verbatim by ``/healthz`` (the ``capacity``
+        block), ``/statz`` (inside ``health``) and the cluster
+        heartbeat (cluster/membership.py, which owns the
+        actual derivation in ``build_digest``). Folds the registered
+        lifecycle (drain state + placer carve), device-health
+        (degraded chip capacity) and SLO (chronic-burn sessions) views
+        plus the probed codec rows into stable fields so no surface
+        re-derives them."""
+        from selkies_tpu_torch.cluster.membership import build_digest
+
+        lc = self._lifecycle() if self._lifecycle is not None else None
+        dev = self._devhealth() if self._devhealth is not None else None
+        slo = self._slo() if self._slo is not None else None
+        dev_view = slo_views = None
+        if dev is not None:
+            try:
+                dev_view = dev()
+            except Exception:
+                dev_view = None
+        if slo is not None:
+            try:
+                slo_views = slo()
+            except Exception:
+                slo_views = None
+        return build_digest(drain=lc, devices_view=dev_view,
+                            slo_views=slo_views,
+                            codecs=_supported_codecs())
+
     def health(self) -> dict:
         """Rung/watchdog summary for k8s-style probes. Works with
         telemetry disabled — supervisors register unconditionally.
@@ -761,6 +790,13 @@ class Telemetry:
                 out["slo"] = slo()
             except Exception:
                 out["slo"] = {"error": "unreadable"}
+        # the machine-readable capacity digest: the same fields the
+        # cluster heartbeat ships, so an external balancer/autoscaler
+        # reads ONE schema whether it scrapes /healthz or the gossip
+        try:
+            out["capacity"] = self.capacity_digest()
+        except Exception:
+            out["capacity"] = {"error": "unreadable"}
         return out
 
     def rollup(self) -> dict:

@@ -10,9 +10,11 @@ The port's copy of ``selkies_tpu/orchestrator.py``, whole, run as
 * ``TransportMux`` lives in ``transport/mux.py``, which the fleet imports
   without the server stack; this module re-exports it. Its WebRTC plane is
   the port's ``WebRTCTransport`` (``transport/webrtc/``), built as JAX's.
-* The cluster plane (``SELKIES_CLUSTER_PEERS``) raises
-  ``NotImplementedError`` (ROADMAP queue 1, item 3.4), and so does
-  ``main`` for ``tpu_sessions > 1`` (``FleetOrchestrator``, item 3.3).
+* ``main`` routes ``tpu_sessions > 1`` to the port's ``FleetOrchestrator``
+  (``parallel/fleet.py``), passing ``device`` through as its one device.
+  With ``SELKIES_CLUSTER_PEERS`` set the solo server heartbeats its
+  capacity digest and routes client HELLOs through the port's cluster
+  plane (``cluster/``), as JAX's does.
 
 Parity target: the reference __main__.py main() (:335-992): resolve config
 (flags ⇄ env ⇄ JSON overlay), resolve the TURN credential chain, start the
@@ -28,7 +30,7 @@ import logging
 import os
 
 from selkies_tpu_torch.audio import AudioPipeline, open_best_audio_source, opus_available
-from selkies_tpu_torch.cluster import ENV_PEERS, cluster_enabled
+from selkies_tpu_torch.cluster import cluster_enabled
 from selkies_tpu_torch.config import Config, parse_config
 from selkies_tpu_torch.input_host import HostInput
 from selkies_tpu_torch.input_host.resize import resize_display, set_cursor_size, set_dpi
@@ -257,12 +259,6 @@ class Orchestrator:
     def __init__(self, cfg: Config, *, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        # multi-host cluster plane: not in the port yet, so refuse
-        # before anything is built
-        if cluster_enabled():
-            raise NotImplementedError(
-                f"{ENV_PEERS} is set, but the port has no cluster plane yet "
-                "(ROADMAP queue 1, item 3.4)")
         self.metrics = Metrics(
             port=int(cfg.metrics_http_port),
             using_webrtc_csv=bool(cfg.enable_webrtc_statistics),
@@ -330,6 +326,37 @@ class Orchestrator:
         self.drainer = DrainController(
             "solo", force_idr=self.app.force_keyframe,
             flush=self._drain_flush, on_drained=self._drain_exit)
+        # multi-host cluster plane (selkies_tpu_torch/cluster): the solo host
+        # heartbeats its capacity digest and routes client HELLOs —
+        # redirecting when draining or already serving — but doesn't
+        # receive migrations (one session shape, nothing to restore
+        # into while occupied)
+        self.cluster = None
+        if cluster_enabled():
+            from selkies_tpu_torch.cluster import build_cluster_plane, wire_cluster_plane
+
+            def _solo_digest():
+                # a bare solo host has no placer: occupancy is the one
+                # capacity fact it owns, and without it peers would
+                # keep scoring an occupied host as free and redirect
+                # clients into a hang
+                d = telemetry.capacity_digest()
+                d["busy"] = 1 if self._session_active else 0
+                d["free_slots"] = 0 if self._session_active else 1
+                return d
+
+            # pin ONLY the active session's own browser peer (the solo
+            # web client registers as peer "1"): its encoder state lives
+            # here even mid-drain, but a DIFFERENT client knocking on an
+            # occupied or draining solo host should go through routing.
+            # wire_cluster_plane owns the wire-or-refuse security policy
+            # (unsigned /cluster routes on a basic-auth server)
+            self.cluster = wire_cluster_plane(
+                build_cluster_plane(
+                    is_local_session=lambda uid: (self._session_active
+                                                  and str(uid) == "1"),
+                    digest_fn=_solo_digest),
+                self.server, enable_basic_auth=bool(cfg.enable_basic_auth))
         self._last_rtt_ms = 0.0
         self._wire_callbacks()
         # scenario-policy congestion signals (selkies_tpu/policy): the
@@ -796,6 +823,8 @@ class Orchestrator:
         if cfg.enable_metrics_http:
             self._tasks.append(spawn(self.metrics.start_http()))
 
+        if self.cluster is not None:
+            await self.cluster.start()  # membership heartbeats
         # SIGTERM/SIGINT route through the drain path (lifecycle.py)
         # instead of abrupt cancellation
         from selkies_tpu_torch.parallel.lifecycle import install_signal_handlers
@@ -814,6 +843,8 @@ class Orchestrator:
         if self._uninstall_signals is not None:
             self._uninstall_signals()
             self._uninstall_signals = None
+        if self.cluster is not None:
+            await self.cluster.stop()
         await self.webrtc.stop_session()
         await self._stop_session()
         self.system_mon.stop()
@@ -833,10 +864,13 @@ async def main(argv: list[str] | None = None, *, device=None) -> None:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
     if int(cfg.tpu_sessions) > 1:
-        # fleet mode: JAX's FleetOrchestrator, not in the port yet
-        raise NotImplementedError(
-            f"tpu_sessions={cfg.tpu_sessions}: the port has no FleetOrchestrator "
-            "yet (ROADMAP queue 1, item 3.3)")
+        # fleet mode: N sessions off one batched device step
+        # (parallel/fleet.py) on the caller's device
+        from selkies_tpu_torch.parallel.fleet import FleetOrchestrator
+
+        devices = None if device is None else [resolve_device(device)]
+        await FleetOrchestrator(cfg, devices=devices).run()
+        return
     await Orchestrator(cfg, device=device).run()
 
 

@@ -18,8 +18,13 @@ policy and SLO planes. Where it departs from JAX (ROADMAP queue 3,
   until a slot needs one), and ``webrtc=None`` the port's
   ``WebRTCTransport``, as JAX's slot builds its own. With no peer
   connected the mux routes media and control to the WebSocket plane.
-* ``FleetOrchestrator`` (``fleet.py:1077-1768``: signalling, WebRTC,
-  audio, input, the cluster) is a later slice.
+* ``FleetOrchestrator(cfg, devices=None)`` (``fleet.py:1077-1768``: the
+  ``--tpu_sessions N`` server with signalling, WebRTC, audio, input, the
+  drain and the cluster plane) takes ``devices`` as ``SessionFleet`` does.
+  ``DeviceMonitor`` takes ``TPUMonitor``'s place and is not built on the
+  CPU. The server stack (aiohttp, the input host) is imported when a
+  ``FleetOrchestrator`` is built, not with this module. Its drain flush
+  counts ticks where JAX's polls ``_tick_in_flight`` (``_drain_flush``).
 
 One host process serves N concurrent browser sessions off ONE batched
 device step (parallel/serving.TorchMultiSessionH264Service): session k's
@@ -51,6 +56,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
 import time
 
 import numpy as np
@@ -67,7 +73,7 @@ from selkies_tpu_torch.transport.webrtc.transport import WebRTCTransport
 
 logger = logging.getLogger("fleet")
 
-__all__ = ["SessionSlot", "SessionFleet", "dryrun"]
+__all__ = ["SessionSlot", "SessionFleet", "FleetOrchestrator", "dryrun"]
 
 
 def browser_peer_id(session: int) -> int:
@@ -1089,3 +1095,718 @@ def dryrun(n_devices: int, devices=None) -> None:
     finally:
         fleet.service.close()
 
+
+class FleetOrchestrator:
+    """The ``selkies-tpu --tpu_sessions N`` entrypoint.
+
+    Shares the solo Orchestrator's server construction and TURN chain
+    (orchestrator.make_signalling_server / resolve_rtc_config); differs
+    in the media core (SessionFleet) and in wiring one transport pair +
+    input host per session. Fleet mode serves the tpuh264enc row only —
+    the batched step is the multi-session program (parallel/sessions.py).
+
+    ``devices`` is SessionFleet's: None takes the device pool's cards and
+    raises without one; the CPU serves only when the caller passes it.
+    The device monitor reads the card the batch service runs on; on the
+    CPU none is built and no ``gpu_stats`` are sent.
+    """
+
+    def __init__(self, cfg, *, devices=None, service=None):
+        self.cfg = cfg
+        self.n = int(cfg.tpu_sessions)
+        if self.n < 2:
+            raise ValueError("FleetOrchestrator requires tpu_sessions >= 2")
+        if str(cfg.encoder) != "tpuh264enc":
+            logger.warning(
+                "fleet mode serves the sharded tpuh264enc step; ignoring "
+                "encoder=%s", cfg.encoder)
+        from selkies_tpu_torch.device import resolve_device
+        from selkies_tpu_torch.monitoring import DeviceMonitor, Metrics, SystemMonitor
+        from selkies_tpu_torch.orchestrator import make_signalling_server
+
+        self.metrics = Metrics(
+            port=int(cfg.metrics_http_port),
+            using_webrtc_csv=bool(cfg.enable_webrtc_statistics),
+        )
+        width, height = int(cfg.capture_width), int(cfg.capture_height)
+        # one parse for both the frame sources and the input backends —
+        # the two must agree on which session owns which display
+        self.displays = [d.strip() for d in str(
+            cfg.session_displays or "").split(",") if d.strip()]
+        self.audio_devices = [d.strip() for d in str(
+            cfg.session_audio_devices or "").split(",")]
+        from selkies_tpu_torch.audio import opus_available
+
+        self._opus = opus_available()
+        if any(self.audio_devices) and not self._opus:
+            logger.warning(
+                "session_audio_devices configured but libopus is not "
+                "available; fleet audio disabled")
+
+        self.slots = [
+            SessionSlot(
+                k, bitrate_kbps=int(cfg.video_bitrate), fps=int(cfg.framerate),
+                # the SDP offer must carry an audio m-line exactly when
+                # this session will actually stream audio
+                webrtc_audio=self._has_audio(k),
+                turn_tls_insecure=bool(cfg.turn_tls_insecure),
+            )
+            for k in range(self.n)
+        ]
+        sources = self._make_sources(width, height)
+        self.fleet = SessionFleet(
+            self.slots, width=width, height=height, fps=int(cfg.framerate),
+            sources=sources, devices=devices, service=service,
+        )
+        self._wire_audio()
+        # a poisoned slot (persistent capture/send failures, recycle rung)
+        # goes through the full disconnect path: transport teardown, input
+        # reset, signalling re-arm — the client reconnects into a fresh
+        # session instead of staring at a frozen canvas
+        self.fleet.on_slot_poisoned = (
+            lambda k: self._slot_disconnected(k, self.slots[k]))
+        self.server = make_signalling_server(cfg)
+        # /media/<k> per session; bare /media aliases session 0 so the
+        # stock solo client works against a fleet server
+        for k, slot in enumerate(self.slots):
+            self.server.ws_routes[f"/media/{k}"] = slot.ws.handle_connection
+        self.server.ws_routes["/media"] = self.slots[0].ws.handle_connection
+        self.system_mon = SystemMonitor()
+        # the card's monitor reads the batch service's card: none on the CPU
+        device = getattr(self.fleet.service, "device", None)
+        if device is None:
+            device = resolve_device(devices[0] if devices else None)
+        self.device_mon = (DeviceMonitor(device=device)
+                           if device.type == "cuda" else None)
+        if self.device_mon is not None:
+            self.fleet.on_tick = lambda ms: self.device_mon.observe_encode(ms)
+            self.device_mon.on_stats = self._broadcast_tpu_stats
+        self._tasks: list[asyncio.Task] = []
+        self._rearm: dict[int, asyncio.Event] = {}
+        self._uninstall_signals = None
+        self._wire_slots()
+        # multi-host cluster plane (selkies_tpu_torch/cluster, on only when
+        # SELKIES_CLUSTER_PEERS names peers): membership heartbeats,
+        # capacity-aware HELLO routing on the signalling server, and the
+        # inbound/outbound live-migration halves
+        self.cluster = None
+        from selkies_tpu_torch.cluster import cluster_enabled
+
+        if cluster_enabled():
+            from selkies_tpu_torch.cluster import build_cluster_plane, wire_cluster_plane
+
+            # wire_cluster_plane owns the wire-or-refuse security policy
+            # (unsigned /cluster routes on a basic-auth server)
+            self.cluster = wire_cluster_plane(
+                build_cluster_plane(
+                    fleet=self.fleet,
+                    is_local_session=self._cluster_local_session),
+                self.server, enable_basic_auth=bool(cfg.enable_basic_auth))
+        # graceful drain (the K8s preStop path, parallel/lifecycle.py):
+        # SIGTERM stops admitting, force-IDRs every client, flushes the
+        # in-flight tick, live-migrates sessions to cluster peers when
+        # the plane is wired (migrate-off-then-stop), checkpoints the
+        # leftovers for hand-off, then stops the serving loop and the
+        # server so run() returns cleanly
+        from selkies_tpu_torch.parallel.lifecycle import DrainController
+
+        self.drain_checkpoints: list = []
+        self.drainer = DrainController(
+            "fleet", placer=self.fleet.placer,
+            force_idr=self._drain_force_idr, flush=self._drain_flush,
+            handoff=self._drain_handoff, on_drained=self._drain_exit,
+            migrate=self._drain_migrate if self.cluster is not None else None)
+        telemetry.register_provider("fleet", self._fleet_stats)
+        telemetry.register_provider("recovery", self._recovery_stats)
+
+    def _fleet_stats(self) -> dict:
+        """/statz live view of the lockstep serving core + placement."""
+        f = self.fleet
+        return {
+            "sessions": self.n,
+            "connected": sum(1 for s in self.slots if s.connected),
+            "ticks": f.ticks, "fps": f.fps,
+            "last_tick_ms": round(f.last_tick_ms, 3),
+            "software_mode": f.software_mode,
+            "frames": {str(k): s.frames for k, s in enumerate(self.slots)},
+            # placement rollup: live carve map, admission accept/reject
+            # counters, queue depth, borrowed-chip count
+            "placement": f.placer.stats(),
+        }
+
+    def _recovery_stats(self) -> dict:
+        """/statz recovery block: one ladder per session slot."""
+        return {str(k): s.recovery.stats()
+                for k, s in enumerate(self.slots) if s.recovery is not None}
+
+    # -- cluster plumbing (selkies_tpu_torch/cluster) ------------------
+
+    def _cluster_local_session(self, uid: str) -> bool:
+        """Router hook: HELLOs from clients of sessions currently
+        served HERE are pinned — their encoder state and carve row live
+        on this host, so redirecting a reconnect would orphan both.
+        A migrated-in session inside its claim window counts too: its
+        restored encoder state is parked on a not-yet-connected slot,
+        and bouncing the redirected client away (e.g. because the
+        restore consumed the last free slot) would strand that state
+        until the claim expires and the session is lost."""
+        try:
+            n = int(uid)
+        except (TypeError, ValueError):
+            return False
+        k, rem = divmod(n - 1, 10)
+        if rem != 0 or not 0 <= k < self.n:
+            return False
+        if self.slots[k].connected:
+            return True
+        plane = self.cluster
+        return plane is not None and k in plane.target.pending_claims
+
+    async def _drain_migrate(self) -> list[int]:
+        """Migrate-off-then-stop: for every connected session pick the
+        best cluster target (codec-capable, capacity, not draining),
+        ship its checkpoint, and redirect its client to the new host.
+        Sessions the cluster can't place (or whose ship fails) stay
+        connected and fall through to the checkpoint hand-off."""
+        from selkies_tpu_torch.cluster import Redirect, migrate_session
+
+        async def _migrate_one(k: int, slot) -> int | None:
+            target = self.cluster.router.pick_migration_target(
+                codec=self.fleet.session_codec(k))
+            if target is None:
+                logger.warning("drain: no cluster target for session %d; "
+                               "leaving it for the checkpoint hand-off", k)
+                return None
+            try:
+                ack = await migrate_session(self.fleet, k, target,
+                                            self.cluster.channel,
+                                            source=self.cluster.node.host)
+            except Exception:
+                logger.exception("drain: migrating session %d to %s "
+                                 "failed; it stays for the hand-off",
+                                 k, target)
+                return None
+            # mark the slot migrated BEFORE the redirect await: a drain
+            # deadline cancelling us here must not leave a connected
+            # slot for checkpoint_all to double-checkpoint (the client
+            # missing its redirect degrades to the documented
+            # lost-redirect path — target claim expiry)
+            slot.connected = False
+            # the client follows the redirect into its restored session;
+            # the landing slot index rides along so a cross-index
+            # landing re-registers under the right peer id. The full
+            # transport teardown runs only AFTER the record is on the
+            # signalling socket — the dc/pc close racing ahead of the
+            # redirect would strand a browser, whose only reconnect
+            # path IS the redirect itself
+            await self.server.redirect_peer(
+                str(browser_peer_id(k)),
+                Redirect(host=target, reason="migrated",
+                         session=ack.get("session")))
+            self._teardown_slot(k, slot)
+            return k
+
+        # ship concurrently: migrations are independent, and one slow or
+        # dead target (the 10 s HTTP ship timeout) must not serially eat
+        # the shared drain deadline for sessions whose targets are fine
+        moved = await asyncio.gather(
+            *(_migrate_one(k, slot) for k, slot in enumerate(self.slots)
+              if slot.connected),
+            return_exceptions=True)
+        for m in moved:
+            if isinstance(m, BaseException):
+                logger.error("drain migrate task failed: %r", m)
+        return [m for m in moved if isinstance(m, int)]
+
+    # -- drain plumbing (lifecycle.DrainController callbacks) ----------
+
+    def _drain_force_idr(self) -> None:
+        for k, slot in enumerate(self.slots):
+            if slot.connected:
+                self.fleet.force_keyframe(k)
+
+    async def _drain_flush(self) -> None:
+        """In-flight groups land on the wire: the first tick that STARTS
+        after _drain_force_idr set the flags carries the forced IDR — the
+        tick after the one running now, if one is — and its sends have
+        landed once the loop went idle between ticks or the tick after
+        it has encoded (ticks increments after a tick's encode; the next
+        tick starts only after the previous sends gathered).
+
+        JAX's flush polls for ``_tick_in_flight`` to clear. A fleet that
+        runs behind its fps (8 x 1080p60 on one card) starts the next
+        tick in the same loop iteration that clears the flag, so the poll
+        never sees it clear and the flush runs out the drain deadline
+        (leaving none for the migrate-off). The port counts ticks instead;
+        the same tick carries the IDR, so the bytes are JAX's."""
+        fleet = self.fleet
+        target = fleet.ticks + (2 if fleet._tick_in_flight else 1)
+        while (any(s.connected for s in self.slots) and fleet._task is not None
+               and (fleet.ticks < target
+                    or (fleet.ticks == target and fleet._tick_in_flight))):
+            await asyncio.sleep(0.02)
+
+    def _drain_handoff(self) -> list:
+        self.drain_checkpoints = self.fleet.checkpoint_all()
+        return self.drain_checkpoints
+
+    async def _drain_exit(self) -> None:
+        await self.fleet.stop()
+        await self.server.stop()
+
+    async def drain(self) -> bool:
+        """Graceful exit: see lifecycle.DrainController.drain()."""
+        return await self.drainer.drain()
+
+    def _make_sources(self, width: int, height: int):
+        """Per-session displays from ``--session_displays`` (csv of X
+        DISPLAY names, e.g. ':10,:11'); sessions beyond the list — and
+        sessions whose display is unreachable or mis-sized — get a
+        synthetic source seeded per-session, so streams stay distinct
+        even when every display fails (headless / test rigs)."""
+        from selkies_tpu_torch.pipeline.capture import make_frame_source
+
+        sources = []
+        for k in range(self.n):
+            src = None
+            if k < len(self.displays):
+                src = make_frame_source(width, height, display=self.displays[k])
+                if isinstance(src, SyntheticSource):
+                    src = None  # display unreachable; re-seed below
+                elif (src.width, src.height) != (width, height):
+                    logger.warning(
+                        "session %d display %s is %dx%d; fleet geometry is "
+                        "%dx%d (lockstep batch) — using synthetic source",
+                        k, self.displays[k], src.width, src.height, width, height)
+                    src = None
+            sources.append(src if src is not None
+                           else SyntheticSource(width, height, seed=k))
+        return sources
+
+    def _has_audio(self, k: int) -> bool:
+        """Whether session k streams audio — the ONE predicate behind
+        both the SDP audio m-line and the pipeline construction."""
+        return (self._opus and k < len(self.audio_devices)
+                and bool(self.audio_devices[k]))
+
+    def _wire_audio(self) -> None:
+        """Per-session audio: each fleet session's desktop pairs with its
+        own PulseAudio monitor (``--session_audio_devices``). Sessions
+        with a listed device get an Opus pipeline into their own
+        transport; without one, fleet stays video+input for that session
+        (one shared default monitor would leak audio across users)."""
+        from selkies_tpu_torch.audio import AudioPipeline, open_best_audio_source
+
+        for k, slot in enumerate(self.slots):
+            slot.audio = None
+            if self._has_audio(k):
+                slot.audio = AudioPipeline(
+                    source=open_best_audio_source(self.audio_devices[k]),
+                    sink=slot.transport.send_audio,
+                    bitrate_bps=int(self.cfg.audio_bitrate),
+                )
+
+    async def _apply_audio_state(self, slot: SessionSlot) -> None:
+        """Converge the slot's audio pipeline to its connect state.
+        Serialized per slot: fire-and-forget stop()/start() from a fast
+        reconnect can interleave (start early-returns while the
+        cancelled task is still unwinding) and leave a connected client
+        silent; under the lock the LAST task applies the latest state."""
+        if slot.audio is None:
+            return
+        async with slot.audio_lock:
+            if slot.connected and not slot.audio.running:
+                await slot.audio.start()
+            elif not slot.connected and slot.audio.running:
+                await slot.audio.stop()
+
+    def _make_input(self, k: int):
+        """Session k's input host. Slots with a configured display inject
+        into that X server; others record into the fake backend (a fleet
+        host runs one Xvfb per session, packaging/Dockerfile)."""
+        from selkies_tpu_torch.input_host import HostInput
+        from selkies_tpu_torch.input_host.backends import FakeBackend, X11Backend
+        from selkies_tpu_torch.input_host.x11 import X11Display
+
+        cfg = self.cfg
+        backend = None
+        if k < len(self.displays):
+            try:
+                backend = X11Backend(X11Display.open(self.displays[k]))
+            except Exception as exc:
+                logger.warning("session %d: X input on %s unavailable (%s)",
+                               k, self.displays[k], exc)
+        has_display = backend is not None
+        if backend is None:
+            backend = FakeBackend()
+        # per-session gamepad socket directory: the selkies_js{0-3}.sock
+        # names are fixed, so sessions sharing one directory would steal
+        # each other's bound sockets (gamepad cross-wiring)
+        js_dir = os.path.join(str(cfg.js_socket_path), f"session-{k}")
+        os.makedirs(js_dir, exist_ok=True)
+        return HostInput(
+            backend=backend,
+            js_socket_path=js_dir,
+            enable_clipboard=str(cfg.enable_clipboard).lower(),
+            # cursor monitoring is per-X-display (XFixes events); only
+            # slots driving a real display can observe cursor changes
+            enable_cursors=bool(cfg.enable_cursors) and has_display,
+            cursor_size=int(cfg.cursor_size),
+            cursor_debug=bool(cfg.debug_cursors),
+        )
+
+    def _wire_slots(self) -> None:
+        cfg = self.cfg
+        for k, slot in enumerate(self.slots):
+            slot.input = self._make_input(k)
+            inp = slot.input
+
+            def on_connect(k=k, slot=slot):
+                first = not slot.connected
+                if first:
+                    # admission control (parallel/lifecycle.py): a first
+                    # plane connecting is a session asking for capacity —
+                    # draining hosts, down fleets, and over-committed
+                    # carves refuse here; the client's reconnect loop
+                    # retries into freed capacity (queue promotion)
+                    adm = self.fleet.admit_client(k)
+                    if not adm.accepted:
+                        logger.warning("session %d client refused: %s (%s)",
+                                       k, adm.decision, adm.reason)
+                        loop = asyncio.get_running_loop()
+                        loop.create_task(slot.ws.close())
+                        loop.create_task(slot.webrtc.stop_session())
+                        return
+                slot.connected = True
+                if slot.gcc is not None:
+                    slot.gcc.reset()
+                self.fleet.force_keyframe(k)
+                slot.send_codec(self.fleet.session_codec(k))
+                if first and slot.audio is not None:
+                    asyncio.get_running_loop().create_task(
+                        self._apply_audio_state(slot))
+                logger.info("session %d client connected%s", k,
+                            "" if first else " (additional plane)")
+
+            def on_ws_disconnect(k=k, slot=slot):
+                if slot.webrtc.connected:
+                    return
+                self._slot_disconnected(k, slot)
+
+            def on_rtc_disconnect(k=k, slot=slot):
+                if slot.ws.data_channel_ready:
+                    return
+                self._slot_disconnected(k, slot)
+
+            slot.ws.on_connect = on_connect
+            slot.ws.on_disconnect = on_ws_disconnect
+            slot.ws.on_data_message = inp.on_message
+            slot.webrtc.on_connect = on_connect
+            slot.webrtc.on_disconnect = on_rtc_disconnect
+            slot.webrtc.on_data_message = inp.on_message
+            slot.webrtc.on_force_keyframe = (
+                lambda k=k: self.fleet.force_keyframe(k))
+
+            # per-session rate loop: client vb → cap + probe point; GCC
+            # estimates → this session's CBR target only
+            if bool(cfg.congestion_control):
+                audio_kbps = max(int(cfg.audio_bitrate) // 1000, 0)
+                slot.gcc = GccController(
+                    start_kbps=int(cfg.video_bitrate),
+                    min_kbps=max(100 + audio_kbps, int(cfg.video_bitrate) // 10),
+                    max_kbps=int(cfg.video_bitrate),
+                    on_estimate=lambda kbps, k=k: self.fleet.set_session_bitrate(k, kbps),
+                    session=str(k),
+                )
+                slot.ws.on_video_sent = slot.gcc.on_frame_sent
+                inp.on_media_ack = slot.gcc.on_frame_ack
+                slot.webrtc.on_video_sent = slot.gcc.on_frame_sent
+                slot.webrtc.on_video_acked = slot.gcc.on_frame_ack
+                slot.webrtc.on_loss = slot.gcc.on_loss_report
+
+            # per-session recovery ladder (transport/recovery.py): FEC
+            # tracks THIS session's loss; an unrecoverable gap force-IDRs
+            # only this slot; the degrade rung clamps this session's
+            # bitrate (fleet geometry/fps are lockstep, so a single bad
+            # link must never downscale the whole fleet). Inert under
+            # SELKIES_RECOVERY=0.
+            slot.recovery = RecoveryController(session=str(k))
+            slot.recovery.on_set_fec = slot.webrtc.set_fec_percentage
+            slot.recovery.on_force_idr = (
+                lambda k=k: self.fleet.force_keyframe(k))
+
+            def on_rec_degrade(k=k, slot=slot):
+                floor = max(250, int(cfg.video_bitrate) // 4)
+                self.fleet.set_session_bitrate(k, floor)
+                if slot.gcc is not None:
+                    slot.gcc.set_target(floor)
+
+            def on_rec_undegrade(k=k, slot=slot):
+                self.fleet.set_session_bitrate(k, int(cfg.video_bitrate))
+                if slot.gcc is not None:
+                    slot.gcc.set_target(int(cfg.video_bitrate))
+
+            slot.recovery.on_degrade = on_rec_degrade
+            slot.recovery.on_undegrade = on_rec_undegrade
+            slot.webrtc.on_nack = slot.recovery.on_nack
+            slot.webrtc.on_unrecoverable = slot.recovery.on_unrecoverable
+            rtc_loss = slot.webrtc.on_loss
+            rec_loss = slot.recovery.on_loss_report
+
+            def on_slot_loss(fraction: float, _gcc=rtc_loss, _rec=rec_loss):
+                _gcc(fraction)
+                _rec(fraction)
+
+            slot.webrtc.on_loss = on_slot_loss
+
+            def on_video_bitrate(kbps: int, k=k, slot=slot):
+                self.fleet.set_session_bitrate(k, int(kbps))
+                if slot.gcc is not None:
+                    slot.gcc.set_target(int(kbps))
+
+            inp.on_video_encoder_bit_rate = on_video_bitrate
+
+            def on_audio_bitrate(bps: int, slot=slot):
+                if slot.audio is not None:
+                    slot.audio.set_bitrate(int(bps))
+
+            inp.on_audio_encoder_bit_rate = on_audio_bitrate
+            # lockstep batch: fps/resize are fleet configuration, not
+            # per-session — acknowledge without applying (docs/fleet.md)
+            inp.on_set_fps = lambda fps, k=k: logger.info(
+                "session %d requested fps=%s; fleet tick is %s (lockstep)",
+                k, fps, self.fleet.fps)
+            inp.on_set_enable_resize = lambda en, res, k=k: logger.info(
+                "session %d resize request ignored (fleet geometry is fixed)", k)
+            inp.on_clipboard_read = slot.send_clipboard_data
+            inp.on_cursor_change = slot.send_cursor_data
+            # per-session labeled gauges: N clients writing one scalar
+            # gauge would be last-writer-wins noise
+            set_fps, set_latency = self.metrics.session_setters(k)
+            inp.on_client_fps = set_fps
+            inp.on_client_latency = set_latency
+
+            def on_ping(ms: float, k=k, slot=slot):
+                slot.send_latency_time(ms)
+                if telemetry.enabled:
+                    telemetry.gauge("selkies_congestion_rtt_ms", ms,
+                                    session=str(k))
+
+            inp.on_ping_response = on_ping
+            inp.on_client_webrtc_stats = (
+                lambda t, s, k=k, slot=slot: self._on_slot_stats(slot, t, s))
+
+        def on_timer(ts: float) -> None:
+            for slot in self.slots:
+                if slot.connected:
+                    slot.input.send_ping(ts)
+                    slot.send_ping(ts)
+                    slot.send_system_stats(
+                        self.system_mon.cpu_percent,
+                        self.system_mon.mem_total, self.system_mon.mem_used)
+
+        self.system_mon.on_timer = on_timer
+
+    async def _on_slot_stats(self, slot: SessionSlot, stat_type: str,
+                             stats_json: str) -> None:
+        """Client RTCStats upload: record + feed interval loss into this
+        session's GCC when the WS fallback plane carries the media (the
+        WebRTC plane reports loss via RTCP instead — counting the upload
+        too would double the multiplicative back-off; solo parity:
+        orchestrator._on_client_webrtc_stats)."""
+        from selkies_tpu_torch.orchestrator import _loss_counters
+
+        await self.metrics.set_webrtc_stats(stat_type, stats_json)
+        if (slot.gcc is None or stat_type != "_stats_video"
+                or slot.webrtc.connected):
+            return
+        counters = _loss_counters(stats_json)
+        if counters is None:
+            return
+        lost, received = counters
+        p_lost, p_recv = slot.last_loss_counters
+        d_lost, d_recv = lost - p_lost, received - p_recv
+        slot.last_loss_counters = (lost, received)
+        if d_lost >= 0 and d_recv >= 0 and d_lost + d_recv > 0:
+            slot.gcc.on_loss_report(d_lost / (d_lost + d_recv))
+
+    def _broadcast_tpu_stats(self, load: float, total: float, used: float) -> None:
+        self.metrics.set_tpu_utilization(load * 100)
+        for slot in self.slots:
+            if slot.connected:
+                slot._send("gpu_stats", {
+                    "load": load, "memory_total": total, "memory_used": used})
+
+    def _slot_disconnected(self, k: int, slot: SessionSlot) -> None:
+        if not slot.connected:
+            return
+        slot.connected = False
+        self._teardown_slot(k, slot)
+
+    def _teardown_slot(self, k: int, slot: SessionSlot) -> None:
+        """Post-disconnect teardown (transport, input, SLO, re-arm) —
+        split from _slot_disconnected so the drain migrate path can
+        flip ``connected`` early (its double-checkpoint guard) yet run
+        the teardown only after the client's redirect went out."""
+        # placement pressure bookkeeping: an idle session's chips become
+        # borrowable again (its row stays carved until release/recycle)
+        self.fleet.placer.set_busy(k, False)
+        # the departed client's SLO breach state / shed bitrate / sticky
+        # WARN must not outlive it (the next admit starts clean)
+        self.fleet.reset_session_slo(k)
+        logger.info("session %d client disconnected", k)
+        slot.input.reset_keyboard()
+        loop = asyncio.get_running_loop()
+        loop.create_task(slot.webrtc.stop_session())
+        if slot.audio is not None:
+            loop.create_task(self._apply_audio_state(slot))
+        if k in self._rearm:
+            self._rearm[k].set()
+
+    # -- per-slot WebRTC negotiation (solo _signalling_loop × N) -------
+
+    async def _slot_signalling_loop(self, k: int) -> None:
+        from selkies_tpu_torch.signalling.client import (
+            SignallingClient,
+            SignallingErrorNoPeer,
+            reconnect_backoff,
+            run_reconnect_loop,
+        )
+
+        cfg, slot = self.cfg, self.slots[k]
+        scheme = "wss" if bool(cfg.enable_https) else "ws"
+        client = SignallingClient(
+            f"{scheme}://127.0.0.1:{self.server.bound_port}/ws",
+            id=server_client_id(k), peer_id=browser_peer_id(k),
+            enable_https=bool(cfg.enable_https),
+            enable_basic_auth=bool(cfg.enable_basic_auth),
+            basic_auth_user=cfg.basic_auth_user,
+            basic_auth_password=cfg.basic_auth_password,
+            # decaying, jittered retries inside connect() too — N slots
+            # hammering a dead server on one fixed beat is the fleet-
+            # sized thundering herd
+            retry_backoff=reconnect_backoff(),
+        )
+        slot.webrtc.on_sdp = client.send_sdp
+        slot.webrtc.on_ice = client.send_ice
+
+        async def on_error(exc: Exception) -> None:
+            if isinstance(exc, SignallingErrorNoPeer):
+                await asyncio.sleep(2.0)
+                await client.setup_call()
+            else:
+                logger.warning("session %d signalling error: %s", k, exc)
+
+        async def on_session(peer, meta, k=k, slot=slot):
+            # per-client codec negotiation: the browser's HELLO meta
+            # carries its preference list; the fleet resolves it against
+            # the registry and this session's chip carve BEFORE the
+            # offer is built, so the SDP (and thereby the payloader)
+            # matches the encoder that will actually stream
+            prefs = meta.get("codecs") if isinstance(meta, dict) else None
+            n = self.fleet.negotiate_session(k, prefs)
+            slot.webrtc.set_codec(n.codec)
+            await slot.webrtc.start_session()
+            if slot.recovery is not None:
+                # fresh peer starts at the ladder's current level
+                slot.recovery.attach()
+
+        client.on_connect = client.setup_call
+        client.on_error = on_error
+        client.on_session = on_session
+        client.on_sdp = slot.webrtc.set_remote_sdp
+        client.on_ice = slot.webrtc.add_remote_ice
+
+        async def rearm_watch() -> None:
+            while True:
+                await self._rearm[k].wait()
+                self._rearm[k].clear()
+                try:
+                    await client.setup_call()
+                except Exception as exc:
+                    logger.warning(
+                        "session %d signalling re-arm failed: %r "
+                        "(will retry on next re-arm)", k, exc)
+
+        rearm = asyncio.get_running_loop().create_task(rearm_watch())
+        try:
+            # shared reconnect loop with backoff + jitter — N slots
+            # hammering a dead server on one fixed beat would be the
+            # fleet-sized thundering herd (signalling/client.py)
+            await run_reconnect_loop(client, f"session {k} signalling")
+        finally:
+            rearm.cancel()
+            await client.stop()
+
+    # ------------------------------------------------------------------
+
+    async def run(self) -> None:
+        from selkies_tpu_torch.orchestrator import (
+            _first_ice_servers,
+            make_rtc_monitors,
+            resolve_rtc_config,
+            wait_for_app_ready,
+        )
+
+        cfg = self.cfg
+        await wait_for_app_ready(cfg.app_ready_file, bool(cfg.app_wait_ready))
+        stun, turn, rtc_config = await resolve_rtc_config(cfg)
+        self.server.set_rtc_config(rtc_config)
+        ice_kw = _first_ice_servers(stun, turn)
+        for slot in self.slots:
+            slot.webrtc.set_ice_servers(**ice_kw)
+        await self.server.start()
+        self._rearm.update({k: asyncio.Event() for k in range(self.n)})
+        for slot in self.slots:
+            await slot.input.connect()
+        # live TURN credential refresh, same chain as solo mode
+        monitors = make_rtc_monitors(
+            cfg, lambda stun_s, turn_s, config: self.server.set_rtc_config(config))
+        spawn = asyncio.get_running_loop().create_task
+        self._tasks = [spawn(self._slot_signalling_loop(k))
+                       for k in range(self.n)]
+        self._tasks.extend(spawn(m.start()) for m in monitors)
+        self._tasks.append(spawn(self.system_mon.start()))
+        if self.device_mon is not None:
+            self._tasks.append(spawn(self.device_mon.start()))
+        for slot in self.slots:
+            self._tasks.append(spawn(slot.input.start_clipboard()))
+            self._tasks.append(spawn(slot.input.start_cursor_monitor()))
+        if cfg.enable_metrics_http:
+            self._tasks.append(spawn(self.metrics.start_http()))
+        await self.fleet.start()
+        if self.cluster is not None:
+            await self.cluster.start()  # membership heartbeats
+        # SIGTERM/SIGINT route through the drain path (lifecycle.py)
+        # instead of abrupt cancellation: the K8s preStop contract
+        from selkies_tpu_torch.parallel.lifecycle import install_signal_handlers
+
+        self._uninstall_signals = install_signal_handlers(self.drain)
+        logger.info("selkies-tpu (torch) fleet ready on %s:%s (%d sessions %dx%d@%d)",
+                    cfg.addr, cfg.port, self.n, self.fleet.width,
+                    self.fleet.height, self.fleet.fps)
+        try:
+            await self.server.run()
+        finally:
+            await self.shutdown()
+
+    async def shutdown(self) -> None:
+        if self._uninstall_signals is not None:
+            self._uninstall_signals()
+            self._uninstall_signals = None
+        if self.cluster is not None:
+            await self.cluster.stop()
+        await self.fleet.stop()
+        self.system_mon.stop()
+        if self.device_mon is not None:
+            self.device_mon.stop()
+        for t in self._tasks:
+            t.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        for slot in self.slots:
+            await slot.webrtc.stop_session()
+            if slot.audio is not None:
+                await slot.audio.stop()
+            await slot.input.stop_js_server()
+            await slot.input.disconnect()
+        await self.server.stop()

@@ -15,10 +15,11 @@ frame, the session service per tick, and every probation probe,
 the occupancy scheduler's ``sched:<k>`` (``parallel/occupancy.py``), the
 fleet tick's ``capture:<k>`` and ``encoder`` (``parallel/fleet.py``), the
 mux's ``send`` / ``send:<k>`` (``transport/mux.py``), ``signalling``
-(``signalling/client.py``), ``cluster:redirect`` (``signalling/server.py``)
-and the ``net:*`` family (``transport/impair.py``, read by each
-``PeerConnection`` built while a ``net`` rule is configured). The rest of
-``cluster:*`` waits for the cluster plane.
+(``signalling/client.py``), ``cluster:redirect`` (``signalling/server.py``),
+``cluster:heartbeat`` and ``cluster:partition`` (``cluster/membership.py``,
+per heartbeat send and receive), ``cluster:ship`` (``cluster/migrate.py``,
+per checkpoint ship) and the ``net:*`` family (``transport/impair.py``,
+read by each ``PeerConnection`` built while a ``net`` rule is configured).
 
 Configured with the ``SELKIES_FAULTS`` environment variable (or
 programmatically via :func:`configure_faults`); when unset the hot paths

@@ -174,3 +174,17 @@ def test_scan_covers_the_webrtc_stack():
     for rel in WEBRTC_STACK:
         assert f"selkies_tpu_torch/transport/{rel}" in seen, rel
         assert (REPO / "selkies_tpu" / "transport" / rel).exists(), rel
+
+
+CLUSTER_AND_FLEET = ("cluster/__init__.py", "cluster/membership.py", "cluster/router.py",
+                     "cluster/migrate.py", "parallel/fleet.py", "orchestrator.py",
+                     "monitoring/telemetry.py")
+
+
+def test_scan_covers_the_cluster_plane_and_the_fleet_server():
+    """The import scan above reads each of the port's copies of JAX's
+    cluster plane and the modules of the fleet server."""
+    seen = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for rel in CLUSTER_AND_FLEET:
+        assert f"selkies_tpu_torch/{rel}" in seen, rel
+        assert (REPO / "selkies_tpu" / rel).exists(), rel

@@ -23,8 +23,8 @@ clipboard and settings messages, and leaves. Compared:
   retune lands at a moment that depends on the clock).
 
 The port's ``test_congestion_control_loop``, the drain path, the TURN
-chain and the refusals (no card, ``tpu_sessions > 1``, the cluster plane)
-follow."""
+chain, the refusal without a card, ``main`` serving ``tpu_sessions > 1``
+and the solo server's cluster plane follow."""
 
 from __future__ import annotations
 
@@ -472,7 +472,7 @@ def test_fleet_slot_builds_the_webrtc_plane():
     assert slot.webrtc._kw["turn_tls_insecure"] and slot.transport.active is slot.ws
 
 
-# -- refusals: no card, the fleet, the cluster ---------------------------------------
+# -- no card; the fleet; the cluster -------------------------------------------------
 
 def test_orchestrator_needs_the_card_unless_asked(tmp_path):
     if torch.cuda.is_available():
@@ -484,19 +484,87 @@ def test_orchestrator_needs_the_card_unless_asked(tmp_path):
                                      str(tmp_path / "c.json")]))
 
 
-def test_main_refuses_fleet_sessions(tmp_path):
-    with pytest.raises(NotImplementedError, match="FleetOrchestrator.*3.3"):
-        asyncio.run(torch_orch.main(["--tpu_sessions", "2", "--port", "0", "--json_config",
-                                     str(tmp_path / "c.json")], device="cpu"))
+def test_main_serves_fleet_sessions(tmp_path, monkeypatch):
+    """``main(["--tpu_sessions", "2", ...], device="cpu")`` builds the port's
+    FleetOrchestrator on the CPU and serves each session on its own
+    ``/media/<k>`` route (JAX's main does the same)."""
+    from selkies_tpu_torch.parallel import fleet as tfleet
+
+    _clean(monkeypatch)
+    built = []
+    real_init = tfleet.FleetOrchestrator.__init__
+
+    def init(self, cfg, **kw):
+        built.append((self, kw))
+        real_init(self, cfg, **kw)
+    monkeypatch.setattr(tfleet.FleetOrchestrator, "__init__", init)
+
+    async def scenario():
+        task = asyncio.ensure_future(torch_orch.main(
+            ["--tpu_sessions", "2", "--addr", "127.0.0.1", "--port", "0", "--capture_width",
+             "192", "--capture_height", "128", "--json_config", str(tmp_path / "c.json"),
+             "--enable_clipboard", "false"], device="cpu"))
+        for _ in range(400):
+            if built and built[0][0].server._runner is not None \
+                    and built[0][0].server._runner.addresses:
+                break
+            await asyncio.sleep(0.05)
+        orch, kw = built[0]
+        base = f"http://127.0.0.1:{orch.server.bound_port}"
+        got = []
+        try:
+            async with aiohttp.ClientSession() as http:
+                for k in range(2):
+                    ws = await http.ws_connect(f"{base}/media/{k}")
+                    c = _Client(ws)
+                    await c.pump(lambda c: len(c.video) >= 2)
+                    # a client that connects while a tick encodes gets that
+                    # tick's P frame first (JAX's fleet too), then its IDR
+                    got.append(any(f & FLAG_KEYFRAME for f, *_ in c.video[:2]))
+                    await ws.close()
+        finally:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        return orch, kw, got
+    orch, kw, got = asyncio.run(scenario())
+    assert kw == {"devices": [torch.device("cpu")]} and orch.n == 2
+    assert sorted(p for p in orch.server.ws_routes if p.startswith("/media")) == \
+        ["/media", "/media/0", "/media/1"]
+    assert orch.fleet.service.device == torch.device("cpu") and orch.device_mon is None
+    assert all(got) and orch.fleet.ticks >= 2
 
 
-def test_cluster_plane_refused(tmp_path, monkeypatch):
+def test_cluster_plane_wired_on_the_solo_server(tmp_path, monkeypatch):
+    """With SELKIES_CLUSTER_PEERS set the solo server wires the port's
+    cluster plane as JAX's does: the heartbeat route and the router on its
+    signalling server, no migration target, a digest whose busy bit follows
+    the session, and the refusal on a basic-auth server without a secret."""
+    _clean(monkeypatch)
     monkeypatch.setenv("SELKIES_CLUSTER_PEERS", "http://peer-a:8080")
-    with pytest.raises(NotImplementedError, match="3.4"):
-        torch_orch.Orchestrator(_config("torch", tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="3.4"):
-        asyncio.run(torch_orch.main(["--port", "0", "--json_config", str(tmp_path / "c.json")],
-                                    device="cpu"))
+    monkeypatch.setenv("SELKIES_CLUSTER_SELF", "http://me:8080")
+    got = {}
+    for pkg in ("jax", "torch"):
+        orch = _orchestrator(pkg, _config(pkg, tmp_path / pkg))
+        plane = orch.cluster
+        digests = []
+        for active in (False, True):
+            orch._session_active = active
+            d = plane.node.self_digest()
+            digests.append((d["busy"], d["free_slots"], d["has_placer"], d["host"]))
+        got[pkg] = (sorted(orch.server.ws_routes), orch.server.cluster_router is plane.router,
+                    plane.target is None, plane.channel is None, sorted(plane.node._peers),
+                    digests, plane.router.is_local_session("1"),
+                    plane.router.is_local_session("11"))
+        basic = _orchestrator(pkg, _config(pkg, tmp_path / f"{pkg}-auth",
+                                           enable_basic_auth=True, basic_auth_user="u",
+                                           basic_auth_password="p"))
+        got[pkg] += (basic.cluster, "/cluster/heartbeat" in basic.server.ws_routes)
+    assert got["torch"] == got["jax"]
+    routes, wired, no_target, no_channel, peers, digests = got["torch"][:6]
+    assert "/cluster/heartbeat" in routes and "/cluster/migrate" not in routes
+    assert wired and no_target and no_channel and peers == ["http://peer-a:8080"]
+    assert digests == [(0, 1, False, "http://me:8080"), (1, 0, False, "http://me:8080")]
+    assert got["torch"][6:] == (True, False, None, False)
 
 
 def test_entry_point_without_a_card_names_the_card(tmp_path):

@@ -235,8 +235,8 @@ async def _basic_auth(pkg):
             r = await http.get(base + path, headers=headers)
             status, hdrs, body = await _http(r, "WWW-Authenticate")
             if path == "/healthz":
-                # the port's health carries no capacity block until the
-                # cluster's digest is ported (ROADMAP queue 1, item 3.4)
+                # the capacity block carries the clock's ts; its fields are
+                # held against JAX's in tests/test_torch_cluster.py
                 body = json.loads(body)
                 body.pop("capacity", None)
             out.append((path, status, hdrs, body))
