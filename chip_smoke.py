@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (selkies_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-20 only (a build-and-check run)
+    python3 chip_smoke.py --no-timing  # phases 1-9 and 12-21 only (a build-and-check run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -305,6 +305,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    with a P session on A and B and its plain versions never run
    (``launches_cluster_path``). Recorded: heartbeat -> alive s, ship ->
    ack ms, checkpoint -> B's first AU ms and redirect -> the client's first AU ms;
+21. (run after phase 20, before the timing) the multi-card carve, each part
+   on k distinct cards where the machine has them, else on cuda:0 listed k
+   times (printed, with the device of every band's reference planes):
+   (a) TorchBandedH264Encoder(devices=...) at 1920x1080 bands=4, the 2x2
+   grid at 1920x1080 and the 3x2 grid at 3840x2160 over a seeded trace
+   (IDR, 4 full-motion P frames, a static repeat, a forced IDR, a QP
+   change): every AU's sha256 equals the stacked path's on cuda:0, K1
+   launches bands x cols times per non-static P frame; recorded: step and
+   device ms per frame kind against the stacked path, the bytes each P
+   frame exchanges between shards and (with the timing) the device ops
+   and idle share over 4 P frames of each (torch.profiler); (b)
+   MeshDeltaFrontend at cols 2 and 4 on phase 15 (a)'s frames: maps and
+   hints equal the one-card front-end's; (c)
+   TorchMultiSessionH264Service(8, 1920, 1088) in 2 groups over phase 9's
+   ticks (IDR, P, mixed, QP changes): every session's AUs equal phase 9's
+   one-card service's, K1 launches once per group and tick with a P
+   session, and the P tick's split is recorded. K1's plain versions never
+   run in the phase;
 10. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
    version, the device-conversion encoder per frame for IDR and P, the
@@ -312,8 +330,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (classify / convert / h2d / step / fetch / unpack / cavlc ms, up and
    down bytes), and with torch.profiler the device's busy and idle share
    over IDR, P and delta-P frames; over a 1080p typing run, the registry
-   row against frame_batch=1, pipeline_depth=0 (and each knob alone, in
-   turns, twice each): frames per second, median
+   row against frame_batch=1, pipeline_depth=0 (and each knob alone, one
+   run each): frames per second, median
    and p95 latency from a frame's submit() call to the return of the call
    that hands back its AU, the FrameStats split, and the device idle share
    over 8 grouped typing deltas; for each coder with device entropy off
@@ -327,9 +345,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    a 2x2 grid and the 4K 3x2 grid, and the device ops and idle share of
    solo and bands=4 P frames (torch.profiler); the multi-session service
    at 1, 2, 4 and 8 sessions of 1920x1088 on full motion: the IDR tick,
-   the median P tick split (convert / h2d / dispatch / step / fetch /
+   the median split of 4 P ticks (convert / h2d / dispatch / step / fetch /
    pack ms), frames per second, a mixed tick with one IDR, the device ops
-   and idle share per P tick (torch.profiler; an 8-session tick must issue
+   and idle share per P tick (torch.profiler over 2; an 8-session tick must issue
    at most 1.25x the 1-session tick's ops) and peak device memory; the
    same frames through 8 solo flat encoders in turn; and the batched
    kernel at 8 x 1088x1920 by CUDA events against its byte bound; the
@@ -343,7 +361,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    off): frames per second, median and p95 latency, the span counts and
    median ms per span name, and the probe's ms; the fleet (phase 14's (a)
    and (c) configurations on full motion, with the card's name and power
-   limit): occupancy off and on on one service in two alternating pairs
+   limit): occupancy off and on on one service in one pair
    of 6 P ticks (median tick ms, fps across sessions, the dispatch and
    complete ms per unit, the scheduler's overlap and sched_wait per
    session), the device ops and idle share per tick (torch.profiler over
@@ -927,6 +945,9 @@ def _time_cuda(fn, iters: int, warmup: int = 3, hold: bool = False) -> float:
 def _profile_frames(enc, frames, idr: bool, n: int, feed=None, expect: str = "") -> dict:
     """Device busy and idle share over n frames (torch.profiler kernel and
     copy intervals, merged), and the kernels that took the most time.
+    Every profile window of this script records device activity only, as
+    ``_device_activity`` reads: recording the host's ops as well cost
+    seconds a window and stretched the wall time the idle share divides.
     ``feed(i)`` picks frame i (default: frame 0 as forced IDRs, or frames 1
     and 2 in turn); ``expect`` is the upload_kind every frame must have.
     "not measured" when the profiler reports no device activity."""
@@ -934,7 +955,7 @@ def _profile_frames(enc, frames, idr: bool, n: int, feed=None, expect: str = "")
     from torch.profiler import ProfilerActivity, profile
 
     feed = feed or (lambda i: frames[0] if idr else frames[1 + i % 2])
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         outs = []
         for i in range(n):
@@ -1021,7 +1042,7 @@ def _p_frames(rows) -> int:
     return sum(1 for _, st in rows if not st.idr and st.upload_kind != "static")
 
 
-def _time_band_split(enc, frames, n_idr: int = 3) -> dict:
+def _time_band_split(enc, frames, n_idr: int = 1) -> dict:
     """Median FrameStats split per frame kind: ``frames[0]`` as an IDR and
     ``frames[1]`` as a P frame warm up, then every later frame as a P frame
     and ``n_idr`` forced IDRs of ``frames[0]``."""
@@ -1321,7 +1342,7 @@ def _time_sessions(n: int, p_ticks: int = 6, prof_ticks: int = 3) -> dict:
     out["mixed_tick"] = dict(svc.last_timing)
     pb = [batch(t) for t in range(4 + p_ticks, 4 + p_ticks + prof_ticks)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in pb:
             svc.encode_tick(b)
@@ -1624,7 +1645,7 @@ def _time_hybrid(card: str, power_limit: str) -> dict:
             t0 = time.perf_counter()
             prep.dirty_tiles(f, 128)
             host_ms.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for f in feed[:8]:
                 fe.step(f)
@@ -2673,7 +2694,7 @@ def _time_mesh(card: str, power_limit: str) -> dict:
             out[name][kind] = {"step_ms": statistics.median(step_ms[warm:])}
             if kind not in ("static", "full"):
                 continue
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for f in feed[:8]:
                     fe.step(f)
@@ -2812,7 +2833,7 @@ def _time_fleet(card: str, power_limit: str, pairs: int = 3, p_ticks: int = 6) -
             frames = [np.stack(_scrolled(bases, t + j)) for j in range(3)]
             t += 3
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 tw = time.perf_counter()
                 for f in frames:
                     tick(f, mode)
@@ -5821,6 +5842,210 @@ def _fleet_server_phase(dev=None, loop_fps: float | None = None, n: int = FS_N,
     return out
 
 
+# -- phase 21: the multi-card carve ------------------------------------------------------
+
+CARVE_CFGS = {  # name -> (w, h, bands, cols)
+    "bands4_1080p": (1920, 1080, 4, 1),
+    "grid2x2_1080p": (1920, 1080, 2, 2),
+    "grid3x2_4k": (3840, 2160, 3, 2),
+}
+CARVE_COLS = (2, 4)  # (b): the column front-end's meshes
+CARVE_GROUPS = 2  # (c): the session groups of the 8-session service
+
+
+def _carve_cards(k: int) -> tuple:
+    """-> (k devices, how they were picked): k distinct cards where the
+    machine has them, else cuda:0 listed k times."""
+    import torch
+
+    if torch.cuda.device_count() >= k:
+        return [torch.device("cuda", i) for i in range(k)], "distinct"
+    return [torch.device("cuda", 0)] * k, "one card repeated"
+
+
+def _carve_trace(w: int, h: int) -> list:
+    """-> [(frame, op)]: phase 8's desktop (IDR), 4 full-motion scrolls of
+    24 rows, a static repeat, a forced IDR on a fifth scroll and a QP change
+    (36) on a sixth."""
+    base = _band_trace(w, h)[0][0]
+    scroll = [np.roll(base, -24 * (k + 1), 0) for k in range(6)]
+    return ([(base, None)] + [(f, None) for f in scroll[:4]] + [(scroll[3].copy(), None),
+            (scroll[4], "idr"), (scroll[5], ("qp", 36))])
+
+
+def _carve_drive(enc, trace) -> list:
+    """-> per frame (sha256, kind "I" / "P" / "S", K1 launches, step ms,
+    device ms, bytes exchanged between shards)."""
+    from selkies_tpu_torch.models.h264 import me_mc
+
+    out = []
+    for frame, op in trace:
+        qp = None
+        if op == "idr":
+            enc.force_keyframe()
+        elif op is not None:
+            qp = op[1]
+        moved0 = sum(enc.shard_bytes.snapshot().values())
+        k0 = me_mc.launches
+        au = enc.encode_frame(frame, qp)
+        st = enc.last_stats
+        kind = "I" if st.idr else ("S" if st.upload_kind == "static" else "P")
+        out.append((hashlib.sha256(au).hexdigest(), kind, me_mc.launches - k0,
+                    st.step_ms, st.device_ms, sum(enc.shard_bytes.snapshot().values()) - moved0))
+    return out
+
+
+def _recon_devices(enc) -> list:
+    """The device of every band's (tile's) reference luma, in mesh order."""
+    ref = enc._ref[0]
+    if enc.mesh_enabled and enc.cols > 1:
+        return [[str(t.device) for t in row] for row in ref]
+    if enc.mesh_enabled:
+        return [str(t.device) for t in ref]
+    return [str(ref.device)] * enc.bands
+
+
+def _carve_phase(timing: bool, ses_shas: list) -> dict:
+    """Phase 21: (a) the band and tile meshes against the stacked path on
+    the card, (b) the column front-end's mesh against one card, (c) the
+    8-session service in 2 groups against phase 9's one-card service."""
+    import torch
+
+    from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+    from selkies_tpu_torch.parallel.codec_mesh import MeshDeltaFrontend
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+
+    out: dict = {"cards": torch.cuda.device_count()}
+    plain = {"me_mc_plain": 0, "me_mc_batch_plain": 0}
+    real = (me_mc.me_mc_plain, me_mc.me_mc_batch_plain)
+    me_mc.me_mc_plain = _counting(real[0], plain)
+    me_mc.me_mc_batch_plain = _counting(real[1], plain)
+    t_part = time.perf_counter()
+    try:
+        # (a) the band and tile meshes
+        out["a"] = {}
+        for name, (w, h, bands, cols) in CARVE_CFGS.items():
+            devs, how = _carve_cards(bands * cols)
+            trace = _carve_trace(w, h)
+            mesh = TorchBandedH264Encoder(w, h, qp=28, bands=bands, cols=cols, devices=devs)
+            if not mesh.mesh_enabled or (mesh.bands, mesh.cols) != (bands, cols):
+                _fail(f"phase 21 (a) {name}: carve {mesh.bands}x{mesh.cols}, mesh "
+                      f"{mesh.mesh_enabled} on {len(devs)} devices")
+            got = _carve_drive(mesh, trace)
+            recon = _recon_devices(mesh)
+            prof = None
+            if timing:
+                scrolls = _scroll_run(w, h, 6)[2:]
+                prof = _profile_frames(mesh, scrolls, False, 4, feed=lambda i: scrolls[i])
+            mesh.close()
+            stacked = TorchBandedH264Encoder(w, h, qp=28, bands=bands, cols=cols,
+                                             device="cuda:0")
+            want = _carve_drive(stacked, trace)
+            stacked.close()
+            bad = [i for i, (g, s) in enumerate(zip(got, want)) if g[0] != s[0]]
+            if bad:
+                _fail(f"phase 21 (a) {name}: the mesh's AUs differ from the stacked path's at "
+                      f"frames {bad}")
+            kinds = "".join(g[1] for g in got)
+            if kinds != "IPPPPSIP":
+                _fail(f"phase 21 (a) {name}: frame kinds {kinds}")
+            launches = [g[2] for g in got]
+            if launches != [bands * cols if k == "P" else 0 for k in kinds]:
+                _fail(f"phase 21 (a) {name}: K1 launches per frame {launches}")
+            moved = [g[5] for g in got if g[1] == "P"]
+
+            def med(rows, kind, i):
+                vals = [r[i] for r in rows if r[1] == kind]
+                return statistics.median(vals) if vals else None
+
+            out["a"][name] = {
+                "devices": how, "carve": f"{bands}x{cols}", "kinds": kinds,
+                "recon_devices": recon, "me_mc_launches": launches,
+                "sha256": [g[0] for g in got], "bytes_between_shards_per_p": moved,
+                "step_ms": {k: {"mesh": med(got, k, 3), "stacked": med(want, k, 3)}
+                            for k in ("I", "P")},
+                "device_ms": {k: {"mesh": med(got, k, 4), "stacked": med(want, k, 4)}
+                              for k in ("I", "P")},
+                "profile_p": prof}
+            act = {k: prof.get(k) for k in ("device_ops", "device_idle_share", "wall_ms")
+                   } if prof else "with the timing only"
+            print(f"phase 21 (a) {name} {w}x{h} {bands}x{cols} on {how} "
+                  f"({[str(d) for d in devs]}): {kinds} AUs sha256-equal the stacked path on "
+                  f"cuda:0; K1 {launches}; bytes between shards per P {moved}; reference "
+                  f"planes on {recon}; step ms mesh / stacked: P {med(got, 'P', 3):.2f} / "
+                  f"{med(want, 'P', 3):.2f}, IDR {med(got, 'I', 3):.2f} / "
+                  f"{med(want, 'I', 3):.2f}; mesh over 4 P frames {json.dumps(act)}")
+        out["a_seconds"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # (b) the column front-end
+        trace = _hybrid_trace()
+        out["b"] = {}
+        for cols in CARVE_COLS:
+            devs, how = _carve_cards(cols)
+            mesh = MeshDeltaFrontend(W, H, cols, devices=devs)
+            one = MeshDeltaFrontend(W, H, cols, devices=[torch.device("cuda", 0)])
+            if not mesh.mesh_enabled or one.mesh_enabled:
+                _fail(f"phase 21 (b) cols={cols}: mesh {mesh.mesh_enabled}, one card "
+                      f"{one.mesh_enabled}")
+            g, c = _drive_mesh(mesh, trace), _drive_mesh(one, trace)
+            for i, ((gd, gh), (cd, ch)) in enumerate(zip(g, c)):
+                if (gd is None) != (cd is None) or (cd is not None and (
+                        not np.array_equal(gd, cd) or not np.array_equal(gh, ch))):
+                    _fail(f"phase 21 (b) cols={cols} frame {i}: the mesh's map or hints "
+                          "differ from the one-card front-end's")
+            out["b"][f"cols{cols}"] = {"devices": how, "steps": len(g), "votes": mesh.votes,
+                                       "dirty_mbs": [None if d is None else int(d.sum())
+                                                     for d, _ in g]}
+            print(f"phase 21 (b) MeshDeltaFrontend {W}x{H} cols={cols} on {how}: {len(g)} "
+                  f"steps, maps and hints equal the one-card front-end's")
+        out["b_seconds"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # (c) the session groups
+        devs, how = _carve_cards(CARVE_GROUPS)
+        bases = [_session_base(i, SW, SH) for i in range(8)]
+        svc = TorchMultiSessionH264Service(8, SW, SH, qp=28, devices=devs)
+        timings = []
+        real_tick = svc.complete_tick
+
+        def complete(pending):
+            aus = real_tick(pending)
+            timings.append(dict(svc.last_timing))
+            return aus
+
+        svc.complete_tick = complete
+        shas, ticks, _, _ = _drive_sessions(svc, bases)
+        groups = [(g.lo, g.hi, str(g.device)) for g in svc.enc.groups]
+        ref_devs = [str(g.ref[0].device) for g in svc.enc.groups]
+        svc.close()
+        bad = [t for t, (g, s) in enumerate(zip(shas, ses_shas)) if g != s]
+        if bad:
+            _fail(f"phase 21 (c): the grouped service's AUs differ from the one-card service's "
+                  f"at ticks {bad}")
+        want_ticks = [0] + [CARVE_GROUPS] * (SESSION_TICKS - 1)
+        if ticks != want_ticks:
+            _fail(f"phase 21 (c): K1 launches per tick {ticks}, want {want_ticks}")
+        # ticks 1, 2 and 5 are all P (3 and 4 key some sessions)
+        p_split = {k: statistics.median(timings[t][k] for t in (1, 2, 5)) for k in timings[1]}
+        out["c_seconds"] = time.perf_counter() - t_part
+        out["c"] = {"devices": how, "groups": groups, "reference_devices": ref_devs,
+                    "me_mc_launches_per_tick": ticks, "sha256": shas,
+                    "p_tick_split_ms": p_split, "ticks": timings}
+        print(f"phase 21 (c) TorchMultiSessionH264Service(8, {SW}, {SH}) in {CARVE_GROUPS} "
+              f"groups on {how} {groups}: AUs sha256-equal phase 9's one-card service over "
+              f"{SESSION_TICKS} ticks; K1 per tick {ticks}; P tick split (median ms) "
+              f"{json.dumps(p_split)}")
+    finally:
+        me_mc.me_mc_plain, me_mc.me_mc_batch_plain = real
+    if any(plain.values()):
+        _fail(f"phase 21: the plain versions ran on the card {plain}")
+    out["plain_calls"] = plain
+    out["me_mc_launches"] = {
+        "bands_tiles": {k: sum(v["me_mc_launches"]) for k, v in out["a"].items()},
+        "sessions": sum(out["c"]["me_mc_launches_per_tick"])}
+    return out
+
+
 def main() -> int:
     import faulthandler
 
@@ -6317,12 +6542,20 @@ def main() -> int:
         loop_fps=statistics.median(loop_runs) if loop_runs else None)
     record["fleet_server_path"]["seconds"] = time.perf_counter() - t0
     print(f"phase 20: {record['fleet_server_path']['seconds']:.1f} s")
-    print(f"phases 1-9 and 12-20: {time.perf_counter() - t_start:.1f} s")
+    # -- 21. the multi-card carve: band, tile, column and session meshes
+    t0 = time.perf_counter()
+    record["carve_path"] = _carve_phase(timing, ses_shas)
+    record["carve_path"]["seconds"] = time.perf_counter() - t0
+    print(f"phase 21: {record['carve_path']['seconds']:.1f} s")
+    print(f"phases 1-9 and 12-21: {time.perf_counter() - t_start:.1f} s")
     if not timing:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return 0
 
     # -- 10. timing
+    # seconds of each timing block, in order
+    block_s: dict = {}
+    t_block = time.perf_counter()
     args = _me_inputs(cases["uniform"], dev)
     ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50, hold=True)
     issued_ms = _time_cuda(lambda: me_mc.me_mc(*args), iters=50)
@@ -6364,13 +6597,13 @@ def main() -> int:
         out["me_mc_launches_per_frame"] = (me_mc.launches - launches0) / len(rows)
         return out
 
-    enc_t = {"idr": per_frame(True, 5), "p": per_frame(False, 20)}
+    enc_t = {"idr": per_frame(True, 3), "p": per_frame(False, 20)}
     record["encoder_ms"] = enc_t
     print("device-conversion encoder per frame (median ms): " + json.dumps(enc_t))
 
     # the host-conversion encoder: median FrameStats split per frame kind
     tenc = TorchH264Encoder(W, H, qp=28, scene_qp_boost=BOOST, device="cuda", **flat_host)
-    rounds = _drive_host(tenc, _host_timing_trace(4))[12:]  # the first round warms up
+    rounds = _drive_host(tenc, _host_timing_trace(3))[12:]  # the first round warms up
     split = {}
     for kind_name in sorted({r[2] for r in rounds}):
         rows = [r for r in rounds if r[2] == kind_name]
@@ -6382,19 +6615,20 @@ def main() -> int:
         split[kind_name] = med
     record["host_encoder_ms"] = split
     print("host-conversion encoder per frame kind (median ms, bytes): " + json.dumps(split))
-    prof = {"idr": _profile_frames(enc, frames, True, 2),
+    prof = {"idr": _profile_frames(enc, frames, True, 1),
             "p": _profile_frames(enc, frames, False, 5),
             "delta_p": _profile_host_deltas(tenc, 8)}
     record["profile"] = prof
     print("profile (torch.profiler, profiler on): " + json.dumps(prof))
 
+    block_s["kernel_encoder_host"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # the registry row against ungrouped, unpipelined, and each knob alone,
-    # in turns, on a typing run
+    # one after another, on a typing run
     typing = _typing_run(40, 300)
     cfgs = {"registry": {}, "flat": flat, "batch4_depth0": {"pipeline_depth": 0},
             "batch1_depth2": {"frame_batch": 1}}
     typing_t = {name: [] for name in cfgs}
-    for name in list(cfgs) + list(cfgs)[::-1]:
+    for name in cfgs:
         typing_t[name].append(_time_typing(cfgs[name], typing, warm=8))
     record["typing_run"] = typing_t
     print(f"1080p typing run, 32 deltas after an IDR and 8 warm-up deltas, submitted back to "
@@ -6406,6 +6640,7 @@ def main() -> int:
     record["profile"]["delta_p_registry"] = prof_reg
     print(f"profile of 8 grouped typing deltas, registry row ({card}, {power_limit}): "
           + json.dumps(prof_reg))
+    block_s["typing"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # the registry row with the tracer and telemetry off and on, in turns
     hooks_t = {"off": [], "on": []}
     for name in ("off", "on", "on", "off"):
@@ -6429,6 +6664,7 @@ def main() -> int:
           f"{hooks_t['probe_ms_median']:.4f} ms median, {hooks_t['probe_ms_p95']:.4f} p95 "
           f"(of 50); one hook site's host cost in us {json.dumps(hooks_t['site_us'])}")
 
+    block_s["hooks"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # the entropy plane: per coder, device entropy off and on
     ent_t = {f"{coder}_{'device' if on else 'host'}": _time_entropy(coder, on)
              for coder in ("cavlc", "cabac") for on in (False, True)}
@@ -6445,6 +6681,7 @@ def main() -> int:
     record["entropy_timing"] = ent_t
     print(f"entropy plane at 1080p ({card}, {power_limit}): " + json.dumps(ent_t))
 
+    block_s["entropy"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # band and tile slicing against the flat solo encoder: 1080p full motion
     # (10 scrolls), and the 4K grid
     scrolls = _scroll_run(W, H, 10)
@@ -6463,15 +6700,16 @@ def main() -> int:
                 benc, scrolls, False, 4, feed=lambda i: scrolls[3 + i % 2])
         benc.close()
     k4enc = TorchBandedH264Encoder(3840, 2160, qp=28, bands=3, cols=2, device="cuda")
-    band_t["4k_grid3x2"] = _time_band_split(k4enc, _scroll_run(3840, 2160, 6), n_idr=2)
+    band_t["4k_grid3x2"] = _time_band_split(k4enc, _scroll_run(3840, 2160, 6))
     k4enc.close()
     record["band_timing"] = band_t
     print(f"band and tile slicing, 1080p full motion and 4K ({card}, {power_limit}): "
           + json.dumps(band_t))
 
+    block_s["bands"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # multi-session serving at 1, 2, 4 and 8 sessions of 1920x1088 on full
     # motion, then the same frames through 8 solo flat encoders in turn
-    ses_t = {f"n{n}": _time_sessions(n) for n in (1, 2, 4, 8)}
+    ses_t = {f"n{n}": _time_sessions(n, p_ticks=4, prof_ticks=2) for n in (1, 2, 4, 8)}
     ses_t["solo8_in_turn"] = _time_solo_in_turn(8)
     tick_ops = {k: ses_t[k]["profile_p"].get("device_ops_per_tick") for k in ("n1", "n8")}
     if None in tick_ops.values():
@@ -6504,18 +6742,21 @@ def main() -> int:
           f"{b_plain_ms:.3f} ms; floors: bytes {b_bytes_ms:.5f} ms, operations {b_simd_ms:.5f} "
           f"ms; bound {b_bound_ms:.5f} ms = {100 * b_bound_ms / b_ms:.1f}% of the kernel's time")
 
+    block_s["sessions"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # the hybrid rows' front-end and rows, per frame kind
     hyb_t = _time_hybrid(card, power_limit)
     record["hybrid_timing"] = hyb_t
     print(f"hybrid VP9/AV1 front-end and rows at 1920x1080 ({card}, {power_limit}): "
           + json.dumps(hyb_t))
 
+    block_s["hybrid"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # the fleet: phase 14's (a) and (c) configurations, occupancy off and on
-    fleet_t = _time_fleet(card, power_limit, pairs=2)
+    fleet_t = _time_fleet(card, power_limit, pairs=1)
     record["fleet_timing"] = fleet_t
     print(f"fleet service and occupancy scheduler, full motion ({card}, {power_limit}): "
           + json.dumps(fleet_t))
 
+    block_s["fleet"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # the mesh front-end against the solo one, and the software fleet
     t0 = time.perf_counter()
     mesh_t = _time_mesh(card, power_limit)
@@ -6526,6 +6767,7 @@ def main() -> int:
     print(f"mesh front-end and software fleet at {W}x{H} ({card}, {power_limit}): "
           + json.dumps(mesh_t))
 
+    block_s["mesh"], t_block = time.perf_counter() - t_block, time.perf_counter()
     kernels = [{
         "name": "me_mc", "route": "cuda", "source": "selkies_tpu_torch/csrc/me_mc.cu",
         "replaces": me_mc.REPLACES, "launches": launches, "max_abs_err": max_err,
@@ -6593,6 +6835,11 @@ def main() -> int:
         "ticks_with_p_fleet_server_path": record["fleet_server_path"]["a"]["ticks_with_p"],
         "plain_calls_fleet_server_path": record["fleet_server_path"]["a"]["me_mc_plain_calls"],
         "launches_cluster_path": record["fleet_server_path"]["b"]["me_mc_launches"],
+        "launches_carve_path": record["carve_path"]["me_mc_launches"],
+        "launches_per_p_frame_carve_path": {
+            k: max(v["me_mc_launches"]) for k, v in record["carve_path"]["a"].items()},
+        "launches_per_tick_carve_sessions": record["carve_path"]["c"]["me_mc_launches_per_tick"],
+        "plain_calls_carve_path": record["carve_path"]["plain_calls"],
         "card": card, "power_limit": power_limit,
     }, {
         "name": "me_mc (8 sessions, one launch)", "route": "cuda",
@@ -6605,6 +6852,8 @@ def main() -> int:
         "launches_per_tick": ses_ticks, "card": card, "power_limit": power_limit,
     }]
     record["kernels"] = kernels
+    record["timing_seconds"] = block_s
+    print("timing blocks (s): " + json.dumps(block_s))
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

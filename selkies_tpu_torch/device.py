@@ -26,6 +26,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def device_list(devices) -> list[torch.device]:
+    """A device list as indexed ``torch.device``s, in order and with its
+    repeats: ``cuda`` becomes ``cuda:<current>``. The per-device caches
+    (``constant_tables``, the band slab indices) key on the indexed device,
+    so every device of a carve goes through here once."""
+    return [resolve_device(d) for d in devices]
+
+
 def constant_tables(tables: dict):
     """-> ``get(name, device)``: ``tables[name]`` (a numpy array) as a
     tensor on ``device``, copied there once per device. A copy from

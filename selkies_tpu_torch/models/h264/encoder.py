@@ -386,7 +386,9 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     host buffers."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        # on ``device``'s current stream, whatever the thread's current card
+        with torch.cuda.device(device):
+            return t.pin_memory().to(device, non_blocking=True)
     return t.to(device, copy=True)
 
 
@@ -398,19 +400,25 @@ class _Fetch:
     two events: ``step_done`` (the step finished) and ``fetched`` (the
     copy landed). The completion worker waits on those two events only,
     never on the device as a whole, so it does not wait for the steps of
-    later frames. On the CPU the copy is made when the worker asks."""
+    later frames. On the CPU the copy is made when the worker asks.
+
+    Both events and the copy go on the current stream of the card that
+    holds ``t``, whatever the thread's current card is: a mesh's band on
+    ``cuda:1`` is fetched from ``cuda:1``."""
 
     def __init__(self, t: torch.Tensor):
         self.src = t
         self.step_done = self.fetched = self.host = None
         if t.device.type == "cuda":
-            # blocking-sync events: a waiting worker sleeps instead of
-            # spinning on a core the submit thread needs
-            self.step_done = torch.cuda.Event(blocking=True)
-            self.step_done.record()
-            self.host = t.contiguous().to("cpu", non_blocking=True)
-            self.fetched = torch.cuda.Event(blocking=True)
-            self.fetched.record()
+            stream = torch.cuda.current_stream(t.device)
+            with torch.cuda.device(t.device):
+                # blocking-sync events: a waiting worker sleeps instead of
+                # spinning on a core the submit thread needs
+                self.step_done = torch.cuda.Event(blocking=True)
+                self.step_done.record(stream)
+                self.host = t.contiguous().to("cpu", non_blocking=True)
+                self.fetched = torch.cuda.Event(blocking=True)
+                self.fetched.record(stream)
 
     def wait(self, t_disp: float, *, step_span: bool = True,
              fetch_span: bool = False) -> tuple[np.ndarray, float, float]:

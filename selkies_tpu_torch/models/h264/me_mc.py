@@ -224,10 +224,13 @@ def _launch(n: int, cands, cur, ry_pad, ru_pad, rv_pad):
     pred_u = torch.empty((*lead, h // 2, w // 2), dtype=torch.int32, device=dev)
     pred_v = torch.empty((*lead, h // 2, w // 2), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.selkies_me_mc(
-        dev.index, stream, n, cands.data_ptr(), cands.shape[-2], cur.data_ptr(), h, w,
-        ry_pad.data_ptr(), ru_pad.data_ptr(), rv_pad.data_ptr(),
-        mvs.data_ptr(), pred_y.data_ptr(), pred_u.data_ptr(), pred_v.data_ptr())
+    # the launcher selects ``dev`` (cudaSetDevice); the guard puts the
+    # thread's current card back afterwards
+    with torch.cuda.device(dev):
+        err = lib.selkies_me_mc(
+            dev.index, stream, n, cands.data_ptr(), cands.shape[-2], cur.data_ptr(), h, w,
+            ry_pad.data_ptr(), ru_pad.data_ptr(), rv_pad.data_ptr(),
+            mvs.data_ptr(), pred_y.data_ptr(), pred_u.data_ptr(), pred_v.data_ptr())
     if err != 0:
         msg = lib.selkies_cuda_error_string(err).decode()
         raise RuntimeError(f"me_mc kernel launch failed: {msg} ({err})")

@@ -1,11 +1,9 @@
-"""Band and tile slicing: one frame encoded as several H.264 slices on one card.
+"""Band and tile slicing: one frame encoded as several H.264 slices.
 
-Counterpart of ``selkies_tpu/parallel/bands.py`` (``BandedH264Encoder``)
-in the form the JAX class takes when its device mesh is smaller than the
-carve: one device step that applies the same per-band (or per-tile) graph
-in a Python loop over a static count. Nothing is batched across bands:
-each band's slice comes from the graph a single band would run alone,
-which is what makes the per-band oracle a byte-identity statement.
+Counterpart of ``selkies_tpu/parallel/bands.py`` (``BandedH264Encoder``).
+Nothing is batched across bands: each band's slice comes from the graph a
+single band would run alone, which is what makes the per-band oracle a
+byte-identity statement.
 
 * **Bands** (``SELKIES_BANDS``): the frame splits into ``bands``
   horizontal bands of equal MB rows, each an independent slice. A band's
@@ -21,22 +19,30 @@ which is what makes the per-band oracle a byte-identity statement.
   stay one per band-row: the tiles' coefficients merge into the row's
   layout before the pack.
 
-The AUs equal JAX ``BandedH264Encoder(..., devices=[cpu])``'s byte for
-byte, and so its mesh run's (tests/test_torch_bands.py,
-tests/test_torch_tile_grid.py); ``bands=1`` equals ``TorchH264Encoder``
-at ``frame_batch=1, pipeline_depth=0, ltr_scenes=False``.
+The carve is JAX's: when the caller (or the device pool) lists at least
+``bands * cols`` devices, band (tile) ``i`` runs on device ``i`` (the
+mesh steps, ``_mesh_*``): one thread issues each shard's ops onto its own
+card's stream, ``_exchange_rows`` / ``_exchange_cols`` copy the halos
+between cards where JAX's ``ppermute`` does, the row's vote histograms
+are summed on its column-0 card where JAX's ``psum`` does, and its
+coefficients gathered there where JAX's ``all_gather`` does. With fewer
+devices, the stacked steps run the same per-band graph in a Python loop
+on one device, as JAX's fallback does. A list may repeat a device, so
+the mesh runs on one card too (``[cuda:0] * 4``). Either way a P frame
+launches the ME/MC kernel once per band or tile.
 
-On one card there is no parallelism inside a frame: a P frame issues
-about ``bands * cols`` times the flat step's launches (the ME/MC kernel
-runs once per band or tile). The JAX multi-device bodies (``shard_map``
-with ``ppermute``, ``psum`` and ``all_gather``) wait for more than one
-card (ROADMAP). The host half completes each band's downlink as one
+The AUs equal JAX ``BandedH264Encoder``'s byte for byte, its one-device
+run's and its mesh run's (tests/test_torch_bands.py,
+tests/test_torch_tile_grid.py, tests/test_torch_mesh.py); ``bands=1``
+equals ``TorchH264Encoder`` at ``frame_batch=1, pipeline_depth=0,
+ltr_scenes=False``. The host half completes each band's downlink as one
 slice (``sparse_complete.complete_sparse_slice`` with the band's
 ``first_mb``) on the pack pool. Each band's downlink copy is enqueued on
-the dispatching thread right behind the step (``encoder._Fetch``), and
-the completion waits on those events only: a refetch or spill copies on a
-side stream behind the band's step-done event (``sparse_complete.host``),
-so a completion never waits for steps other sessions dispatched since.
+the dispatching thread right behind the step (``encoder._Fetch``, on the
+band's card), and the completion waits on those events only: a refetch
+or spill copies on a side stream behind the band's step-done event
+(``sparse_complete.host``), so a completion never waits for steps other
+sessions dispatched since.
 
 As JAX's, ``dispatch_frame`` first consults the ``device:<chip>`` fault
 site over ``self.devices`` (``resilience/devhealth.py``), the completion
@@ -57,7 +63,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from selkies_tpu_torch.device import resolve_device
+from selkies_tpu_torch.device import device_list, resolve_device
 from selkies_tpu_torch.models.frameprep import FramePrep
 from selkies_tpu_torch.models.h264.bitstream import StreamParams, write_pps, write_sps
 from selkies_tpu_torch.models.h264.cabac import pack_slice_cabac, pack_slice_p_cabac
@@ -99,12 +105,14 @@ __all__ = [
     "MIN_BAND_MB_ROWS",
     "MIN_TILE_MB_COLS",
     "TorchBandedH264Encoder",
+    "band_mesh",
     "band_spans",
     "bands_from_env",
     "grid_from_env",
     "halo_from_env",
     "partition_devices",
     "tile_halo_from_env",
+    "tile_mesh",
     "usable_bands",
     "usable_cols",
 ]
@@ -200,14 +208,38 @@ def band_spans(mb_height: int, bands: int) -> list[tuple[int, int]]:
     return [(b * rows, rows) for b in range(bands)]
 
 
+def _healthy(devices) -> list:
+    return list(devices if devices is not None else get_device_pool().healthy_devices())
+
+
+def band_mesh(bands: int, devices=None) -> list[torch.device]:
+    """The first ``bands`` devices of ``devices`` (None: the device pool's
+    healthy cards, so a quarantined card never lands in a fresh mesh),
+    indexed: band ``b`` runs on entry ``b``. A list may repeat a card."""
+    devs = _healthy(devices)
+    if len(devs) < bands:
+        raise ValueError(f"need {bands} devices for the band mesh, have {len(devs)}")
+    return device_list(devs[:bands])
+
+
+def tile_mesh(rows: int, cols: int, devices=None) -> list[list[torch.device]]:
+    """The first ``rows * cols`` devices as a (rows, cols) grid: tile (r, c)
+    runs on ``grid[r][c]``."""
+    devs = _healthy(devices)
+    if len(devs) < rows * cols:
+        raise ValueError(f"need {rows * cols} devices for the {rows}x{cols} tile mesh, "
+                         f"have {len(devs)}")
+    flat = device_list(devs[:rows * cols])
+    return [flat[r * cols:(r + 1) * cols] for r in range(rows)]
+
+
 def partition_devices(n_sessions: int, bands: int, devices=None) -> list[list]:
     """Carve the device list into per-session band rows — the fleet's
     chips-per-session vs sessions-per-slice trade. Returns n_sessions
     rows of ``bands`` devices; raises when there are too few (the caller
     decides whether to drop bands or sessions). ``devices=None`` takes
     the health plane's healthy cards (raising without a card)."""
-    devs = list(devices if devices is not None
-                else get_device_pool().healthy_devices())
+    devs = _healthy(devices)
     need = n_sessions * bands
     if len(devs) < need:
         raise ValueError(
@@ -364,6 +396,161 @@ def _stacked_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, bands: int, halo: int
     return tuple(torch.stack([o[k] for o in outs]) for k in range(5))
 
 
+# ---------------------------------------------------------------------------
+# Mesh steps: each band (tile) on its own device, halos copied between them
+# ---------------------------------------------------------------------------
+#
+# JAX runs one shard_map body per chip and exchanges the halos with
+# ppermute, the row's votes with psum and its coefficients with
+# all_gather. Here one thread issues every shard's ops onto its own card's
+# stream, and the exchanges are copies between the cards (``_copy``): a
+# copy to another card orders itself behind both cards' streams, so no
+# host wait is needed. Only what JAX exchanges crosses: halo rows and
+# columns, the COARSE_R downsampled columns, the vote histograms, the
+# row's merged coefficients and, after an IDR, each tile's recon crop.
+# ``moved`` (a LinkByteCounter or None) counts those bytes per stage,
+# whether or not the two shards share a card.
+
+
+def _copy(t: torch.Tensor, device: torch.device, moved, stage: str) -> torch.Tensor:
+    """``t`` on ``device`` (the tensor itself when it is there already)."""
+    if moved is not None:
+        moved.add(stage, t.numel() * t.element_size())
+    return t.to(device, non_blocking=True)
+
+
+def _gather(t: torch.Tensor, col: int, device: torch.device, moved, stage: str):
+    """``t`` of tile column ``col`` on ``device``, a row's column-0 device
+    or from it: column 0 keeps its own tensor, the others copy."""
+    return t if col == 0 else _copy(t, device, moved, stage)
+
+
+def _exchange_rows(planes: list, halo: int, moved=None, stage: str = "halo_rows") -> list:
+    """The counterpart of JAX's ``_ppermute_slab``: ``planes`` are the
+    bands' (rows, W) planes top to bottom, each on its device; band ``b``
+    gets the last ``halo`` rows of band ``b-1`` above and the first
+    ``halo`` rows of band ``b+1`` below, copied to its device. Band 0 and
+    band B-1 replicate their edge row (the decoder's picture clamp)."""
+    n = len(planes)
+    if halo == 0 or n == 1:
+        return list(planes)
+    out = []
+    for b, p in enumerate(planes):
+        top = (p[:1].expand(halo, -1) if b == 0
+               else _copy(planes[b - 1][-halo:], p.device, moved, stage))
+        bot = (p[-1:].expand(halo, -1) if b == n - 1
+               else _copy(planes[b + 1][:halo], p.device, moved, stage))
+        out.append(torch.cat([top, p, bot], dim=0))
+    return out
+
+
+def _exchange_cols(planes: list, halo: int, moved=None, stage: str = "halo_cols") -> list:
+    """The counterpart of JAX's ``_ppermute_cols``: the tiles of one row,
+    left to right, each gets ``halo`` columns of its neighbours (the edge
+    tiles replicate their edge column)."""
+    n = len(planes)
+    if halo == 0 or n == 1:
+        return list(planes)
+    out = []
+    for c, p in enumerate(planes):
+        left = (p[:, :1].expand(-1, halo) if c == 0
+                else _copy(planes[c - 1][:, -halo:], p.device, moved, stage))
+        right = (p[:, -1:].expand(-1, halo) if c == n - 1
+                 else _copy(planes[c + 1][:, :halo], p.device, moved, stage))
+        out.append(torch.cat([left, p, right], dim=1))
+    return out
+
+
+def _mesh_i_step(ys, us, vs, qp: int, *, cap_rows: int):
+    """Band IDR on the mesh: each band's I body on its own device; lists of
+    per-band (prefix, buf, ry, ru, rv), each on its band's device."""
+    outs = [_band_i_body(y, u, v, qp, cap_rows) for y, u, v in zip(ys, us, vs)]
+    return tuple([o[k] for o in outs] for k in range(5))
+
+
+def _mesh_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, halo: int, nscap: int, cap_rows: int,
+                 entropy=None, moved=None):
+    """Band P on the mesh: the halo rows exchanged, then each band's P body
+    on its own device (JAX's ``_mesh_p_body``)."""
+    sy = _exchange_rows(rys, halo, moved)
+    su = _exchange_rows(rus, halo // 2, moved)
+    sv = _exchange_rows(rvs, halo // 2, moved)
+    outs = [_band_p_body(ys[b], us[b], vs[b], qp, sy[b], su[b], sv[b], halo=halo, nscap=nscap,
+                         cap_rows=cap_rows, entropy=entropy)
+            for b in range(len(ys))]
+    return tuple([o[k] for o in outs] for k in range(5))
+
+
+def _mesh_tile_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, halo: int, halo_cols: int,
+                      nscap: int, cap_rows: int, entropy=None, moved=None):
+    """Tile-grid P on the mesh, in JAX's order (``_mesh_tile_p_body``):
+    inputs and references are (rows, cols) nested lists, tile (r, c) on its
+    device. Columns are exchanged before rows, so the corner blocks carry
+    the diagonal neighbour's pixels. Each tile votes on its own device over
+    its downsampled reference with COARSE_R exchanged columns; the row's
+    histograms are summed on its column-0 device (JAX's psum) and one
+    ``select_coarse`` there gives every tile the same candidates (JAX
+    selects on every chip of the row, from the same sum). Each tile is
+    encoded on its device; the row's coefficients are gathered onto the
+    column-0 device (JAX's all_gather) and packed there once (JAX packs on
+    every chip of the row and the host fetches column 0's copy). Returns
+    per-row lists of fused and buf (on column 0's device) and the tiles'
+    recon as nested lists."""
+    rows, cols = len(ys), len(ys[0])
+    hc, hcc = halo_cols, halo_cols // 2
+    ext = [tuple(_exchange_cols(ref[r], h, moved) for ref, h in ((rys, hc), (rus, hcc), (rvs, hcc)))
+           for r in range(rows)]
+    slabs = [[None] * cols for _ in range(rows)]
+    for c in range(cols):
+        col = [_exchange_rows([ext[r][i][c] for r in range(rows)], h, moved)
+               for i, h in enumerate((halo, halo // 2, halo // 2))]
+        for r in range(rows):
+            slabs[r][c] = tuple(col[i][r] for i in range(3))
+    fused_rows, buf_rows = [], []
+    recon = [[None] * cols for _ in range(rows)]
+    for r in range(rows):
+        dev0 = ys[r][0].device
+        rd = _exchange_cols([_downsample4(t) for t in rys[r]], COARSE_R, moved, "coarse_cols")
+        votes = sum(_gather(coarse_votes(ys[r][c], rd[c], COARSE_R), c, dev0, moved, "votes")
+                    for c in range(cols))
+        coarse = select_coarse(votes)
+        touts = []
+        for c in range(cols):
+            out = encode_tile_p_planes(
+                ys[r][c], us[r][c], vs[r][c], *slabs[r][c], qp, halo=halo, halo_cols=hc,
+                coarse=_gather(coarse, c, ys[r][c].device, moved, "coarse"), defer_skip=True)
+            touts.append(out)
+            recon[r][c] = (out["recon_y"], out["recon_u"], out["recon_v"])
+        row = {key: torch.cat([_gather(t[key], c, dev0, moved, "row_gather")
+                               for c, t in enumerate(touts)], dim=1)
+               for key in _ROW_MERGE_KEYS}
+        fused, buf = _row_pack(row, nscap, cap_rows, entropy)
+        fused_rows.append(fused)
+        buf_rows.append(buf)
+    return (fused_rows, buf_rows,
+            *([[recon[r][c][i] for c in range(cols)] for r in range(rows)] for i in range(3)))
+
+
+def _mesh_tile_i_step(ys, us, vs, qp: int, *, grid: list, cap_rows: int, tile_w: int,
+                      moved=None):
+    """Tile-grid IDR on the mesh: row 0 of an I slice is a DC-prediction
+    chain across the whole row, so each band-row (its planes uploaded whole
+    to the row's column-0 device) is encoded once there, and each tile's
+    crop of the recon is copied to its device as its reference. JAX runs
+    the same full-row encode on every chip of the row; once gives the same
+    bytes."""
+    prefixes, bufs, recon = [], [], ([], [], [])
+    for r, row_devs in enumerate(grid):
+        prefix, buf, *rec = _band_i_body(ys[r], us[r], vs[r], qp, cap_rows)
+        prefixes.append(prefix)
+        bufs.append(buf)
+        for i, (plane, w) in enumerate(zip(rec, (tile_w, tile_w // 2, tile_w // 2))):
+            recon[i].append([_gather(plane[:, c * w:(c + 1) * w], c, dev, moved,
+                                     "recon_crop").contiguous()
+                             for c, dev in enumerate(row_devs)])
+    return (prefixes, bufs, *recon)
+
+
 def _step_ready(fetch: _Fetch) -> float:
     """Wall clock once the step that wrote ``fetch``'s buffer has finished
     (its ``step_done`` event; a CPU step is finished when it returns)."""
@@ -388,7 +575,7 @@ class _PendingFrame:
 
 class TorchBandedH264Encoder:
     """Band/tile-sliced H.264 encoder: frame in, multi-slice Annex-B access
-    unit out, on one device.
+    unit out.
 
     One IDR, then P frames (``keyframe_interval`` / ``force_keyframe`` as in
     TorchH264Encoder); every picture is ``bands`` slices, and with
@@ -396,14 +583,17 @@ class TorchBandedH264Encoder:
     full-motion / 4K path: no delta uploads and no tile cache, but an
     unchanged capture is still an all-skip AU built on the host.
 
-    The keyword names are the JAX constructor's, with ``device`` in place
-    of ``devices``: an explicit device is used as given; None takes the
-    first healthy card of the health plane (``resilience/devhealth.py``,
-    raising without a card), shrinking the carve while a quarantine is
-    active as JAX's does. ``self.devices`` is the card the device fault
-    site checks each frame (empty when no card was healthy);
-    ``mesh_enabled`` is False.
-    ``frame_batch`` and ``pipeline_depth`` only size the pack pool.
+    The keyword names are the JAX constructor's, with ``device`` beside
+    ``devices``: ``device`` is one card; ``devices`` is a carve, as JAX's
+    (a list may repeat a card); neither takes the health plane's healthy
+    cards (``resilience/devhealth.py``, raising without a card), shrinking
+    the carve while a quarantine is active as JAX's does. ``mesh_enabled``
+    is JAX's rule, ``bands * cols > 1`` and at least that many devices;
+    ``mesh`` is then the band list or the (bands, cols) tile grid.
+    ``self.devices`` lists the devices the fault site checks each frame
+    (the mesh's, else the one; empty when no card was healthy), and
+    ``shard_bytes`` counts the bytes the mesh steps exchange between
+    shards. ``frame_batch`` and ``pipeline_depth`` only size the pack pool.
     ``dispatch_frame`` / ``complete_frame`` split ``encode_frame`` for a
     scheduler that overlaps sessions; one frame may be in flight.
     """
@@ -419,7 +609,7 @@ class TorchBandedH264Encoder:
                  frame_batch: int = 1, pipeline_depth: int = 1,
                  pack_workers: int | None = None, device_entropy: bool | None = None,
                  bits_min_mbs: int | None = None, entropy_coder: str | None = None,
-                 device=None):
+                 device=None, devices=None):
         if channels != 4:
             raise ValueError("band-parallel encode expects BGRx capture (channels=4)")
         self.width = width
@@ -436,18 +626,24 @@ class TorchBandedH264Encoder:
                 bands, cols = grid
         requested = bands if bands is not None else bands_from_env()
         cols_req = 1 if cols is None else max(1, int(cols))
-        # the device: an explicit one is the caller's contract; None takes
-        # the first healthy card of the health plane (resilience/
-        # devhealth.py), and while a quarantine is active the carve shrinks
-        # to what the healthy cards could hold, as JAX's. With no healthy
-        # card the work stays on the pool's first card with an empty device
-        # list (no fault check), as JAX runs on its default device
+        # the devices: ``device`` is one card; an explicit ``devices`` list
+        # is the caller's carve (JAX's keyword); neither takes the health
+        # plane's healthy cards (resilience/devhealth.py), and while a
+        # quarantine is active the carve shrinks to what the healthy cards
+        # could hold, as JAX's. With no healthy card the work stays on the
+        # pool's first card with an empty device list (no fault check), as
+        # JAX runs on its default device
+        if device is not None and devices is not None:
+            raise ValueError("pass device or devices, not both")
         if device is not None:
-            self.device = resolve_device(device)
-            self.devices = [self.device]
+            devs = [resolve_device(device)]
+        elif devices is not None:
+            devs = device_list(devices)
+            if not devs:
+                raise ValueError("need a device for the band carve, have none")
         else:
             pool = get_device_pool()
-            devs = pool.healthy_devices()
+            devs = device_list(pool.healthy_devices())
             if pool.has_quarantined():
                 cap = max(1, len(devs) // cols_req)
                 if cap < requested:
@@ -455,10 +651,7 @@ class TorchBandedH264Encoder:
                                    "(quarantine active): shrinking the carve to %d bands",
                                    width, height, requested, len(devs), cap)
                     requested = cap
-            self.device = devs[0] if devs else pool.all_devices()[0]
-            # the cards this encoder dispatches to: the device fault site
-            # checks exactly these each frame
-            self.devices = devs[:1]
+        self.device = devs[0] if devs else resolve_device(pool.all_devices()[0])
         self.bands = usable_bands(self._mbh, requested)
         if self.bands != requested:
             logger.info("%dx%d: %d bands requested, using %d (%d MB rows must split into "
@@ -519,26 +712,49 @@ class TorchBandedH264Encoder:
         self._pfx_recent: list[int] = []
         self._pfx_lock = threading.Lock()
 
-        # one device: no mesh, the stacked steps
-        self.mesh_enabled = False
-        self.mesh = None
+        # JAX's carve: a mesh when the list holds a device per band (tile);
+        # else the stacked steps on the first device
+        chips = self.bands * self.cols
+        self.mesh_enabled = chips > 1 and len(devs) >= chips
+        # the devices this encoder dispatches to, in mesh order: the device
+        # fault site checks them each frame
+        self.devices = list(devs[:chips]) if self.mesh_enabled else devs[:1]
+        # the bytes each P step exchanges between shards, by stage
+        self.shard_bytes = LinkByteCounter()
         self.params = StreamParams(width=width, height=height, qp=self.qp, fps=fps,
                                    entropy_coder=self._coder)
         self._headers = write_sps(self.params) + write_pps(self.params)
         self._prep = FramePrep(width, height, self._pad_w, self._pad_h, nslots=2)
-        if self.cols > 1:
+        pconsts = dict(halo=self.halo, nscap=self._nscap, cap_rows=self._cap_p,
+                       entropy=self._entropy)
+        # the device list (band mesh) or grid (tile mesh); None when stacked
+        self.mesh = None
+        if self.mesh_enabled and self.cols > 1:
+            self.mesh = tile_mesh(self.bands, self.cols, devs)
+            self._step_i = functools.partial(_mesh_tile_i_step, grid=self.mesh,
+                                             cap_rows=self._cap_i, tile_w=self._tile_w,
+                                             moved=self.shard_bytes)
+            self._step_p = functools.partial(_mesh_tile_p_step, halo_cols=self.halo_cols,
+                                             moved=self.shard_bytes, **pconsts)
+        elif self.mesh_enabled:
+            self.mesh = band_mesh(self.bands, devs)
+            self._step_i = functools.partial(_mesh_i_step, cap_rows=self._cap_i)
+            self._step_p = functools.partial(_mesh_p_step, moved=self.shard_bytes, **pconsts)
+        elif self.cols > 1:
+            if chips > 1:
+                logger.info("tile mesh unavailable (%d devices < %dx%d grid): the tile-sliced "
+                            "step runs on one device", len(devs), self.bands, self.cols)
             self._step_i = functools.partial(_stacked_tile_i_step, bands=self.bands,
                                              cols=self.cols, cap_rows=self._cap_i)
-            self._step_p = functools.partial(
-                _stacked_tile_p_step, bands=self.bands, cols=self.cols, halo=self.halo,
-                halo_cols=self.halo_cols, nscap=self._nscap, cap_rows=self._cap_p,
-                entropy=self._entropy)
+            self._step_p = functools.partial(_stacked_tile_p_step, bands=self.bands,
+                                             cols=self.cols, halo_cols=self.halo_cols, **pconsts)
         else:
+            if chips > 1:
+                logger.info("band mesh unavailable (%d devices < %d bands): the band-sliced "
+                            "step runs on one device", len(devs), self.bands)
             self._step_i = functools.partial(_stacked_i_step, bands=self.bands,
                                              cap_rows=self._cap_i)
-            self._step_p = functools.partial(
-                _stacked_p_step, bands=self.bands, halo=self.halo, nscap=self._nscap,
-                cap_rows=self._cap_p, entropy=self._entropy)
+            self._step_p = functools.partial(_stacked_p_step, bands=self.bands, **pconsts)
             # the slab gathers' row indices reach the device now, not mid-stream
             _slab_index(self.bands, self._band_h, self.halo, self.device)
             _slab_index(self.bands, self._band_h // 2, self.halo // 2, self.device)
@@ -550,7 +766,9 @@ class TorchBandedH264Encoder:
         self._pack_pool = ThreadPoolExecutor(max_workers=pack_workers,
                                              thread_name_prefix="h264-pack")
         self.link_bytes = LinkByteCounter()
-        self._ref: tuple | None = None  # stacked recon planes: the next P's reference
+        # recon planes, the next P's reference: stacked, or on a mesh one
+        # per band (tile) on its device
+        self._ref: tuple | None = None
         self._allskip: PFrameCoeffs | None = None
         self.frame_index = 0
         self._frames_since_idr = 0
@@ -583,11 +801,14 @@ class TorchBandedH264Encoder:
 
     # -- device dispatch --
 
-    def _put_band_planes(self, y: np.ndarray, u: np.ndarray, v: np.ndarray):
+    def _put_band_planes(self, y: np.ndarray, u: np.ndarray, v: np.ndarray, idr: bool):
         """Converted planes stacked on a leading band axis, (bands, cols)
-        axes in tile mode, and uploaded."""
+        axes in tile mode, and uploaded. On a mesh each band (tile) goes to
+        its own device, lists (nested in tile mode) in place of the stacked
+        axes; a tile grid's IDR uploads each band-row whole to its column-0
+        device, where the row is encoded."""
         b, bh = self.bands, self._band_h
-        if self.cols > 1:
+        if self.cols > 1 and not (self.mesh_enabled and idr):
             c, tw = self.cols, self._tile_w
             ys = np.asarray(y).reshape(b, bh, c, tw).transpose(0, 2, 1, 3)
             us = np.asarray(u).reshape(b, bh // 2, c, tw // 2).transpose(0, 2, 1, 3)
@@ -597,11 +818,21 @@ class TorchBandedH264Encoder:
             us = np.asarray(u).reshape(b, bh // 2, self._pad_w // 2)
             vs = np.asarray(v).reshape(b, bh // 2, self._pad_w // 2)
         self.link_bytes.add("up_full", ys.nbytes + us.nbytes + vs.nbytes)
-        return tuple(to_device(a, self.device) for a in (ys, us, vs))
+        if not self.mesh_enabled:
+            return tuple(to_device(a, self.device) for a in (ys, us, vs))
+        if self.cols > 1 and not idr:
+            return tuple([[to_device(a[r, c], dev) for c, dev in enumerate(row)]
+                          for r, row in enumerate(self.mesh)] for a in (ys, us, vs))
+        devs = [row[0] for row in self.mesh] if self.cols > 1 else self.mesh
+        return tuple([to_device(a[r], dev) for r, dev in enumerate(devs)] for a in (ys, us, vs))
 
     def _band_handles(self, arr):
-        """Per-band-row views of a stacked (bands, ...) output, in band
-        order (tile mode: (bands, 1, ...), the unit col axis dropped)."""
+        """Per-band-row tensors of a step's output, in band order: the
+        mesh's per-band (per-row) list itself, else views of the stacked
+        (bands, ...) output (tile mode: (bands, 1, ...), the unit col axis
+        dropped)."""
+        if self.mesh_enabled:
+            return list(arr)
         if self.cols > 1:
             return [arr[b, 0] for b in range(self.bands)]
         return [arr[b] for b in range(self.bands)]
@@ -721,7 +952,7 @@ class TorchBandedH264Encoder:
         t_c0 = time.perf_counter()
         y, u, v = self._prep.convert(frame)
         t_h0 = time.perf_counter()
-        parts = self._put_band_planes(y, u, v)
+        parts = self._put_band_planes(y, u, v, idr)
         t_up = time.perf_counter()
         try:
             if idr:
@@ -730,12 +961,9 @@ class TorchBandedH264Encoder:
                 prefix_d, buf_d, ry, ru, rv = self._step_p(*parts, self.qp, *self._ref)
             self._ref = (ry, ru, rv)
             # hint-sized prefixes, their copies enqueued right behind the step
-            pfx = prefix_d
-            if not idr:
-                hint = self._pfx_slice_len()
-                if hint < self._pfx_total:
-                    pfx = prefix_d[..., :hint]
-            fetches = [_Fetch(h) for h in self._band_handles(pfx)]
+            full_h = self._band_handles(prefix_d)
+            hint = self._pfx_total if idr else self._pfx_slice_len()
+            fetches = [_Fetch(h if hint >= self._pfx_total else h[..., :hint]) for h in full_h]
         except Exception:
             # the client never gets this frame: restart from an IDR
             self._ref = None
@@ -743,7 +971,7 @@ class TorchBandedH264Encoder:
             raise
         pending = _PendingFrame(idr=idr)
         pending.fetches = fetches
-        pending.full_h = self._band_handles(prefix_d)
+        pending.full_h = full_h
         pending.buf_h = self._band_handles(buf_d)
         # completion packs with the values the frame was dispatched under
         pending.qp = self.qp

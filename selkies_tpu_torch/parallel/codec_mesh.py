@@ -8,9 +8,11 @@ The hybrid rows split their work in two:
 * **device half**: the capture-delta front-end (per-MB dirty map and
   coarse-ME vote hints) per column shard (``MeshDeltaFrontend``). JAX
   shards one column per chip over a ``col`` mesh axis and psums the vote
-  histograms over it. The port runs every column's shard in one step on
-  one card: the same per-column graphs in a loop over the columns, then
-  the sum, so the maps and hints equal JAX's mesh element for element;
+  histograms over it. The port puts column ``k`` on the row's device
+  ``k`` when the row lists a device per column, sums the histograms on
+  column 0's card, and otherwise runs the same per-column graphs in a
+  loop on one card; either way the maps and hints equal JAX's mesh
+  element for element;
 * **entropy half**: libaom / libvpx, driven by the column carve. AV1
   (``TileColumnAV1Encoder``) runs one pinned lossless
   ``AomStripEncoder`` per 64-px column and splices the column payloads
@@ -34,6 +36,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from selkies_tpu_torch.device import device_list
 from selkies_tpu_torch.models.h264.encoder_core import _downsample4, coarse_votes, select_coarse
 from selkies_tpu_torch.models.h264.numpy_ref import TOPK
 from selkies_tpu_torch.models.hybrid_frontend import (
@@ -98,9 +101,16 @@ def budget_cols(chips: int) -> int:
 
 
 def _row_device(devices, device):
-    """The device a row runs on: the first of ``devices`` (a fleet row),
-    else ``device``."""
+    """The device a row's own work runs on: the first of ``devices`` (a
+    fleet row), else ``device``. The row's device front-end takes the
+    whole row (``_row_devices``)."""
     return list(devices)[0] if devices else device
+
+
+def _row_devices(devices, device) -> list:
+    """The devices a row's column front-end may spread over: the row, else
+    the row's one device."""
+    return list(devices) if devices else [device]
 
 
 # ---------------------------------------------------------------------------
@@ -108,8 +118,7 @@ def _row_device(devices, device):
 
 
 class MeshDeltaFrontend(DeviceDeltaFrontend):
-    """``DeviceDeltaFrontend`` computed as JAX's ``col`` mesh computes it,
-    every column shard in one step on one device.
+    """``DeviceDeltaFrontend`` computed as JAX's ``col`` mesh computes it.
 
     The capture goes into a zero frame of ``pad_h x pad_w``, where every
     column is ``col_w = ceil(width / (cols*16)) * 16`` wide, so no MB
@@ -121,46 +130,100 @@ class MeshDeltaFrontend(DeviceDeltaFrontend):
     summed (JAX's psum) and one ``select_coarse`` picks the hints. The
     vote runs on every step, static ones too (``votes`` counts them).
 
-    ``devices=None`` takes the first healthy card of the device pool; a
-    device row runs on its first entry (``devices`` lists the one device
-    this front-end dispatches to). The upload discipline is the solo
-    front-end's, and a step fetches the map and the hints in one copy."""
+    ``devices=None`` takes the device pool's healthy cards. With at least
+    ``cols`` devices listed (a list may repeat a card), column ``k`` lives
+    on ``devices[k]`` (``mesh_enabled``): its slice of the capture is
+    uploaded there, and its dirty map, luma and vote histogram are
+    computed there; the maps and histograms are copied to column 0's card
+    and summed there, and one fetch per step brings the map and the hints
+    back. With fewer devices every column runs on the first, in one step.
+    ``devices`` lists the cards this front-end dispatches to."""
 
     def __init__(self, width: int, height: int, cols: int, devices=None):
         if devices is None:
             from selkies_tpu_torch.resilience.devhealth import get_device_pool
 
             devices = get_device_pool().healthy_devices()
-        devices = list(devices)
+        devices = device_list(devices)
         if not devices:
             raise ValueError("need a device for the column mesh, have none")
         super().__init__(width, height, device=devices[0])
-        self.devices = [self.device]
         self.cols = cols
         self.col_w = ((width + cols * 16 - 1) // (cols * 16)) * 16
         self.pad_w = self.col_w * cols
         self.mbw = self.pad_w // 16  # the padded frame's, as the base defines it
+        self.mesh_enabled = cols > 1 and len(devices) >= cols
+        self.devices = devices[:cols] if self.mesh_enabled else [self.device]
+        self._col_stages: list | None = None  # pinned staging per column (cuda)
+
+    def _upload_cols(self, frame: np.ndarray) -> list[torch.Tensor]:
+        """Each column of the capture into its card's zero-padded column
+        buffer that does not hold ``prev`` (the mesh's ``_upload``)."""
+        if frame.shape != (self.height, self.width, 4) or frame.dtype != np.uint8:
+            raise ValueError(f"frame {frame.shape} {frame.dtype} != "
+                             f"{(self.height, self.width, 4)} uint8")
+        cw = self.col_w
+        spans = [(k * cw, min((k + 1) * cw, self.width)) for k in range(self.cols)]
+        if self._bufs is None:
+            self._bufs = [[torch.zeros((self.pad_h, cw, 4), dtype=torch.uint8, device=d)
+                           for d in self.devices] for _ in range(2)]
+            if self.device.type == "cuda":
+                self._col_stages = [torch.empty((self.height, max(x1 - x0, 0), 4),
+                                                dtype=torch.uint8, pin_memory=True)
+                                    for x0, x1 in spans]
+        bufs = self._bufs[self._next]
+        self._next ^= 1
+        for k, ((x0, x1), buf) in enumerate(zip(spans, bufs)):
+            if x1 <= x0:
+                continue  # a column wholly past the capture stays zero
+            src = torch.from_numpy(np.ascontiguousarray(frame[:, x0:x1]))
+            if self._col_stages is None:
+                buf[: self.height, : x1 - x0].copy_(src)
+                continue
+            # pinned, so the copy is asynchronous; the staging is free again
+            # after the step's fetch, which follows every column's work
+            self._col_stages[k].copy_(src)
+            with torch.cuda.device(buf.device):
+                buf[: self.height, : x1 - x0].copy_(self._col_stages[k], non_blocking=True)
+        return bufs
 
     def step(self, frame: np.ndarray):
         """BGRx capture -> (dirty (mbh, mbw) bool | None, hints (TOPK, 2)
         int32 in pixel units | None); None on the first frame."""
         t0 = time.perf_counter()
-        f = self._upload(np.asarray(frame))
-        y = bgrx_to_luma(f)
+        frame = np.asarray(frame)
+        if self.mesh_enabled:
+            f = self._upload_cols(frame)
+            y = [bgrx_to_luma(t) for t in f]
+        else:
+            f = self._upload(frame)
+            y = bgrx_to_luma(f)
         if self._prev is None:
             self._prev, self._prev_luma = f, y
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for d in dict.fromkeys(self.devices):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
             self.last_device_ms = (time.perf_counter() - t0) * 1e3
             return None, None
-        dirty = (f != self._prev).reshape(self.mbh, 16, self.mbw, 16, 4).any(dim=(1, 3, 4))
-        cur = y.to(torch.int32)
-        rd = _downsample4(self._prev_luma)
         cw = self.col_w
-        votes = None
-        for k in range(self.cols):
-            v = coarse_votes(cur[:, k * cw:(k + 1) * cw], rd[:, k * cw // 4:(k + 1) * cw // 4])
-            votes = v if votes is None else votes + v
+        if self.mesh_enabled:
+            # each column on its card; its map and histogram to column 0's
+            dev0 = self.devices[0]
+            maps, votes = [], 0
+            for fk, pk, yk, lk in zip(f, self._prev, y, self._prev_luma):
+                d = (fk != pk).reshape(self.mbh, 16, cw // 16, 16, 4).any(dim=(1, 3, 4))
+                v = coarse_votes(yk.to(torch.int32), _downsample4(lk))
+                maps.append(d.to(dev0, non_blocking=True))
+                votes = votes + v.to(dev0, non_blocking=True)
+            dirty = torch.cat(maps, dim=1)
+        else:
+            dirty = (f != self._prev).reshape(self.mbh, 16, self.mbw, 16, 4).any(dim=(1, 3, 4))
+            cur = y.to(torch.int32)
+            rd = _downsample4(self._prev_luma)
+            votes = 0
+            for k in range(self.cols):
+                votes = votes + coarse_votes(cur[:, k * cw:(k + 1) * cw],
+                                             rd[:, k * cw // 4:(k + 1) * cw // 4])
         hints = select_coarse(votes)
         self.votes += 1
         out = torch.cat([dirty.reshape(-1).to(torch.int32), hints.reshape(-1)])
@@ -185,8 +248,9 @@ class TileColumnAV1Encoder(HybridFrontendMixin):
     ``last_stats``, ``force_keyframe``, ``set_bitrate`` / ``set_qp``,
     ``close``. The rate knobs are accepted and ignored: the splice is
     pinned lossless. ``device=None`` means ``cuda`` and raises without a
-    card; ``devices`` (a fleet row) runs the row on its first entry; the
-    device front-end is ``MeshDeltaFrontend`` on that same device."""
+    card; ``devices`` (a fleet row) runs the row on its first entry, and
+    the device front-end, ``MeshDeltaFrontend``, over the whole row (else
+    on that one device)."""
 
     codec = "av1"
 
@@ -220,6 +284,7 @@ class TileColumnAV1Encoder(HybridFrontendMixin):
         self._pool = ThreadPoolExecutor(
             max_workers=max(1, min(self.cols, os.cpu_count() or 1)),
             thread_name_prefix="av1-strip")
+        self._row = list(devices) if devices else None
         self._init_frontend(width, height, frontend, _row_device(devices, device))
         # per-column splice state
         self._payloads: list[bytes | None] = [None] * self.cols
@@ -239,8 +304,9 @@ class TileColumnAV1Encoder(HybridFrontendMixin):
         self.stitch_fallbacks = 0   # frames that left the splice envelope
 
     def _make_device_frontend(self, width: int, height: int):
-        # the row's own device, so the front-end and the row never differ
-        return MeshDeltaFrontend(width, height, self.cols, devices=[self.device])
+        # the row's devices: a column per card when the row has enough
+        return MeshDeltaFrontend(width, height, self.cols,
+                                 devices=_row_devices(self._row, self.device))
 
     def close(self) -> None:
         pool = getattr(self, "_pool", None)
@@ -421,7 +487,8 @@ class TileColumnVP9Encoder:
         mode = (frontend if frontend in ("host", "device")
                 else default_frontend_mode(enc.device))
         if mode == "device":
-            enc._device_fe = MeshDeltaFrontend(width, height, eff_cols, devices=[enc.device])
+            enc._device_fe = MeshDeltaFrontend(width, height, eff_cols,
+                                               devices=_row_devices(devices, enc.device))
             enc._prep = None
             enc.frontend_mode = "device"
         return enc

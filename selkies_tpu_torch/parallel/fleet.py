@@ -10,9 +10,11 @@ policy and SLO planes. Where it departs from JAX (ROADMAP queue 3,
 
 * ``SessionFleet(devices=None)`` takes the port's device pool's cards and
   raises without a card; the CPU runs only when the caller passes CPU
-  devices. The batch service and the software rung run on the first of
-  ``devices`` (on the pool's first healthy card when it is None), and
-  ``dryrun(n)`` puts its n sessions on one card.
+  devices. The batch service splits its sessions over ``devices``, one
+  group per device (on the pool's first healthy card when it is None),
+  the banded service takes the placer's rows, the software rung runs on
+  the first of ``devices``, and ``dryrun(n)`` puts its n sessions on one
+  card.
 * A slot's planes may be passed in: ``ws=None`` builds the port's
   ``WebSocketTransport`` (so this module imports without ``aiohttp``
   until a slot needs one), and ``webrtc=None`` the port's
@@ -223,8 +225,9 @@ class SessionFleet:
         self.base_fps = fps
         self.qp = qp
         self._devices = devices
-        # the batch service and the software rung run on one device: the
-        # first given, else (None) the pool's first healthy card
+        # the batch service splits its sessions over the devices given
+        # (None: the pool's first healthy card); the software rung runs on
+        # the first
         self._device = devices[0] if devices else None
         # chips-per-session trade (SELKIES_BANDS / SELKIES_TILE_GRID):
         # 1 band keeps the classic one-session-per-chip lockstep shard;
@@ -269,8 +272,7 @@ class SessionFleet:
                 shared=self.placer.shared)
         else:
             self._make_tpu_service = lambda: TorchMultiSessionH264Service(
-                self.n, width, height, qp=qp, fps=self.base_fps,
-                device=self._device)
+                self.n, width, height, qp=qp, fps=self.base_fps, devices=devices or None)
         self.service = service or self._make_tpu_service()
         self.software_mode = False
         # occupancy scheduler bound to the live service (built lazily on

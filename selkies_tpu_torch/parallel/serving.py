@@ -1,40 +1,43 @@
 """Multi-session serving: N session streams from one batched device tick.
 
 Counterpart of ``selkies_tpu/parallel/serving.py``'s
-``MultiSessionH264Service``: ``TorchMultiSessionEncoder`` (one card, the
-sessions on a batch axis) plus what a serving path needs per session:
+``MultiSessionH264Service``: ``TorchMultiSessionEncoder`` (the sessions
+on a batch axis, one group per listed device) plus what a serving path
+needs per session:
 GOP state (frame_num, idr_pic_id, force_keyframe), per-session QP, the
 coefficient fetch and concurrent host CAVLC packing, one pool worker per
 session. Every session's access units are byte-identical to JAX's service
 and to a solo ``TorchH264Encoder`` fed the same frames and QPs
 (tests/test_torch_serving.py).
 
-The tick splits into ``dispatch_tick`` (host conversion on the pool, one
-pinned upload, the device step and the downlink copy enqueued behind it)
-and ``complete_tick`` (the wait on that copy's events, the packs, the GOP
-advance). ``dispatch_tick`` makes no synchronising CUDA call, so it
-returns with the card still stepping. The fetch is the dense coefficients,
-as JAX's, narrowed to int16 on the device: the packers take int16, so the
-bytes are the same and half cross the link.
+The tick splits into ``dispatch_tick`` (host conversion on the pool, a
+pinned upload, the device step and the downlink copy enqueued behind it,
+each per group on its device) and ``complete_tick`` (the wait on those
+copies' events, the packs, the GOP advance). ``dispatch_tick`` makes no
+synchronising CUDA call, so it returns with the card still stepping. The
+fetch is the dense coefficients, as JAX's, narrowed to int16 on the
+device: the packers take int16, so the bytes are the same and half cross
+the link.
 
 As JAX's, each tick first consults the ``device:<chip>`` fault site over
-``self.devices`` (``resilience/devhealth.py``: here the one card that holds
-every session, where JAX checks one chip per session), and opens the
+``self.devices`` (``resilience/devhealth.py``: the cards of the session
+groups, where JAX checks one chip per session), and opens the
 tracer's ``convert`` / ``device-step`` / ``fetch`` / ``pack`` spans beside
 ``last_timing``. JAX's persistent compilation cache has no counterpart:
 the port compiles nothing per geometry.
 
 ``TorchBandedFleetService`` is the counterpart of JAX's
 ``BandedFleetService``: N sessions, each a ``TorchBandedH264Encoder`` on
-its own row of devices, behind the same interface. A row runs on its
-first device (the band bytes do not depend on where a band is placed,
-tests/test_torch_bands.py), so on one card every carve of more than one
-chip is JAX's shared carve: single-device rows over the healthy cards,
-each session still band-sliced at the requested count. ``recarve``
+its own row of devices, behind the same interface. A row of ``bands x
+cols`` devices runs its session as a mesh, a band (tile) per device, as
+JAX's does; on one card every carve of more than one chip is JAX's
+shared carve: single-device rows over the healthy cards, each session
+still band-sliced at the requested count (the band bytes do not depend
+on where a band is placed, tests/test_torch_bands.py). ``recarve``
 rebuilds a session on a new row through ``parallel/lifecycle.py``'s
 checkpoint / restore, and an empty row parks it. An AV1 / VP9 session
-builds the tile-column row (``parallel/codec_mesh.py``) on its row's
-first device, and degrades to h264 as JAX's does when that build fails.
+builds the tile-column row (``parallel/codec_mesh.py``) over its row,
+and degrades to h264 as JAX's does when that build fails.
 
 ``SoftwareFleetService`` is JAX's degraded-mode fleet service: N registry
 encoders (``x264enc`` by default; without libx264 the registry serves
@@ -85,12 +88,13 @@ class _SessionState:
 
 @dataclass
 class _PendingTick:
-    """One dispatched tick: its IDR flags, the downlink copy and the layout
-    of the fetched buffer (field, per-tick shape, offset), host times."""
+    """One dispatched tick: its IDR flags, per session group the downlink
+    copy and the layout of the fetched buffer (field, shape, offset), and
+    host times."""
 
     idrs: np.ndarray
-    fetch: _Fetch
-    layout: list
+    fetches: list
+    layouts: list
     t_disp: float
     convert_ms: float
     h2d_ms: float
@@ -105,13 +109,18 @@ class TorchMultiSessionH264Service:
     force_keyframe / GOP state. Only the very first tick (no reference
     planes yet) is the batch-wide IDR step. ``device=None`` takes the first
     healthy card of the health plane (raising without a card);
-    ``device="cpu"`` runs on the CPU. ``devices`` lists the card the
-    ``device:<chip>`` fault site checks each tick. ``last_timing`` holds
-    the last completed tick's host-clock split in ms."""
+    ``device="cpu"`` runs on the CPU. ``devices`` (JAX's keyword) splits
+    the sessions into one group per listed device
+    (``TorchMultiSessionEncoder``): each group's planes are uploaded to its
+    device, stepped there and fetched from there. ``self.devices`` lists
+    the groups' devices, which the ``device:<chip>`` fault site checks each
+    tick. ``last_timing`` holds the last completed tick's host-clock split
+    in ms."""
 
     def __init__(self, n_sessions: int, width: int, height: int, *,
-                 qp: int = 28, fps: int = 60, device=None):
-        self.enc = TorchMultiSessionEncoder(n_sessions, width, height, device=device)
+                 qp: int = 28, fps: int = 60, device=None, devices=None):
+        self.enc = TorchMultiSessionEncoder(n_sessions, width, height, device=device,
+                                            devices=devices)
         self.device = self.enc.device
         self.n = n_sessions
         # per-session IDR flags of the most recent tick; the batched step
@@ -132,11 +141,12 @@ class TorchMultiSessionH264Service:
         self._batch_t = tuple(torch.empty((n_sessions, *s), dtype=torch.uint8, pin_memory=pin)
                               for s in shapes)
         self._batch = tuple(t.numpy() for t in self._batch_t)
-        self._uploaded: torch.cuda.Event | None = None  # the last upload of the planes
+        # per group, the last upload of its planes
+        self._uploaded: list = [None] * len(self.enc.groups)
         self._inflight = 0
         self.last_timing: dict = {}
-        # the card for the device:<chip> fault site
-        self.devices = [self.device]
+        # the devices of the device:<chip> fault site
+        self.devices = list(self.enc.devices)
 
     def set_qp(self, session: int, qp: int) -> None:
         if not 0 <= qp <= 51:
@@ -164,37 +174,42 @@ class TorchMultiSessionH264Service:
         check_device_faults(self.devices)
         idrs = np.array([s.force_idr or s.frames_since_idr == 0 for s in self.sessions], bool)
         t0 = time.perf_counter()
-        # the previous tick's upload must have read the pinned planes
-        if self._uploaded is not None and not self._uploaded.query():
-            self._uploaded.synchronize()
+        # the previous tick's uploads must have read the pinned planes
+        for ev in self._uploaded:
+            if ev is not None and not ev.query():
+                ev.synchronize()
         with tracer.span("convert"):
             list(self._pool.map(lambda i: self._convert_into(frames, i), range(self.n)))
         t1 = time.perf_counter()
-        planes = self.enc._put_inputs(self._batch_t)
-        if self.device.type == "cuda":
-            self._uploaded = torch.cuda.Event()
-            self._uploaded.record()
+        inputs = self.enc.put_groups(self._batch_t)
+        for k, g in enumerate(self.enc.groups):
+            if g.device.type == "cuda":
+                self._uploaded[k] = torch.cuda.Event()
+                self._uploaded[k].record(torch.cuda.current_stream(g.device))
         qps = np.array([s.qp for s in self.sessions], np.int32)
         t2 = time.perf_counter()
         with tracer.span("device-step"):
-            if self.enc._ref is None:
+            first = any(g.ref is None for g in self.enc.groups)
+            if first:
                 # first tick: no reference planes exist, everyone starts a GOP
                 idrs[:] = True
-                out = self.enc.encode_idr(planes, qps)
-            else:
-                out = self.enc.encode_mixed(planes, qps, idrs)
+            outs = self.enc.step_groups(inputs, qps, idrs, fill=not first)
         # the fetch skips the branch-filler fields no session needs
         skip = (set(I_ONLY) if not idrs.any() else set()) | (set(P_ONLY) if idrs.all() else set())
-        keys = [k for k in out if k not in skip]
-        layout, off = [], 0
-        for k in keys:
-            layout.append((k, tuple(out[k].shape), off))
-            off += out[k].numel()
-        flat = torch.cat([out[k].reshape(-1).to(torch.int32) for k in keys]).to(torch.int16)
+        flats, layouts = [], []
+        for out in outs:
+            keys = [k for k in out if k not in skip]
+            layout, off = [], 0
+            for k in keys:
+                layout.append((k, tuple(out[k].shape), off))
+                off += out[k].numel()
+            flats.append(torch.cat([out[k].reshape(-1).to(torch.int32)
+                                    for k in keys]).to(torch.int16))
+            layouts.append(layout)
         t_disp = time.perf_counter()
-        fetch = _Fetch(flat)
+        fetches = [_Fetch(flat) for flat in flats]
         self._inflight += 1
-        return _PendingTick(idrs, fetch, layout, t_disp, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+        return _PendingTick(idrs, fetches, layouts, t_disp, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
                             (t_disp - t2) * 1e3)
 
     def complete_tick(self, pending: _PendingTick) -> list[bytes]:
@@ -203,21 +218,26 @@ class TorchMultiSessionH264Service:
         GOP state advance."""
         self._inflight -= 1
         # JAX's "fetch" span covers its blocking fetch, the device wait
-        # included: here the wait on the step-done event and the copy
+        # included: here the wait on each group's step-done event and copy
+        hosts, step_ms, fetch_ms, down = [], 0.0, 0.0, 0
         with tracer.span("fetch"):
-            arr, step_ms, fetch_ms = pending.fetch.wait(pending.t_disp, step_span=False)
-        host = {k: arr[off:off + int(np.prod(shape))].reshape(shape)
-                for k, shape, off in pending.layout}
+            for fetch, layout in zip(pending.fetches, pending.layouts):
+                arr, g_step, g_fetch = fetch.wait(pending.t_disp, step_span=False)
+                hosts.append({k: arr[off:off + int(np.prod(shape))].reshape(shape)
+                              for k, shape, off in layout})
+                step_ms, fetch_ms = max(step_ms, g_step), fetch_ms + g_fetch
+                down += arr.nbytes
         idrs = pending.idrs
         t0 = time.perf_counter()
         with tracer.span("pack"):
-            futures = [self._pool.submit(self._pack_one, i, host, bool(idrs[i]))
-                       for i in range(self.n)]
+            futures = [self._pool.submit(self._pack_one, g.lo + j, hosts[k], j,
+                                         bool(idrs[g.lo + j]))
+                       for k, g in enumerate(self.enc.groups) for j in range(g.hi - g.lo)]
             aus = [f.result() for f in futures]
         self.last_timing = {
             "convert_ms": pending.convert_ms, "h2d_ms": pending.h2d_ms,
             "dispatch_ms": pending.dispatch_ms, "step_ms": step_ms, "fetch_ms": fetch_ms,
-            "pack_ms": (time.perf_counter() - t0) * 1e3, "down_bytes": int(arr.nbytes)}
+            "pack_ms": (time.perf_counter() - t0) * 1e3, "down_bytes": int(down)}
         self.last_idrs = [bool(x) for x in idrs]
         for s, idr in zip(self.sessions, idrs):
             if idr:
@@ -228,21 +248,22 @@ class TorchMultiSessionH264Service:
                 s.frames_since_idr += 1
         return aus
 
-    def _pack_one(self, i: int, host: dict, idr: bool) -> bytes:
+    def _pack_one(self, i: int, host: dict, j: int, idr: bool) -> bytes:
+        """Session ``i``'s AU from row ``j`` of its group's fetched fields."""
         s = self.sessions[i]
         if idr:
             fc = FrameCoeffs(
-                luma_mode=host["luma_mode"][i], chroma_mode=host["chroma_mode"][i],
-                luma_dc=host["luma_dc"][i], luma_ac=host["luma_ac"][i],
-                chroma_dc=host["chroma_dc"][i], chroma_ac=host["chroma_ac"][i],
+                luma_mode=host["luma_mode"][j], chroma_mode=host["chroma_mode"][j],
+                luma_dc=host["luma_dc"][j], luma_ac=host["luma_ac"][j],
+                chroma_dc=host["chroma_dc"][j], chroma_ac=host["chroma_ac"][j],
                 qp=int(s.qp),
             )
             nal = pack_slice_fast(fc, self.params, frame_num=0, idr=True,
                                   idr_pic_id=s.idr_pic_id)
             return self._headers + nal
         pfc = PFrameCoeffs(
-            mvs=host["mvs"][i], skip=host["skip"][i] != 0, luma_ac=host["luma_ac"][i],
-            chroma_dc=host["chroma_dc"][i], chroma_ac=host["chroma_ac"][i],
+            mvs=host["mvs"][j], skip=host["skip"][j] != 0, luma_ac=host["luma_ac"][j],
+            chroma_dc=host["chroma_dc"][j], chroma_ac=host["chroma_ac"][j],
             qp=int(s.qp),
         )
         return pack_slice_p_fast(pfc, self.params, frame_num=s.frames_since_idr % 256)
@@ -253,7 +274,8 @@ class TorchMultiSessionH264Service:
         values: ``ref`` (``np.asarray(svc.enc._ref[i])``, the batched recon
         planes), ``sessions`` (per session a dict of ``frames_since_idr``,
         ``idr_pic_id``, ``force_idr`` and ``qp``) and ``pic_init_qp``
-        (``svc.params.qp``: slice QPs are coded relative to it)."""
+        (``svc.params.qp``: slice QPs are coded relative to it). Each
+        session group's planes go to its device."""
         if self._inflight:
             raise RuntimeError("load_jax_state with a tick in flight; complete it first")
         h, w = self.enc.height, self.enc.width
@@ -263,7 +285,7 @@ class TorchMultiSessionH264Service:
             raise ValueError(f"reference planes {[a.shape for a in ref]} != {list(want)}")
         if len(state["sessions"]) != self.n:
             raise ValueError(f"{len(state['sessions'])} session states for {self.n} sessions")
-        self.enc._ref = tuple(torch.from_numpy(a).to(self.device) for a in ref)
+        self.enc._ref = tuple(torch.from_numpy(a) for a in ref)
         for s, st in zip(self.sessions, state["sessions"]):
             s.frames_since_idr = int(st["frames_since_idr"])
             s.idr_pic_id = int(st["idr_pic_id"])
@@ -289,8 +311,9 @@ class TorchBandedFleetService:
     raising without a card) with ``partition_devices``, and when that
     carve does not fit it takes JAX's shared carve: one device per
     session, round-robin, each session band-sliced at the requested count
-    (the same bytes). A session's encoder runs on its row's first device
-    with ``bands=_row_bands(row)``. Sessions are independent (per-session
+    (the same bytes). A session's encoder takes its row as ``devices``
+    with ``bands=_row_bands(row)``: a mesh when the row holds a device per
+    band (tile). Sessions are independent (per-session
     GOP, QP, multi-slice AUs): ``encode_tick`` runs them concurrently on
     the service pool, and ``parallel/occupancy.py`` schedules each as its
     own unit through the encoders' ``dispatch_frame`` / ``complete_frame``.
@@ -398,7 +421,7 @@ class TorchBandedFleetService:
             self.codecs[session] = "h264"
         return TorchBandedH264Encoder(
             self._width, self._height, qp=self._qp, fps=self._fps,
-            bands=self._row_bands(devices), cols=self.cols, device=devices[0])
+            bands=self._row_bands(devices), cols=self.cols, devices=devices)
 
     def _row_bands(self, row) -> int:
         """Band count for a device row. Borrowed chips enlarge it: a row

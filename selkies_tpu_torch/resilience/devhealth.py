@@ -478,8 +478,8 @@ def check_device_faults(devices) -> None:
     fi = get_injector()
     if fi is None or not devices:
         return
-    for d in devices:
-        key = chip_key(d)
+    # a carve may list one card more than once: it is consulted once
+    for key in dict.fromkeys(chip_key(d) for d in devices):
         try:
             act = fi.check(f"device:{key}")
         except InjectedFault as exc:

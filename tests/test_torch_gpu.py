@@ -571,7 +571,11 @@ def test_banded_encoder_takes_the_card_from_the_pool():
     devhealth.reset_device_pool()
     try:
         enc = TorchBandedH264Encoder(W, H, bands=2)
-        assert enc.device == torch.device("cuda", 0) and enc.devices == [enc.device]
+        # one card: the stacked steps on it; more: a 2-card band mesh
+        cards = [torch.device("cuda", i) for i in range(min(2, torch.cuda.device_count()))]
+        assert enc.device == cards[0] and enc.devices == (cards if len(cards) == 2
+                                                          else [enc.device])
+        assert enc.mesh_enabled == (len(cards) == 2)
         enc.close()
         devhealth.get_device_pool().quarantine("0")
         enc = TorchBandedH264Encoder(W, H, bands=2)
@@ -684,6 +688,130 @@ def test_banded_dispatch_never_syncs(name):
     assert not on_submit, f"{len(on_submit)} syncs; first at:\n" + "\n".join(
         dict.fromkeys(on_submit))
     assert len(aus) == 3 and all(au.startswith(b"\x00\x00\x00\x01") for au in aus)
+
+
+# -- the multi-card carve: the band, tile and session meshes ----------------
+
+def _need_cards(n: int):
+    _need_card()
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards, this machine has {torch.cuda.device_count()}")
+
+
+def _drive_banded(enc, frames):
+    out, launches = [], []
+    for f in frames:
+        before = me_mc.launches
+        au = enc.encode_frame(f)
+        launches.append(me_mc.launches - before)
+        out.append((hashlib.sha256(au).hexdigest(), enc.last_stats.idr,
+                    enc.last_stats.upload_kind))
+    enc.close()
+    return out, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,listed", [("bands4", 4), ("grid4x3", 12)])
+def test_band_mesh_on_one_card_repeated_equals_stacked(name, listed):
+    """The mesh steps on [cuda:0] * k (every halo copy a same-card copy):
+    the AUs of the stacked path on cuda:0, K1 once per band and tile of a
+    non-static P frame."""
+    _need_card()
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+
+    frames = _band_frames()
+    card = torch.device("cuda", 0)
+    mesh = TorchBandedH264Encoder(336, 192, qp=30, devices=[card] * listed, **_BAND_CFGS[name])
+    assert mesh.mesh_enabled
+    got, launches = _drive_banded(mesh, frames)
+    want, want_launches = _drive_banded(
+        TorchBandedH264Encoder(336, 192, qp=30, device=card, **_BAND_CFGS[name]), frames)
+    assert got == want and launches == want_launches
+    assert launches == [0 if idr or kind == "static" else listed for _, idr, kind in got]
+
+
+@pytest.mark.gpu
+def test_fetch_of_another_cards_buffer_returns_its_bytes():
+    """With cuda:0 current, a _Fetch of a buffer a kernel just wrote on
+    cuda:1 waits on cuda:1's stream and returns the written bytes."""
+    _need_cards(2)
+    torch.cuda.set_device(0)
+    src = torch.arange(1 << 24, dtype=torch.int32, device="cuda:1")
+    for k in range(8):  # queue work on cuda:1's stream ahead of the copy
+        src = src * 2 + k - src
+    fetch = enc_mod._Fetch(src)
+    arr, _, _ = fetch.wait(0.0, step_span=False)
+    np.testing.assert_array_equal(arr, np.arange(1 << 24, dtype=np.int32) + 28)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.gpu
+def test_kernel_on_another_card_keeps_the_current_card():
+    """K1 launched on cuda:1 while cuda:0 is current: its outputs equal the
+    plain version's and the thread's current card is still 0."""
+    _need_cards(2)
+    torch.cuda.set_device(0)
+    args = _case_inputs("320x192-motion", torch.device("cuda", 1))
+    got = me_mc.me_mc(*args)
+    assert torch.cuda.current_device() == 0
+    want = me_mc.me_mc_plain(*args)
+    torch.cuda.synchronize(1)
+    for a, b in zip(got, want):
+        assert a.device == torch.device("cuda", 1) and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_tile_grid_on_two_cards_equals_stacked():
+    """The 1x2 grid on cuda:0 and cuda:1 (cuda:0 current): the AUs of the
+    stacked path on cuda:0, each tile's reference on its own card."""
+    _need_cards(2)
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+
+    torch.cuda.set_device(0)
+    frames = _band_frames(w=320)
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    mesh = TorchBandedH264Encoder(320, 192, qp=30, bands=1, cols=2, devices=cards)
+    assert mesh.mesh_enabled and mesh.mesh == [cards]
+    mesh_out = []
+    for f in frames:
+        mesh_out.append(hashlib.sha256(mesh.encode_frame(f)).hexdigest())
+        assert torch.cuda.current_device() == 0
+    assert [t.device for t in mesh._ref[0][0]] == cards
+    mesh.close()
+    stacked, _ = _drive_banded(
+        TorchBandedH264Encoder(320, 192, qp=30, bands=1, cols=2, device=cards[0]), frames)
+    assert mesh_out == [h for h, _, _ in stacked]
+
+
+@pytest.mark.gpu
+def test_session_groups_on_listed_cards_equal_one_group():
+    """4 sessions in 2 groups (on cuda:0 twice, or on two cards) against
+    one group on cuda:0: equal AUs, K1 once per group and tick with a P
+    session."""
+    _need_card()
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", min(i, n - 1)) for i in range(2)]
+    trace = _session_trace(4, 192, 320)
+
+    def run(**kw):
+        svc = TorchMultiSessionH264Service(4, 320, 192, qp=28, **kw)
+        out, launches = [], []
+        for t, batch in enumerate(trace):
+            if t == 2:
+                svc.force_keyframe(1)
+                svc.set_qp(3, 34)
+            before = me_mc.launches
+            out.append([hashlib.sha256(a).hexdigest() for a in svc.encode_tick(batch)])
+            launches.append(me_mc.launches - before)
+        svc.close()
+        return out, launches
+
+    got, launches = run(devices=cards)
+    want, one = run(device=cards[0])
+    assert got == want
+    assert launches == [0] + [2] * (len(trace) - 1) and one == [0] + [1] * (len(trace) - 1)
 
 
 # -- multi-session serving (selkies_tpu_torch/parallel/serving.py) ---------
@@ -1097,7 +1225,8 @@ def _mesh_trace(w=336, h=200, seed=43):
 def test_mesh_frontend_on_card_matches_cpu(cols):
     """MeshDeltaFrontend's dirty maps and hints on the card equal the CPU
     run's, static steps (which vote too) and a reset included; a
-    ``devices`` row runs on its first entry."""
+    ``devices`` row of 2 runs the 2-column mesh, a column per entry, and
+    any other count on its first entry."""
     _need_card()
     from selkies_tpu_torch.parallel.codec_mesh import MeshDeltaFrontend
 
@@ -1105,7 +1234,8 @@ def test_mesh_frontend_on_card_matches_cpu(cols):
     out = {}
     for dev in ("cuda", "cpu"):
         fe = MeshDeltaFrontend(336, 200, cols, devices=[torch.device(dev)] * 2)
-        assert fe.devices == [fe.device] and fe.device.type == dev
+        assert fe.devices == [fe.device] * (2 if cols == 2 else 1) and fe.device.type == dev
+        assert fe.mesh_enabled == (cols == 2)
         steps = []
         for i, f in enumerate(frames):
             if i == 6:
