@@ -1960,7 +1960,6 @@ def _observability_phase(band_shas: list) -> dict:
     if abs(total_mb - card_mb) > 0.01 * card_mb or not 0 < used_mb < total_mb:
         _fail(f"phase 13 (d): the monitor read {total_mb} MB total, {used_mb} used; the card "
               f"has {card_mb} MB")
-    mon.observe_encode(5.0)
     load = mon._load()
     if not 0.0 <= load <= 1.0:
         _fail(f"phase 13 (d): load {load}")

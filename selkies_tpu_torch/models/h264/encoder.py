@@ -404,18 +404,27 @@ class _Fetch:
 
     Both events and the copy go on the current stream of the card that
     holds ``t``, whatever the thread's current card is: a mesh's band on
-    ``cuda:1`` is fetched from ``cuda:1``."""
+    ``cuda:1`` is fetched from ``cuda:1``.
 
-    def __init__(self, t: torch.Tensor):
+    ``mark`` is the step's first-op event from ``tracer.gpu_mark`` (tracing
+    on, a card): ``step_done`` is then a timing event, ``t_rec`` the host's
+    time of its record, and the wait puts the step on the tracer's device
+    track and sets ``tail_ms``, the card's execution of ``step_done`` minus
+    ``t_rec``."""
+
+    def __init__(self, t: torch.Tensor, mark=None):
         self.src = t
         self.step_done = self.fetched = self.host = None
+        self.mark, self.tail_ms = mark, None
         if t.device.type == "cuda":
             stream = torch.cuda.current_stream(t.device)
             with torch.cuda.device(t.device):
                 # blocking-sync events: a waiting worker sleeps instead of
                 # spinning on a core the submit thread needs
-                self.step_done = torch.cuda.Event(blocking=True)
+                self.step_done = torch.cuda.Event(blocking=True, enable_timing=mark is not None)
                 self.step_done.record(stream)
+                if mark is not None:
+                    self.t_rec = time.perf_counter()
                 self.host = t.contiguous().to("cpu", non_blocking=True)
                 self.fetched = torch.cuda.Event(blocking=True)
                 self.fetched.record(stream)
@@ -430,12 +439,19 @@ class _Fetch:
             if self.step_done is not None:
                 self.step_done.synchronize()
         t_ready = time.perf_counter()
+        if self.mark is not None:
+            placed = tracer.gpu_span(self.mark, self.step_done)
+            if placed is not None:
+                self.tail_ms = (placed[1] - self.t_rec) * 1e3
         with tracer.span("fetch") if fetch_span else contextlib.nullcontext():
             if self.step_done is None:
                 arr = np.ascontiguousarray(host(self.src))
             else:
                 self.fetched.synchronize()
                 arr = self.host.numpy()
+        if tracer.enabled:
+            # the downlink landed: the card may be idle, a moment to anchor
+            tracer.gpu_anchor(self.src.device)
         return arr, (t_ready - t_disp) * 1e3, (time.perf_counter() - t_ready) * 1e3
 
 
@@ -468,6 +484,11 @@ class _Pending:
     classify_ms: float = 0.0
     convert_ms: float = 0.0
     h2d_ms: float = 0.0
+    # a group candidate: when it joined the pending group, and its wait
+    # there until its group's dispatch started (0 for a frame dispatched
+    # on its own)
+    t_pend: float = 0.0
+    group_wait_ms: float = 0.0
     scene_cut: bool = False
     n_up: int = 0
     n_remap: int = 0
@@ -635,6 +656,7 @@ class TorchH264Encoder:
         # themselves (MMCO 1)
         self._dpb_st: list[int] = []
         self._t_conv_ms = self._t_h2d_ms = self._t_disp0 = 0.0
+        self._gpu0 = None  # the step's first-op event (tracing on, a card)
         self.frame_index = 0
         self._frames_since_idr = 0
         self._idr_pic_id = 0
@@ -949,13 +971,17 @@ class TorchH264Encoder:
     def _convert_timed(self, frame: np.ndarray):
         t0 = time.perf_counter()
         planes = self._prep.convert(frame)
-        self._t_conv_ms += (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        self._t_conv_ms += (t1 - t0) * 1e3
+        tracer.record("convert", t0, t1)
         return planes
 
     def _convert_tiles_timed(self, frame: np.ndarray, idx):
         t0 = time.perf_counter()
         out = self._prep.convert_tiles(frame, idx, self._tile_w)
-        self._t_conv_ms += (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        self._t_conv_ms += (t1 - t0) * 1e3
+        tracer.record("convert", t0, t1)
         return out
 
     def _upload_planes(self, frame: np.ndarray):
@@ -963,11 +989,23 @@ class TorchH264Encoder:
         resident delta base."""
         planes = self._convert_timed(frame)
         self.link_bytes.add("up_full", sum(p.nbytes for p in planes))
-        return tuple(self._put_timed(p) for p in planes)
+        with tracer.span("h2d"):
+            return tuple(self._put_timed(p) for p in planes)
 
     def _upload_frame(self, frame: np.ndarray) -> torch.Tensor:
         self.link_bytes.add("up_full", frame.nbytes)
-        return self._put_timed(frame)
+        with tracer.span("h2d"):
+            return self._put_timed(frame)
+
+    def _step_begin(self) -> None:
+        """Stamp the start of a device step's issue (``_t_disp0``, where
+        ``step_ms`` starts) and, with tracing on, its first-op event."""
+        self._t_disp0 = time.perf_counter()
+        self._gpu0 = tracer.gpu_mark(self.device)
+
+    def _step_issued(self) -> None:
+        """The step call returned: its issue is a ``device-step`` span."""
+        tracer.record("device-step", self._t_disp0)
 
     def _device_planes(self, frame_t: torch.Tensor):
         return _convert_pad(frame_t, pad_h=self._pad_h, pad_w=self._pad_w,
@@ -976,31 +1014,37 @@ class TorchH264Encoder:
     def _run_step_i(self, frame: np.ndarray):
         if self._prep is not None:
             y, u, v = self._upload_planes(frame)
-            self._t_disp0 = time.perf_counter()
+            self._step_begin()
             out = _i_planes_step(y, u, v, self.qp)
+            self._step_issued()
             self._src = (y, u, v)
             return out
         frame_t = self._upload_frame(frame)
-        self._t_disp0 = time.perf_counter()
-        return _i_planes_step(*self._device_planes(frame_t), self.qp)
+        self._step_begin()
+        out = _i_planes_step(*self._device_planes(frame_t), self.qp)
+        self._step_issued()
+        return out
 
     def _run_step_p(self, frame: np.ndarray):
         """Full P -> (kind, prefix, words or None, dense header or None, rows
         buf, recon y, u, v): kind "pb" with device entropy, else "p"."""
         if self._prep is not None:
             y, u, v = self._upload_planes(frame)
-            self._t_disp0 = time.perf_counter()
+            self._step_begin()
             if self.device_entropy:
                 step = _p_toks_step if self._coder == "cabac" else _p_bits_step
                 out = step(y, u, v, self.qp, *self._ref)
+                self._step_issued()
                 self._src = (y, u, v)
                 return ("pb", *out)
             out = _p_planes_step(y, u, v, self.qp, *self._ref)
+            self._step_issued()
             self._src = (y, u, v)
             return ("p", out[0], None, None, *out[1:])
         frame_t = self._upload_frame(frame)
-        self._t_disp0 = time.perf_counter()
+        self._step_begin()
         out = _p_planes_step(*self._device_planes(frame_t), self.qp, *self._ref)
+        self._step_issued()
         return ("p", out[0], None, None, *out[1:])
 
     # -- delta uploads and the tile cache --
@@ -1046,8 +1090,10 @@ class TorchH264Encoder:
         pr[: len(up_idx), 0] = pool_dst
         pr[: len(up_idx), 1] = up_idx
         self.link_bytes.add("up_seed", pr.nbytes)
-        _pool_seed_step(self._put_timed(pr), *self._src, *self._get_pool(),
-                        tile_w=self._tile_w, sbucket=sbucket)
+        with tracer.span("h2d"):
+            pr_d = self._put_timed(pr)
+        _pool_seed_step(pr_d, *self._src, *self._get_pool(), tile_w=self._tile_w,
+                        sbucket=sbucket)
 
     def _pack_tiles2(self, yb, ub, vb, up_idx, pool_dst, pairs, bucket: int,
                      cbucket: int) -> np.ndarray:
@@ -1109,11 +1155,12 @@ class TorchH264Encoder:
         planes become the resident ones. -> (prefix, dense header or None,
         rows buf, recon y, u, v)."""
         tc = self._tcache is not None
-        (packed,), bucket, cbucket = self._pack_uploads([tiles], batch=False)
-        self.link_bytes.add("up_delta" if stash is None else "up_ltr", packed.nbytes)
-        packed_d = self._put_timed(packed)
+        with tracer.span("h2d"):
+            (packed,), bucket, cbucket = self._pack_uploads([tiles], batch=False)
+            self.link_bytes.add("up_delta" if stash is None else "up_ltr", packed.nbytes)
+            packed_d = self._put_timed(packed)
         pool = self._get_pool() if tc else ()
-        self._t_disp0 = time.perf_counter()
+        self._step_begin()
         if stash is None:
             src, ref = self._src, self._ref
         else:
@@ -1132,6 +1179,7 @@ class TorchH264Encoder:
         else:
             prefix_d, hdr_d, buf_d, ry, ru, rv, sy, su, sv = _p_scatter_step(
                 packed_d, qp, *src, *ref, **self._p_consts())
+        self._step_issued()
         self._src = (sy, su, sv)
         return prefix_d, hdr_d, buf_d, ry, ru, rv
 
@@ -1210,12 +1258,14 @@ class TorchH264Encoder:
                 group = pend[i: i + take]
                 i += take
                 self._t_h2d_ms = 0.0
+                for g in group:
+                    g[0].group_wait_ms = (t_d0 - g[0].t_pend) * 1e3
                 if take == 1:
                     rec = group[0][0]
                     prefix_d, hdr_d, buf_d, ry, ru, rv = self._step_tiles(group[0][1:], rec.qp)
                     self._ref = (ry, ru, rv)
                     rec.prefix_d, rec.hdr_d, rec.buf_d = prefix_d, hdr_d, buf_d
-                    rec.fetch = _Fetch(self._pfx_slice(prefix_d))
+                    rec.fetch = _Fetch(self._pfx_slice(prefix_d), self._gpu0)
                     rec.batch_slot = -1
                     rec.t_disp = self._t_disp0
                     rec.h2d_ms += self._t_h2d_ms
@@ -1224,11 +1274,13 @@ class TorchH264Encoder:
                     rec.future = self._workers.submit(self._complete_work, rec)
                     continue
                 qps = [g[0].qp for g in group]
-                bufs, bucket, cbucket = self._pack_uploads([g[1:] for g in group], batch=True)
-                packed = np.stack(bufs)
-                self.link_bytes.add("up_delta", packed.nbytes)
-                packed_d = self._put_timed(packed)
-                self._t_disp0 = time.perf_counter()
+                with tracer.span("h2d"):
+                    bufs, bucket, cbucket = self._pack_uploads([g[1:] for g in group],
+                                                               batch=True)
+                    packed = np.stack(bufs)
+                    self.link_bytes.add("up_delta", packed.nbytes)
+                    packed_d = self._put_timed(packed)
+                self._step_begin()
                 if tc:
                     prefixes_d, denses_d, bufs_d, ry, ru, rv, sy, su, sv, *_ = (
                         _p_scatter_multi_step2(packed_d, qps, *self._src, *self._get_pool(),
@@ -1238,8 +1290,9 @@ class TorchH264Encoder:
                     prefixes_d, denses_d, bufs_d, ry, ru, rv, sy, su, sv = (
                         _p_scatter_multi_step(packed_d, qps, *self._src, *self._ref,
                                               **self._p_consts()))
+                self._step_issued()
                 self._src, self._ref = (sy, su, sv), (ry, ru, rv)
-                fetch = _Fetch(self._pfx_slice(prefixes_d))
+                fetch = _Fetch(self._pfx_slice(prefixes_d), self._gpu0)
                 recs = [g[0] for g in group]
                 # the group's host front end (pack + h2d) is stamped on every
                 # member, beside each frame's own classify and convert
@@ -1369,8 +1422,9 @@ class TorchH264Encoder:
             # unchanged capture: all-skip P slice on the host, no device
             # work; the screen went idle, so pending deltas dispatch now
             self._flush_batch()
-            au = self._allskip_slice(self._frames_since_idr % 256, mark_ltr=mark_ltr,
-                                     mmco_evict=mmco_evict)
+            with tracer.span("allskip"):
+                au = self._allskip_slice(self._frames_since_idr % 256, mark_ltr=mark_ltr,
+                                         mmco_evict=mmco_evict)
             rec = _Pending(kind="static", frame_index=self.frame_index, qp=self.qp,
                            frame_num=self._frames_since_idr % 256, idr_pic_id=0, t0=t0,
                            t1=time.perf_counter(), meta=meta, au=au, mark_ltr=mark_ltr,
@@ -1388,6 +1442,7 @@ class TorchH264Encoder:
                            meta=meta, mark_ltr=mark_ltr, mmco_evict=mmco_evict,
                            n_up=len(up_idx), n_remap=len(pairs) if pairs is not None else 0,
                            classify_ms=classify_ms, convert_ms=self._t_conv_ms)
+            rec.t_pend = time.perf_counter()
             self._batch_pend.append((rec, *tiles))
             batch_full = len(self._batch_pend) >= self._batch_cap
         else:
@@ -1443,19 +1498,21 @@ class TorchH264Encoder:
         reference."""
         t_d0 = time.perf_counter()
         self._t_conv_ms = self._t_h2d_ms = self._t_disp0 = 0.0
+        self._gpu0 = None
         hdr_d = words_d = None
         if idr:
             if kind == "delta":
                 prefix_d, hdr_d, buf_d, ry, ru, rv = self._step_tiles(
                     self._delta_tiles(frame, payload), self.qp, idr=True)
             elif kind == "static" and self._src is not None:
-                self._t_disp0 = time.perf_counter()
+                self._step_begin()
                 prefix_d, buf_d, ry, ru, rv = _i_resident_step(self.qp, *self._src)
+                self._step_issued()
             else:
                 prefix_d, buf_d, ry, ru, rv = self._run_step_i(frame)
             rec = _Pending(kind="i", frame_index=self.frame_index, qp=self.qp, frame_num=0,
                            idr_pic_id=self._idr_pic_id, t0=t0, meta=meta)
-            rec.fetch = _Fetch(prefix_d)
+            rec.fetch = _Fetch(prefix_d, self._gpu0)
             self._frames_since_idr = 0
             self._idr_pic_id = (self._idr_pic_id + 1) % 2
             self._force_idr = False
@@ -1486,7 +1543,8 @@ class TorchH264Encoder:
                            frame_num=self._frames_since_idr % 256, idr_pic_id=0, t0=t0,
                            meta=meta, scene_cut=scene_cut, n_up=n_up, n_remap=n_remap,
                            ltr_ref=ltr_ref, mark_ltr=mark_ltr, mmco_evict=mmco_evict)
-            rec.fetch = _Fetch(self._pfx_slice(prefix_d) if pk == "pd" else prefix_d)
+            rec.fetch = _Fetch(self._pfx_slice(prefix_d) if pk == "pd" else prefix_d,
+                               self._gpu0)
         self._ref = (ry, ru, rv)
         rec.prefix_d, rec.buf_d, rec.hdr_d, rec.words_d = prefix_d, buf_d, hdr_d, words_d
         rec.t_disp = self._t_disp0 or time.perf_counter()
@@ -1538,7 +1596,8 @@ class TorchH264Encoder:
             self.last_stats = stats
             return rec.au, stats, rec.meta
         try:
-            res = rec.future.result()
+            with tracer.span("complete_wait"):
+                res = rec.future.result()
             if rec.batch_slot >= 0:
                 res = res[rec.batch_slot]
         except Exception:
@@ -1558,7 +1617,8 @@ class TorchH264Encoder:
             scene_cut=rec.scene_cut, unpack_ms=(tu - t1) * 1e3, cavlc_ms=(t2 - tu) * 1e3,
             upload_ms=rec.up_ms, step_ms=step_ms, fetch_ms=fetch_ms,
             classify_ms=rec.classify_ms, convert_ms=rec.convert_ms, h2d_ms=rec.h2d_ms,
-            downlink_mode=mode, upload_kind="delta" if delta else "full",
+            group_wait_ms=rec.group_wait_ms, downlink_mode=mode,
+            upload_kind="delta" if delta else "full",
             dirty_frac=min(1.0, dirty / self._ntiles) if delta else 1.0,
             remap_frac=rec.n_remap / dirty if delta and dirty else 0.0)
         self.last_stats = stats

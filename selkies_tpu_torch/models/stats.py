@@ -1,4 +1,5 @@
-"""Copy of ``selkies_tpu/models/stats.py``, kept so the port imports nothing of the JAX package.
+"""Copy of ``selkies_tpu/models/stats.py``, kept so the port imports nothing of the JAX package,
+plus the port's ``FrameStats.group_wait_ms``.
 
 Per-frame encoder statistics — shared by every encoder row.
 
@@ -71,6 +72,10 @@ class FrameStats:
     classify_ms: float = 0.0
     convert_ms: float = 0.0
     h2d_ms: float = 0.0
+    # a delta frame's wait in the encoder's pending group, from joining it
+    # to the start of its group's dispatch (0 for a frame dispatched on
+    # its own); not part of upload_ms
+    group_wait_ms: float = 0.0
     # intra-frame band parallelism (parallel/bands.py): slice count and
     # per-band dispatch->ready latency when the frame was band-split.
     # cols > 1 = 2D tile grid (SELKIES_TILE_GRID): each of the `bands`

@@ -3,7 +3,8 @@
 The port's copy of ``selkies_tpu/monitoring/telemetry.py``: the same
 family specs, ``Telemetry`` with ``count`` / ``gauge`` / ``observe`` /
 ``stage_ms`` / ``event`` / ``frame_done``, the providers, ``rollup``,
-``statz_json`` and ``health``, and the same ``SELKIES_TELEMETRY`` switch.
+``statz_json`` and ``health``, and the same ``SELKIES_TELEMETRY`` switch;
+``frame_done`` also takes the port's ``group_wait_ms``.
 The Prometheus collector (``register_into`` / ``registry``, which
 ``metrics.py`` calls; ``prometheus_client`` is imported only when they
 run), ``_supported_codecs`` (the codec rows the port's negotiation
@@ -549,7 +550,7 @@ class Telemetry:
                    bits_fetch_ms: float = 0.0, classify_ms: float = 0.0,
                    convert_ms: float = 0.0, h2d_ms: float = 0.0,
                    qp: int = 0, rc_fullness: float | None = None,
-                   entropy_coder: str = "") -> None:
+                   entropy_coder: str = "", group_wait_ms: float = 0.0) -> None:
         """An encoded access unit left the encoder: fold its size, kind,
         and on-device / entropy-pack milliseconds. unpack/cavlc are the
         completion sub-stages of pack_ms (coefficient prep vs the CAVLC
@@ -567,6 +568,9 @@ class Telemetry:
         dirty scan + hash/split, BGRx->I420 of the upload payload, h2d
         transfer enqueues): without this split a regression
         in the host front-end hides inside the device stage again.
+        group_wait_ms (the port's) is a delta frame's wait in the solo
+        encoder's pending group before its group dispatched (stage
+        "group_wait"; 0, not observed, for a frame dispatched alone).
         qp (>0) and rc_fullness (None = unattributed; 0.0 is a real
         reading) export the rate-control state the quality axis
         correlates with — the frame's actual quantizer and the CBR
@@ -605,6 +609,9 @@ class Telemetry:
         if h2d_ms:
             self._observe("selkies_stage_ms", h2d_ms,
                           {"stage": "h2d", "session": session})
+        if group_wait_ms:
+            self._observe("selkies_stage_ms", group_wait_ms,
+                          {"stage": "group_wait", "session": session})
         if qp > 0:
             self._observe("selkies_rc_qp", qp, {"session": session})
         if rc_fullness is not None:

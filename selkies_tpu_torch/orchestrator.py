@@ -515,7 +515,6 @@ class Orchestrator:
                 self.metrics.set_tpu_utilization(load * 100),
                 app.send_tpu_stats(load, total, used),
             )
-            app.on_frame = lambda ef: self.device_mon.observe_encode(ef.device_ms)
 
     # ------------------------------------------------------------------
     # resize plumbing (reference :771-823)

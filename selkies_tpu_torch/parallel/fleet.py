@@ -1181,7 +1181,6 @@ class FleetOrchestrator:
         self.device_mon = (DeviceMonitor(device=device)
                            if device.type == "cuda" else None)
         if self.device_mon is not None:
-            self.fleet.on_tick = lambda ms: self.device_mon.observe_encode(ms)
             self.device_mon.on_stats = self._broadcast_tpu_stats
         self._tasks: list[asyncio.Task] = []
         self._rearm: dict[int, asyncio.Event] = {}

@@ -30,6 +30,10 @@ the device-handle seam and sessions share no state
 ``SELKIES_OCCUPANCY=0`` switches ``MixedTenancyService`` back to the
 serial tick.
 
+With tracing on (``monitoring/tracing.py``), each unit's dispatch on the
+lane is a ``unit-dispatch`` span and the lane's wait on its completion a
+``complete_wait`` span.
+
 Units, not sessions, are what is scheduled: a :class:`SessionPipeline`
 is one banded session, a :class:`BatchPipeline` a whole lockstep batch
 service (its batched step is one device dispatch), and
@@ -56,6 +60,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from selkies_tpu_torch.monitoring.telemetry import telemetry
+from selkies_tpu_torch.monitoring.tracing import tracer
 from selkies_tpu_torch.resilience.faultinject import InjectedFault, get_injector
 
 logger = logging.getLogger("selkies_tpu_torch.parallel.occupancy")
@@ -250,7 +255,8 @@ class OccupancyScheduler:
                 continue  # frame never dispatched; AU stays b""
             t0 = time.perf_counter()
             try:
-                token = unit.dispatch(frames)
+                with tracer.span("unit-dispatch"):
+                    token = unit.dispatch(frames)
             except Exception as exc:  # noqa: BLE001 — re-raised post-gather
                 stage_s[idx] += time.perf_counter() - t0
                 for s in unit.sessions:
@@ -262,7 +268,8 @@ class OccupancyScheduler:
 
         for idx, unit, fut in futures:
             try:
-                outs = fut.result()
+                with tracer.span("complete_wait"):
+                    outs = fut.result()
             except Exception as exc:  # noqa: BLE001 — re-raised post-gather
                 for s in unit.sessions:
                     errors.setdefault(s, exc)

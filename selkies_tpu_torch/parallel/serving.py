@@ -23,8 +23,12 @@ As JAX's, each tick first consults the ``device:<chip>`` fault site over
 ``self.devices`` (``resilience/devhealth.py``: the cards of the session
 groups, where JAX checks one chip per session), and opens the
 tracer's ``convert`` / ``device-step`` / ``fetch`` / ``pack`` spans beside
-``last_timing``. JAX's persistent compilation cache has no counterpart:
-the port compiles nothing per geometry.
+``last_timing``, and the port's ``h2d`` span around the upload, the
+``step-i`` / ``step-p`` spans of the batched branches inside
+``device-step`` and, with tracing on, a ``gpu-step`` device span per group
+and ``last_timing["device_tail_ms"]`` (``monitoring/tracing.py``).
+JAX's persistent compilation cache has no counterpart: the port compiles
+nothing per geometry.
 
 ``TorchBandedFleetService`` is the counterpart of JAX's
 ``BandedFleetService``: N sessions, each a ``TorchBandedH264Encoder`` on
@@ -181,7 +185,8 @@ class TorchMultiSessionH264Service:
         with tracer.span("convert"):
             list(self._pool.map(lambda i: self._convert_into(frames, i), range(self.n)))
         t1 = time.perf_counter()
-        inputs = self.enc.put_groups(self._batch_t)
+        with tracer.span("h2d"):
+            inputs = self.enc.put_groups(self._batch_t)
         for k, g in enumerate(self.enc.groups):
             if g.device.type == "cuda":
                 self._uploaded[k] = torch.cuda.Event()
@@ -207,7 +212,7 @@ class TorchMultiSessionH264Service:
                                     for k in keys]).to(torch.int16))
             layouts.append(layout)
         t_disp = time.perf_counter()
-        fetches = [_Fetch(flat) for flat in flats]
+        fetches = [_Fetch(flat, mark) for flat, mark in zip(flats, self.enc.last_marks)]
         self._inflight += 1
         return _PendingTick(idrs, fetches, layouts, t_disp, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
                             (t_disp - t2) * 1e3)
@@ -238,6 +243,11 @@ class TorchMultiSessionH264Service:
             "convert_ms": pending.convert_ms, "h2d_ms": pending.h2d_ms,
             "dispatch_ms": pending.dispatch_ms, "step_ms": step_ms, "fetch_ms": fetch_ms,
             "pack_ms": (time.perf_counter() - t0) * 1e3, "down_bytes": int(down)}
+        tails = [f.tail_ms for f in pending.fetches]
+        if tails and None not in tails:
+            # tracing on, on a card: how far behind the host's record of
+            # step-done the card ran it (the latest group)
+            self.last_timing["device_tail_ms"] = max(tails)
         self.last_idrs = [bool(x) for x in idrs]
         for s, idr in zip(self.sessions, idrs):
             if idr:

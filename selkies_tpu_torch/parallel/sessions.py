@@ -39,6 +39,7 @@ from selkies_tpu_torch.models.h264.encoder_core import (
     encode_frame_p_planes_batch,
     encode_frame_planes_batch,
 )
+from selkies_tpu_torch.monitoring.tracing import tracer
 from selkies_tpu_torch.ops.colorspace import bgrx_to_i420
 from selkies_tpu_torch.resilience.devhealth import get_device_pool
 
@@ -124,6 +125,10 @@ class TorchMultiSessionEncoder:
         self.device = devs[0]
         # each group's device, in group order
         self.devices = [g.device for g in self.groups]
+        # per group, the first-op event of its last step (tracing on, a
+        # card; else None): the serving layer's downlink hands it to the
+        # tracer's device track
+        self.last_marks: list = [None] * len(self.groups)
 
     @property
     def _ref(self) -> tuple | None:
@@ -200,20 +205,24 @@ class TorchMultiSessionEncoder:
         p_idx = [i for i in range(g.hi - g.lo) if not idrs[g.lo + i]]
         if not i_idx or not p_idx:
             if not i_idx:
-                out = encode_frame_p_planes_batch(y, u, v, *g.ref, q)
+                with tracer.span("step-p"):
+                    out = encode_frame_p_planes_batch(y, u, v, *g.ref, q)
             else:
-                out = encode_frame_planes_batch(y, u, v, q)
+                with tracer.span("step-i"):
+                    out = encode_frame_planes_batch(y, u, v, q)
             if fill:
                 out.update(self._fillers(P_ONLY if not p_idx else I_ONLY, len(q), g.device))
         else:
             def pick(t, idx):
                 return torch.stack([t[i] for i in idx])
 
-            out_i = encode_frame_planes_batch(pick(y, i_idx), pick(u, i_idx), pick(v, i_idx),
-                                              pick(q, i_idx))
-            out_p = encode_frame_p_planes_batch(
-                pick(y, p_idx), pick(u, p_idx), pick(v, p_idx),
-                *(pick(r, p_idx) for r in g.ref), pick(q, p_idx))
+            # the picks, fillers and the stack stay outside the branch spans
+            args_i = [pick(t, i_idx) for t in (y, u, v, q)]
+            with tracer.span("step-i"):
+                out_i = encode_frame_planes_batch(*args_i)
+            args_p = [pick(t, p_idx) for t in (y, u, v, *g.ref, q)]
+            with tracer.span("step-p"):
+                out_p = encode_frame_p_planes_batch(*args_p)
             out_i.update(self._fillers(P_ONLY, len(i_idx), g.device))
             out_p.update(self._fillers(I_ONLY, len(p_idx), g.device))
             # session i's row: its branch's output at its place in that branch
@@ -235,7 +244,11 @@ class TorchMultiSessionEncoder:
             raise ValueError(f"idrs {idrs.shape} != ({self.n},)")
         if not idrs.all() and any(g.ref is None for g in self.groups):
             raise RuntimeError("encode_idr must run first (no reference frames)")
-        return [self._group_step(g, x, qps, idrs, fill) for g, x in zip(self.groups, inputs)]
+        outs = []
+        for k, (g, x) in enumerate(zip(self.groups, inputs)):
+            self.last_marks[k] = tracer.gpu_mark(g.device)
+            outs.append(self._group_step(g, x, qps, idrs, fill))
+        return outs
 
     def _gather(self, outs: list[dict]) -> dict:
         if len(outs) == 1:

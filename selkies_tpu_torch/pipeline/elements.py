@@ -526,12 +526,15 @@ class VideoPipeline:
                                             self._fid_by_ts.pop(meta, 0))
                         for au, stats, meta in done
                     ]
+                    waits = [getattr(stats, "group_wait_ms", 0.0)
+                             for _, stats, _ in done]
                 else:
                     with tracer.span("encode"), \
                             telemetry.span("encode", fid, session=self.session):
                         au = await asyncio.to_thread(self.encoder.encode_frame, frame, qp)
                     efs = [self._ef_from_stats(au, self.encoder.last_stats,
                                                ts, fid)]
+                    waits = [getattr(self.encoder.last_stats, "group_wait_ms", 0.0)]
                 self._tick_in_flight = False
                 for ef in efs:
                     self.rc.update(len(ef.au), idr=ef.idr or ef.scene_cut)
@@ -541,7 +544,7 @@ class VideoPipeline:
                         self.quality.note_au(ef.timestamp_90k, ef.au,
                                              ef.idr or ef.scene_cut)
                 if telemetry.enabled:
-                    for ef in efs:
+                    for ef, wait in zip(efs, waits):
                         telemetry.frame_done(
                             ef.frame_id, len(ef.au), idr=ef.idr,
                             session=self.session, device_ms=ef.device_ms,
@@ -549,6 +552,7 @@ class VideoPipeline:
                             cavlc_ms=ef.cavlc_ms,
                             classify_ms=ef.classify_ms,
                             convert_ms=ef.convert_ms, h2d_ms=ef.h2d_ms,
+                            group_wait_ms=wait,
                             downlink_mode=ef.downlink_mode,
                             bits_fetch_ms=(ef.fetch_ms
                                            if ef.downlink_mode
@@ -690,6 +694,7 @@ class VideoPipeline:
                     pack_ms=ef.pack_ms, unpack_ms=ef.unpack_ms,
                     cavlc_ms=ef.cavlc_ms, classify_ms=ef.classify_ms,
                     convert_ms=ef.convert_ms, h2d_ms=ef.h2d_ms,
+                    group_wait_ms=getattr(stats, "group_wait_ms", 0.0),
                     downlink_mode=ef.downlink_mode,
                     bits_fetch_ms=(ef.fetch_ms
                                    if ef.downlink_mode

@@ -521,6 +521,9 @@ def test_submit_never_syncs_with_the_hooks_on(coder, hooks_on):
     spans = {k: v["count"] for k, v in tracer.summary().items()}
     assert spans["classify"] >= timed and spans["step"] > 0 and spans["pack"] > 0
     assert telemetry.rollup()["counters"]["selkies_tile_cache_frames_total"]
+    # every device step the workers waited on is on the device track
+    assert spans["device-step"] >= spans["gpu-step"] > 0
+    assert {"convert", "h2d", "complete_wait"} <= set(spans)
 
 
 # -- the health plane on the card (selkies_tpu_torch/resilience/devhealth.py) --
@@ -560,6 +563,24 @@ def test_device_monitor_reads_the_cards_memory():
     card_mb = torch.cuda.get_device_properties(0).total_memory / 1e6
     assert abs(total_mb - card_mb) <= 0.01 * card_mb
     assert keep.numel() / 1e6 < used_mb < total_mb
+
+
+@pytest.mark.gpu
+def test_device_monitor_reads_the_cards_load_from_nvml():
+    """The load is NVML's kernel-active share: it loads from the driver's
+    library on the card, and a card kept busy for a second reads busy."""
+    _need_card()
+    import time
+
+    from selkies_tpu_torch.monitoring.device_monitor import DeviceMonitor
+
+    mon = DeviceMonitor(device="cuda")
+    assert 0.0 <= mon._load() <= 1.0 and not mon._nvml._failed
+    end = time.perf_counter() + 1.2
+    while time.perf_counter() < end:
+        torch.cuda._sleep(10_000_000)
+        torch.cuda.synchronize()
+    assert mon._load() > 0.5 and not mon._nvml._failed
 
 
 @pytest.mark.gpu
@@ -895,13 +916,11 @@ def test_service_cuda_matches_cpu():
     assert got == want
 
 
-@pytest.mark.gpu
-def test_service_dispatch_never_syncs():
+def _service_dispatch_never_syncs():
     """dispatch_tick (conversion, the pinned upload, the mixed step and its
     downlink copy) makes no synchronising CUDA call: torch's sync debug
     mode warns on each, recorded here by thread. complete_tick waits on
-    the copy's events and is not counted."""
-    _need_card()
+    the copy's events and is not counted. -> the service's last_timing."""
     import threading
     import traceback
     import warnings
@@ -938,6 +957,28 @@ def test_service_dispatch_never_syncs():
     assert not on_dispatch, f"{len(on_dispatch)} syncs; first at:\n" + "\n".join(
         dict.fromkeys(on_dispatch))
     assert len(aus) == 4 and aus[1][2][4] & 0x1F == 7
+    return svc.last_timing
+
+
+@pytest.mark.gpu
+def test_service_dispatch_never_syncs():
+    _need_card()
+    _service_dispatch_never_syncs()
+
+
+@pytest.mark.gpu
+def test_service_dispatch_never_syncs_with_the_hooks_on(hooks_on):
+    """The same with the tracer on: the h2d, step-i / step-p spans, the
+    first-op timing event and the anchor add no synchronising call; each
+    tick is on the device track but perhaps the first, which may come
+    before the card's first anchor."""
+    _need_card()
+    tracer, _ = hooks_on
+    timing = _service_dispatch_never_syncs()
+    spans = {k: v["count"] for k, v in tracer.summary().items()}
+    assert spans["device-step"] == spans["h2d"] == 6 and spans["gpu-step"] in (5, 6)
+    assert spans["step-i"] == 2 and spans["step-p"] == 5
+    assert timing["device_tail_ms"] > -0.5
 
 
 # -- the fleet's banded service and the occupancy scheduler
@@ -996,14 +1037,11 @@ def test_scheduler_equals_serial_tick_on_card(kind):
     assert launched == (2 * (3 * 4 - 1) if kind == "banded" else 4)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["banded", "batch"])
-def test_scheduled_tick_never_syncs(kind):
+def _scheduled_tick_never_syncs(kind):
     """A scheduled tick, dispatch lane and completion workers together,
     makes no synchronising CUDA call: each completion waits on its own
     events only (torch's sync debug mode warns on a stream or device
     synchronise, a blocking copy or .item(), recorded here by thread)."""
-    _need_card()
     import threading
     import traceback
     import warnings
@@ -1038,6 +1076,141 @@ def test_scheduled_tick_never_syncs(kind):
     syncs = [(name, st) for name, m, st in seen if "called a synchronizing CUDA operation" in m]
     assert not syncs, f"{len(syncs)} syncs; first in {syncs[0][0]} at:\n{syncs[0][1]}"
     assert len(aus) == 4 and all(au.startswith(b"\x00\x00\x00\x01") for a in aus for au in a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["banded", "batch"])
+def test_scheduled_tick_never_syncs(kind):
+    _need_card()
+    _scheduled_tick_never_syncs(kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["banded", "batch"])
+def test_scheduled_tick_never_syncs_with_the_hooks_on(kind, hooks_on):
+    """The same with the tracer on: a unit-dispatch span per unit and tick
+    and a complete_wait per completion the lane waited on."""
+    _need_card()
+    tracer, _ = hooks_on
+    _scheduled_tick_never_syncs(kind)
+    spans = {k: v["count"] for k, v in tracer.summary().items()}
+    units = 3 if kind == "banded" else 1
+    assert spans["unit-dispatch"] == spans["complete_wait"] == 6 * units
+    if kind == "batch":
+        assert spans["device-step"] == 6 and spans["gpu-step"] in (5, 6)
+
+
+def _service_steps(tracer):
+    """Five ticks of a 3-session service, the third mixed (a keyframe
+    request): -> a callable per tick that runs it to its end."""
+    from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
+
+    trace = _session_trace(3, H, W, ticks=7)
+    svc = TorchMultiSessionH264Service(3, W, H, qp=30, device="cuda")
+    for batch in trace[:2]:  # warm-up: tables reach the card, the kernel builds
+        svc.encode_tick(batch)
+
+    def tick(t, batch):
+        if t == 2:
+            svc.force_keyframe(1)
+        svc.encode_tick(batch)
+        assert svc.last_timing["device_tail_ms"] > -0.5
+
+    return [lambda t=t, b=b: tick(t, b) for t, b in enumerate(trace[2:])], svc.close
+
+
+def _solo_steps(tracer):
+    """The solo row at 1080p with its groups and depth: a typed line
+    dispatched alone and a group of two typed lines, each flushed: -> a
+    callable per step. (Its IDR, ~64k kernels in 2 s, overflows the
+    profiler's buffers, which then drop kernels and markers.)"""
+    base = _host_trace_1080p()[0][0]
+    rng = np.random.default_rng(5)
+    enc = TorchH264Encoder(1920, 1080, ltr_scenes=False, device="cuda")
+    screen = [base.copy()]
+
+    def typed():
+        f = screen[0].copy()
+        r = int(rng.integers(0, 60)) * 16
+        f[r:r + 12, 300:1324, :3] = rng.integers(0, 255, (12, 1024, 3), np.uint8)
+        screen[0] = f
+        return f
+
+    def alone():
+        enc.submit(typed())
+        enc.flush()
+
+    def group():
+        for _ in range(2):
+            enc.submit(typed())
+        enc.flush()
+
+    enc.submit(base)  # the first IDR
+    enc.flush()
+    for step in (alone, group) * 2:  # warm-up: every shape twice
+        step()
+    return [alone, group, alone, group, alone], enc.close
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row", ["service", "solo"])
+def test_gpu_steps_hold_the_profilers_kernels(row, hooks_on):
+    """Each step's device ops, as torch.profiler saw them, and its gpu-step
+    span agree within 0.5 ms at both ends: no op lies more than that
+    outside the span, and the span starts no more than that before the
+    first op and ends no more than that after the last. The upload runs
+    before a step and the downlink after it, so host-device copies are
+    left out; copies on the card are the step's work. The profiler's
+    clock is put on the host's at each end of each step by a marker
+    kernel launched right after a synchronise and a host stamp (one
+    marker for a whole run moved by up to 8 ms against the host's clock
+    across the solo row's 2 s IDR step on an H100); the steps are apart,
+    a synchronise and 5 ms between them."""
+    _need_card()
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    tracer, _ = hooks_on
+    steps, close = (_service_steps if row == "service" else _solo_steps)(tracer)
+    torch.cuda.synchronize()
+    tracer.reset()
+    bounds = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # the profiler's first launch is slow: not a marker
+        torch.cuda.synchronize()
+        for step in steps:
+            time.sleep(0.005)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda._sleep(1000)  # the step's opening marker
+            step()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.cuda._sleep(1000)  # its closing marker
+            torch.cuda.synchronize()
+            bounds.append((t0, t1))
+    close()
+    dev = sorted((e.time_range.start * 1e-6, e.time_range.end * 1e-6, e.name)
+                 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [s for s, _, n in dev if "spin_kernel" in n][1:]
+    assert len(marks) == 2 * len(bounds)
+    spans = [(a, b) for name, a, b, card in tracer.device_spans() if name == "gpu-step"]
+    ends, drift = [], []
+    for (t0, t1), m0, m1 in zip(bounds, marks[::2], marks[1::2]):
+        (g0, g1), = [g for g in spans if t0 < g[0] < t1]  # one step, one span
+        mine = [(s, e) for s, e, n in dev
+                if m0 < s < m1 and not n.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
+        assert mine
+        # each end on the host's clock through its own marker
+        first, last = min(s for s, _ in mine) - m0 + t0, max(e for _, e in mine) - m1 + t1
+        ends.append((first - g0, g1 - last))
+        drift.append((m1 - m0) - (t1 - t0))
+    print(f"{row}: first op after the span's start, span's end after the last op "
+          "(ms):", [(round(h * 1e3, 4), round(t * 1e3, 4)) for h, t in ends],
+          "; the profiler's clock against the host's over each step (ms):",
+          [round(d * 1e3, 4) for d in drift])
+    assert all(abs(h) <= 5e-4 and abs(t) <= 5e-4 for h, t in ends), ends
 
 
 @pytest.mark.gpu

@@ -14,6 +14,12 @@ carry at JAX's sites, held against the JAX encoders on the same frames:
 * ``TorchBandedH264Encoder`` and ``TorchMultiSessionH264Service``: span
   counts, ``selkies_stage_ms`` observations and AUs.
 
+Span counts are compared with JAX's on every name JAX emits; the port's
+own names (``monitoring/tracing.py``: ``convert``, ``h2d``,
+``device-step``, ``allskip``, ``complete_wait`` on the solo row, ``h2d``,
+``step-i`` and ``step-p`` on the service) are held to exact counts on the
+same run.
+
 Spans come from several threads in both packages (completion workers,
 pack pools), so counts are compared per name, never their order. Both
 packages' tracer, bus and injector are process-wide singletons of their
@@ -25,6 +31,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -49,6 +56,7 @@ from selkies_tpu.parallel.serving import MultiSessionH264Service
 from selkies_tpu.resilience import faultinject as jfi
 from selkies_tpu_torch.models.h264 import bitstream as tbs
 from selkies_tpu_torch.models.h264 import device_cavlc as tdc
+from selkies_tpu_torch.models.h264 import encoder as tenc
 from selkies_tpu_torch.models.h264 import encoder_core as TC
 from selkies_tpu_torch.models.h264 import sparse_complete as TS
 from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
@@ -94,6 +102,25 @@ def _spans(p) -> dict:
     return {name: a["count"] for name, a in p.tracer.summary().items()}
 
 
+def _split_names(port: dict, jax_spans: dict) -> dict:
+    """Assert the port's counts equal JAX's on every name JAX emits; -> the
+    port's counts of the names JAX does not emit."""
+    assert {k: port.get(k) for k in jax_spans} == jax_spans
+    return {k: v for k, v in port.items() if k not in jax_spans}
+
+
+def _calls(monkeypatch, module, name: str) -> list:
+    """Count the calls of ``module.name`` (a one-element list)."""
+    fn, n = getattr(module, name), [0]
+
+    def counted(*a, **k):
+        n[0] += 1
+        return fn(*a, **k)
+
+    monkeypatch.setattr(module, name, counted)
+    return n
+
+
 def _stage_counts(p) -> dict:
     hists = p.tel.rollup()["histograms"].get("selkies_stage_ms", {})
     return {k: v["count"] for k, v in hists.items()}
@@ -125,22 +152,34 @@ def _emit(p):
     tm.event("device", chip="0", action="quarantine")
 
 
+def _emit_port_only(t):
+    """The port's own names, through ``Tracer.record`` (JAX's tracer has no
+    ``record``): one each, ``device-step`` twice."""
+    t0 = time.perf_counter()
+    for name in ("convert", "h2d", "device-step", "device-step", "complete_wait"):
+        t.record(name, t0)
+
+
 @pytest.mark.parametrize("enabled", [False, True], ids=["off", "on"])
 def test_tracer_and_bus_match_jax(enabled):
     for p in PACKAGES:
         if enabled:
             _on(p)
         _emit(p)
-    assert _spans(PORT) == _spans(JAX)
+    _emit_port_only(ttracer)
+    own = _split_names(_spans(PORT), _spans(JAX))
+    assert own == ({"convert": 1, "h2d": 1, "device-step": 2, "complete_wait": 1}
+                   if enabled else {})
     got, want = ttel.rollup(), jtel.rollup()
     for k in ("enabled", "histograms", "counters", "gauges"):
         assert got[k] == want[k], k
-    assert set(got["trace"]) == set(want["trace"])
+    assert set(got["trace"]) == set(want["trace"]) | set(own)
     assert bool(got["counters"]) == enabled
     if enabled:
         events = json.loads(ttracer.chrome_trace())["traceEvents"]
-        assert sorted(e["name"] for e in events) == sorted(
+        assert sorted(e["name"] for e in events if e["name"] not in own) == sorted(
             e["name"] for e in json.loads(jtracer.chrome_trace())["traceEvents"])
+        assert sum(e["name"] in own for e in events) == sum(own.values())
         assert ttel.recorder.events("0")[-1]["ev"] == "device"
 
 
@@ -287,9 +326,9 @@ def test_sparse_completion_spans_match_jax(arm):
 W, H = 320, 192
 
 
-def _drive_solo(enc, frames, faults):
+def _drive_solo(enc, frames, faults, stats=None):
     """-> (every AU's sha256 in completion order with its meta, the indices
-    whose submit raised)."""
+    whose submit raised); each FrameStats goes to ``stats`` if given."""
     done, raised = [], []
     for i, (frame, op) in enumerate(frames):
         if op == "idr":
@@ -300,7 +339,12 @@ def _drive_solo(enc, frames, faults):
             raised.append(i)
             continue
         done += [(_sha(au), m) for au, _, m in outs]
-    done += [(_sha(au), m) for au, _, m in enc.flush()]
+        if stats is not None:
+            stats += [st for _, st, _ in outs]
+    outs = enc.flush()
+    done += [(_sha(au), m) for au, _, m in outs]
+    if stats is not None:
+        stats += [st for _, st, _ in outs]
     enc.close()
     return done, raised
 
@@ -314,18 +358,34 @@ def _port_solo():
     return TorchH264Encoder(W, H, scene_qp_boost=BOOST, device="cpu")
 
 
-def test_solo_hooks_match_jax():
+def test_solo_hooks_match_jax(monkeypatch):
     frames = registry_trace(seed=51)
     _on(JAX)
     want = _drive_solo(TPUH264Encoder(W, H, **REGISTRY), frames, jfi)
     _on(PORT)
-    got = _drive_solo(_port_solo(), frames, tfi)
+    resident = _calls(monkeypatch, tenc, "_i_resident_step")  # an IDR with no upload
+    seeds = _calls(monkeypatch, tenc, "_pool_seed_step")      # one more upload each
+    enc, stats = _port_solo(), []
+    got = _drive_solo(enc, frames, tfi, stats)
     assert got == want
     assert [m for _, m in got[0]] == list(range(len(frames)))
     spans = _spans(PORT)
-    assert spans == _spans(JAX)
+    own = _split_names(spans, _spans(JAX))
     assert spans["classify"] == len(frames)
     assert {"step", "fetch", "unpack", "pack"} <= set(spans)
+    # the port's names: a device-step per dispatch (each group, each frame
+    # dispatched alone), a convert and an h2d per dispatched frame that
+    # uploads (an h2d per group), an h2d per pool seed, and a
+    # complete_wait per frame coded on the device, an allskip per unchanged
+    # capture
+    coded = sum(st.upload_kind != "static" for st in stats)
+    grouped = sum(k * n for k, n in enc.group_sizes.items())
+    dispatches = sum(enc.group_sizes.values()) + coded - grouped
+    assert grouped and seeds[0] and dispatches < coded
+    static = len(stats) - coded
+    assert own == {"device-step": dispatches, "convert": coded - resident[0],
+                   "h2d": dispatches - resident[0] + seeds[0], "complete_wait": coded,
+                   "allskip": static}
     counters = _tile_counters(PORT)
     assert counters == _tile_counters(JAX)
     kinds = counters["selkies_tile_cache_frames_total"]
@@ -461,8 +521,11 @@ def test_service_hooks_match_jax():
     got = _drive_service(svc)
     assert got == want
     spans = _spans(PORT)
-    assert spans == _spans(JAX)
-    assert spans == {"convert": 5, "device-step": 5, "fetch": 5, "pack": 5}
+    own = _split_names(spans, _spans(JAX))
+    assert _spans(JAX) == {"convert": 5, "device-step": 5, "fetch": 5, "pack": 5}
+    # an upload per tick; the IDR branch on the first tick and the mixed
+    # tick 3, the P branch on ticks 1-4
+    assert own == {"h2d": 5, "step-i": 2, "step-p": 4}
     assert set(svc.last_timing) >= {"convert_ms", "step_ms", "fetch_ms", "pack_ms"}
     _off(PORT)
     assert _drive_service(TorchMultiSessionH264Service(N_SESS, SW, SH, qp=26,
