@@ -7,9 +7,10 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build the ME/MC kernel (nvcc, sm_90a), the native CAVLC packer and the
-   frameprep library (g++) from the checkout's sources, all at once; print
-   build seconds and the ``-Xptxas -v`` report; read the kernel's SASS
+2. build the ME/MC and intra kernels (nvcc, sm_90a), the native CAVLC
+   packer and the frameprep library (g++) from the checkout's sources, all
+   at once; print build seconds and the ``-Xptxas -v`` reports; read the
+   ME/MC kernel's SASS
    (``cuobjdump -sass``) for the native 4-way byte SAD instruction that
    sets its operation floor;
 3. hold the ME/MC kernel against its plain PyTorch version on the card at
@@ -21,14 +22,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    and the whole 2160x3840 frame; and the batched kernel (one launch over
    a session axis, each session with its own seeded motion and candidate
    list) against its batched plain version at 8 x 1088x1920 and at
-   3 x 768x1376: every output exactly equal;
+   3 x 768x1376: every output exactly equal; and the intra kernel (the IDR
+   step, one call) against its plain version at 1 and 8 x 1088x1920 with
+   seeded QPs from 0 to 51: every output exactly equal;
 4. the device-conversion path: TorchH264Encoder(1920, 1080,
    host_convert=False, pipeline_depth=0, frame_batch=1, device="cuda")
    over a seeded desktop-like trace
    (IDR, scrolls, typing, a static repeat, force_keyframe, a QP change)
    with the launch counters zeroed just before; every access unit's sha256
    must equal the same trace on the CPU, the kernel must have launched once
-   per non-static P frame and the native packer at least once;
+   per non-static P frame, the intra kernel once per IDR frame, and the
+   native packer at least once;
 5. the host-conversion path, ungrouped and unpipelined:
    TorchH264Encoder(1920, 1080, scene_qp_boost=6, frame_batch=1,
    pipeline_depth=0, ltr_scenes=False, device="cuda") over a
@@ -81,9 +85,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    one, a mixed tick with two forced sessions, a P tick), counters zeroed
    just before: every session's AUs must equal a solo TorchH264Encoder
    (host_convert=False, frame_batch=1, pipeline_depth=0) fed the same
-   frames, QPs and keyframes, and K1 must launch exactly once per tick
-   with a P session; (b) the same trace at 4 x 640x368 must equal the
-   port's CPU run of the service;
+   frames, QPs and keyframes, K1 must launch exactly once per tick
+   with a P session and the intra kernel once per tick with an IDR;
+   (b) the same trace at 4 x 640x368 must equal the port's CPU run of
+   the service;
 12. (run after phase 9, before the timing) the hybrid VP9/AV1 rows and the
    port's registry at 1920x1080, over a seeded desktop trace (the first
    frame, static repeats, typing, a 16-row scroll of a window, a window
@@ -351,6 +356,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    at most 1.25x the 1-session tick's ops) and peak device memory; the
    same frames through 8 solo flat encoders in turn; and the batched
    kernel at 8 x 1088x1920 by CUDA events against its byte bound; the
+   intra kernel at 1 and 8 x 1088x1920 by CUDA events (20 calls behind a
+   spin kernel, and as issued) against its byte floor and its 187-step
+   chain, its plain version, and row 0 and one MB column alone; the
    hybrid front-end step per frame kind (static, typing, scroll, full; host
    clock around the synchronised step), its upload (host clock and CUDA
    events), its device ops and idle share over 8 steps (torch.profiler),
@@ -373,11 +381,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    median P tick and fps across sessions on full motion (phase 15 (d)'s
    service, 6 more ticks);
 11. print the ``{"kernels": [...]}`` line (K1 at the solo shape and as the
-    8-session launch, with its launches on every path, the fleet's, the
-    library rows' degrade, the software fleet's, the serving app's, the
-    fleet loop's, the solo server's, the WebRTC session's and the fleet
-    server's included), then the
-    ``{"ok": true, ...}`` line.
+    8-session launch, the intra kernel at 1 and 8 sessions, with its
+    launches on every path, the fleet's, the library rows' degrade, the
+    software fleet's, the serving app's, the fleet loop's, the solo
+    server's, the WebRTC session's and the fleet server's included), then
+    the ``{"ok": true, ...}`` line.
 
 The full record is also written to chiprun_out/chip_smoke.json.
 """
@@ -1104,6 +1112,65 @@ def _batch_me_inputs(n: int, h: int, w: int, seed: int, dev):
     cur, ref, cu, cv = (torch.stack(t) for t in zip(*planes))
     cands = core._refine_cands(core.coarse_vote_candidates(cur, ref))
     return (cands, cur, *(core.edge_pad(p, core.MV_PAD) for p in (ref, cu, cv)))
+
+
+def _intra_phase(dev, timing: bool) -> dict:
+    """The intra kernel (one call per IDR step) against its plain version at
+    the main path's shapes, 1 and 8 sessions of 1088x1920 with seeded QPs
+    (0 and 51 among them): every output exactly equal. With ``timing``, the
+    kernel by CUDA events over 20 calls queued behind a spin kernel (and as
+    the host issues them), the plain version, the byte floor, and the two
+    halves of the serial chain alone: row 0 (a 16x1920 plane, 120 MB steps)
+    and one MB column (1088x16, 1 + 67 steps)."""
+    import torch
+
+    from selkies_tpu_torch.models.h264 import encoder_core as core
+    from selkies_tpu_torch.models.h264 import intra
+
+    def inputs(n, h, w, seed):
+        rng = np.random.default_rng(seed)
+        y = rng.integers(0, 256, (n, h, w), np.uint8)
+        u, v = (rng.integers(0, 256, (n, h // 2, w // 2), np.uint8) for _ in range(2))
+        qps = rng.integers(0, 52, n).astype(np.int32)
+        qps[:2] = [0, 51][:n]
+        rows = core._QPRows.gather(torch.from_numpy(qps).to(dev))
+        return [torch.from_numpy(a).to(dev) for a in (y, u, v)] + [rows]
+
+    res = {}
+    for n in (1, 8):
+        y, u, v, rows = inputs(n, 1088, 1920, 70 + n)
+        before = intra.launches
+        got = intra.encode_intra(y, u, v, rows.rows)
+        want = core._encode_intra_plain(y, u, v, rows)
+        torch.cuda.synchronize()
+        if intra.launches != before + 1:
+            _fail(f"intra {n} sessions: {intra.launches - before} launches for one call")
+        for key in want:
+            if got[key].dtype != want[key].dtype or not torch.equal(got[key], want[key]):
+                _fail(f"intra {n} x 1088x1920: {key} differs from the plain version")
+        row = {"sessions": n, "shape": [1088, 1920], "exact": True}
+        if timing:
+            def call():
+                return intra.encode_intra(y, u, v, rows.rows)
+
+            row["ms"] = _time_cuda(call, iters=20, hold=True)
+            row["host_issued_ms"] = _time_cuda(call, iters=20)
+            row["plain_ms"] = _time_cuda(lambda: core._encode_intra_plain(y, u, v, rows),
+                                         iters=2, warmup=1)
+            nbytes = sum(t.numel() * t.element_size() for t in (y, u, v))
+            nbytes += sum(t.numel() * t.element_size() for t in got.values())
+            row["bytes"] = nbytes
+            row["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            row["chain_steps"] = 1088 // 16 - 1 + 1920 // 16
+            row["us_per_chain_step"] = row["ms"] * 1e3 / row["chain_steps"]
+        res[f"n{n}"] = row
+    if timing:
+        for name, (h, w) in (("row0_16x1920", (16, 1920)), ("column_1088x16", (1088, 16))):
+            y, u, v, rows = inputs(1, h, w, 80)
+            ms = _time_cuda(lambda: intra.encode_intra(y, u, v, rows.rows), iters=20, hold=True)
+            steps = w // 16 if h == 16 else h // 16
+            res[name] = {"ms": ms, "mb_steps": steps, "us_per_step": ms * 1e3 / steps}
+    return res
 
 
 def _session_base(i: int, w: int, h: int):
@@ -6056,9 +6123,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from selkies_tpu_torch.models import frameprep
-    from selkies_tpu_torch.models.h264 import me_mc, native
+    from selkies_tpu_torch.models.h264 import intra, me_mc, native
     from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
-    from selkies_tpu_torch.utils.build import BUILD_DIR
+    from selkies_tpu_torch.utils.build import BUILD_DIR, nvcc
 
     timing = "--no-timing" not in sys.argv[1:]
     t_start = time.perf_counter()
@@ -6076,19 +6143,22 @@ def main() -> int:
 
     # -- 2. build the three libraries at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        futs = [pool.submit(f) for f in (me_mc.build, native.build, frameprep.build)]
-        k_build, n_build, f_build = (f.result() for f in futs)
+    with ThreadPoolExecutor(4) as pool:
+        futs = [pool.submit(f) for f in (me_mc.build, native.build, frameprep.build, intra.build)]
+        k_build, n_build, f_build, i_build = (f.result() for f in futs)
     record["build_s"] = {"me_mc": k_build.seconds, "native": n_build.seconds,
-                         "frameprep": f_build.seconds, "wall": time.perf_counter() - t0}
+                         "frameprep": f_build.seconds, "intra": i_build.seconds,
+                         "wall": time.perf_counter() - t0}
     print(f"build: me_mc {k_build.seconds:.2f} s, native {n_build.seconds:.2f} s, "
-          f"frameprep {f_build.seconds:.2f} s, wall {record['build_s']['wall']:.2f} s")
+          f"frameprep {f_build.seconds:.2f} s, intra {i_build.seconds:.2f} s, "
+          f"wall {record['build_s']['wall']:.2f} s")
+    print("intra ptxas:", i_build.log.strip() or "(cached build)")
     if f_build.path.parent != BUILD_DIR or not f_build.path.exists():
         _fail(f"frameprep library {f_build.path} is not a build of native/frameprep.cc")
     print(f"frameprep: {f_build.path.relative_to(BUILD_DIR.parents[1])} "
           f"(g++ of native/frameprep.cc, {f_build.seconds:.2f} s)")
     print("me_mc ptxas:", k_build.log.strip() or "(cached build)")
-    sass = _sass_check(k_build.path, me_mc._nvcc())
+    sass = _sass_check(k_build.path, nvcc())
     record["sass"] = sass
     print(f"me_mc SASS: VABSDIFF4 per kernel {sass['vabsdiff4_per_kernel']} "
           f"(native 4-way byte SAD: {sass['native_simd4']})")
@@ -6152,17 +6222,21 @@ def main() -> int:
             "sessions": n, "cur": [h, w], "candidates": args[0].shape[1],
             "nonzero_mv_mbs": nz}
 
+    # the intra kernel at 1 and 8 sessions of 1088x1920
+    record["intra_checks"] = _intra_phase(dev, timing=False)
+    print("intra check: exact against the plain version at 1 and 8 x 1088x1920, one call each")
+
     # -- 4. the device-conversion path: the encoder at 1920x1080 on the card vs the CPU
     frames = _desktop_trace()
     flat = dict(pipeline_depth=0, frame_batch=1)  # one AU per submit
     enc = TorchH264Encoder(W, H, qp=28, host_convert=False, device="cuda", **flat)
-    me_mc.launches = 0
+    me_mc.launches = intra.launches = 0
     native.calls = 0
     t0 = time.perf_counter()
     gpu = _drive(enc, frames)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches, packs = me_mc.launches, native.calls
+    launches, packs, intra_launches = me_mc.launches, native.calls, intra.launches
     t0 = time.perf_counter()
     cpu = _drive(TorchH264Encoder(W, H, qp=28, host_convert=False, device="cpu", **flat), frames)
     cpu_s = time.perf_counter() - t0
@@ -6174,11 +6248,15 @@ def main() -> int:
         _fail(f"me_mc launched {launches} times for {p_frames} non-static P frames")
     if packs <= 0:
         _fail("the native packer never ran")
+    idr_frames = sum(1 for _, s in gpu if s.idr)
+    if intra_launches != idr_frames:
+        _fail(f"intra launched {intra_launches} times for {idr_frames} IDR frames")
     kinds = ["I" if s.idr else ("S" if s.upload_kind == "static" else "P") for _, s in gpu]
     print(f"encoder 1920x1080: {len(frames)} frames {''.join(kinds)}, AUs sha256-equal cuda vs cpu; "
           f"me_mc launches {launches} (= non-static P frames), native packs {packs}; "
           f"bytes {[s.bytes for _, s in gpu]}; cuda run {main_s:.2f} s, cpu run {cpu_s:.2f} s")
     record["main_path"] = {"frames": "".join(kinds), "me_mc_launches": launches,
+                           "intra_launches": intra_launches,
                            "native_packs": packs, "bytes": [s.bytes for _, s in gpu],
                            "sha256": [h for h, _ in gpu], "cuda_s": main_s, "cpu_s": cpu_s}
 
@@ -6443,10 +6521,14 @@ def main() -> int:
     bases = [_session_base(i, SW, SH) for i in range(8)]
     torch.cuda.reset_peak_memory_stats()
     svc = TorchMultiSessionH264Service(8, SW, SH, qp=28, device="cuda")
-    me_mc.launches = 0
+    me_mc.launches = intra.launches = 0
     ses_shas, ses_ticks, ses_qps, ses_forced = _drive_sessions(svc, bases)
     torch.cuda.synchronize()
-    ses_launches = me_mc.launches
+    ses_launches, ses_intra = me_mc.launches, intra.launches
+    idr_ticks = sum(1 for t in range(SESSION_TICKS)
+                    if t == 0 or any(t in f for f in ses_forced.values()))
+    if ses_intra != idr_ticks:
+        _fail(f"sessions: intra launched {ses_intra} times for {idr_ticks} ticks with an IDR")
     ses_peak_mb = torch.cuda.max_memory_allocated() / 2**20
     svc.close()
     ses_s = time.perf_counter() - t0
@@ -6490,6 +6572,7 @@ def main() -> int:
           f"cuda {small['cuda'][5]:.1f} s, cpu {small['cpu'][5]:.1f} s)")
     record["session_path"] = {
         "ticks": idr_map, "me_mc_launches": ses_launches, "launches_per_tick": ses_ticks,
+        "intra_launches": ses_intra,
         "qps": ses_qps, "forced": ses_forced, "sha256": ses_shas, "peak_device_mb": ses_peak_mb,
         "cuda_s": ses_s, "solo_s": solo_s,
         "small_640x368": {"sha256": small["cuda"][0], "me_mc_launches": small["cuda"][4],
@@ -6741,6 +6824,10 @@ def main() -> int:
           f"{b_plain_ms:.3f} ms; floors: bytes {b_bytes_ms:.5f} ms, operations {b_simd_ms:.5f} "
           f"ms; bound {b_bound_ms:.5f} ms = {100 * b_bound_ms / b_ms:.1f}% of the kernel's time")
 
+    intra_t = _intra_phase(dev, timing=True)
+    record["intra_timing"] = intra_t
+    print(f"intra kernel at 1088x1920 ({card}, {power_limit}): " + json.dumps(intra_t))
+
     block_s["sessions"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # the hybrid rows' front-end and rows, per frame kind
     hyb_t = _time_hybrid(card, power_limit)
@@ -6849,7 +6936,17 @@ def main() -> int:
         "bytes": b_bytes, "simd_ops": b_simd_ops, "bytes_ms": b_bytes_ms,
         "ops_ms_simd": b_simd_ms, "host_issued_ms": b_issued_ms, "bound_share": b_bound_ms / b_ms,
         "launches_per_tick": ses_ticks, "card": card, "power_limit": power_limit,
-    }]
+    }] + [{
+        "name": f"intra ({row['sessions']} session{'s' if row['sessions'] > 1 else ''})",
+        "route": "cuda", "source": "selkies_tpu_torch/csrc/intra.cu",
+        "replaces": intra.REPLACES, "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bytes_ms"], "bound_by": "bytes; the serial chain sets the time",
+        "library_ms": None, "shape": f"{row['sessions']} x 1088x1920", "bytes": row["bytes"],
+        "chain_steps": row["chain_steps"], "us_per_chain_step": row["us_per_chain_step"],
+        "host_issued_ms": row["host_issued_ms"], "bound_share": row["bytes_ms"] / row["ms"],
+        "launches_main_path": intra_launches, "launches_session_path": ses_intra,
+        "card": card, "power_limit": power_limit,
+    } for row in (intra_t["n1"], intra_t["n8"])]
     record["kernels"] = kernels
     record["timing_seconds"] = block_s
     print("timing blocks (s): " + json.dumps(block_s))

@@ -26,8 +26,11 @@ on planes with or without the session axis.
 
 Intra: row 0 uses DC prediction, a left-to-right chain over MB columns;
 rows 1.. use vertical prediction from the reconstructed row above. Both
-are sequential, so each is a Python loop of batched tensor ops (over MB
-columns for row 0, over MB rows after it).
+are sequential. On a CUDA tensor the whole IDR step is one call of the
+hand-written kernel ``intra.encode_intra`` (one warp walks each session's
+row 0, then one warp each MB column down the rows). On a CPU tensor it is
+the plain version: a Python loop of batched tensor ops over MB columns for
+row 0, then over MB rows.
 
 Inter: P frames have no spatial dependencies (P_Skip / P_L0_16x16 only),
 so everything is one batched program over the MB grid. The refine
@@ -46,7 +49,7 @@ import numpy as np
 import torch
 
 from selkies_tpu_torch.device import constant_tables
-from selkies_tpu_torch.models.h264 import me_mc, tables
+from selkies_tpu_torch.models.h264 import intra, me_mc, tables
 from selkies_tpu_torch.models.h264.numpy_ref import (
     COARSE_DS,
     COARSE_R,
@@ -324,7 +327,17 @@ def _encode_row0(y_row, u_row, v_row, qp, qp_c):
 
 def _encode_intra(y, u, v, qp: _QPRows) -> dict:
     """encode_frame_planes over planes with optional leading axes; ``qp``
-    one row, or one row per session."""
+    one row, or one row per session. CUDA planes go to the kernel
+    (``intra.encode_intra``, which raises on what it does not take), any
+    other to the plain version."""
+    if y.device.type == "cuda":
+        return intra.encode_intra(y, u, v, qp.rows)
+    return _encode_intra_plain(y, u, v, qp)
+
+
+def _encode_intra_plain(y, u, v, qp: _QPRows) -> dict:
+    """The plain version of the intra kernel, on any device: the row-0
+    chain, then a loop over the MB rows, in batched tensor ops."""
     y, u, v = y.to(_I32), u.to(_I32), v.to(_I32)
     qp_c = qp.chroma()
     *lead, h, w_ = y.shape

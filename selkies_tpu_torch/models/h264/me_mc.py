@@ -39,14 +39,17 @@ per batched launch.
 from __future__ import annotations
 
 import ctypes
-import shutil
 import threading
-from pathlib import Path
 
 import torch
 
 from selkies_tpu_torch.models.h264.numpy_ref import MV_PAD
-from selkies_tpu_torch.utils.build import REPO_ROOT, BuildResult, build_shared
+from selkies_tpu_torch.utils.build import (
+    REPO_ROOT,
+    BuildResult,
+    build_shared,
+    nvcc_shared_command,
+)
 
 SOURCE = REPO_ROOT / "selkies_tpu_torch" / "csrc" / "me_mc.cu"
 REPLACES = "selkies_tpu/models/h264/pallas_me.py:219"
@@ -62,16 +65,6 @@ _build: BuildResult | None = None
 _load_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the ME/MC kernel needs the CUDA toolkit")
-
-
 def build() -> BuildResult:
     """Build (or find) the kernel library; returns the build record
     (``log`` holds ``-Xptxas -v``'s register and spill report)."""
@@ -85,9 +78,7 @@ def _load() -> ctypes.CDLL:
         return _lib
     with _load_lock:
         if _lib is None:
-            command = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                       "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-            res = build_shared("me_mc", [SOURCE], command)
+            res = build_shared("me_mc", [SOURCE], nvcc_shared_command())
             lib = ctypes.CDLL(str(res.path))
             lib.selkies_me_mc.restype = ctypes.c_int
             lib.selkies_me_mc.argtypes = [

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import time
 from dataclasses import dataclass
@@ -22,6 +23,24 @@ from selkies_tpu_torch.monitoring import jitprof
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
+
+
+def nvcc() -> str:
+    """The CUDA compiler: on PATH, else in the toolkit's default location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def nvcc_shared_command() -> list[str]:
+    """nvcc and its flags for a kernel library with a plain C interface
+    (sm_90a; ``-Xptxas -v`` reports registers and spills in the log)."""
+    return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 @dataclass

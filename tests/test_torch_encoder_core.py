@@ -6,6 +6,8 @@ every comparison is exact equality (tolerance zero)."""
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ import jax.numpy as jnp
 
 from selkies_tpu.models.h264 import encoder_core as J
 from selkies_tpu_torch.models.h264 import encoder_core as T
+from selkies_tpu_torch.models.h264 import intra
 from selkies_tpu_torch.models.h264 import numpy_ref as ref_np
 
 QPS = (0, 26, 51)
@@ -200,3 +203,72 @@ def test_bitpack_words_high_bit():
     bits = np.zeros(70, bool)
     bits[[0, 31, 33, 63, 69]] = True
     _eq(T._bitpack32(_t(bits)), J._bitpack32(jnp.asarray(bits)), "bitpack32")
+
+
+# -- the intra kernel's wrapper (models/h264/intra.py) without a card
+
+
+def test_cpu_planes_take_the_plain_intra_version():
+    y, u, v = _planes(32, 48, 3)
+    before = intra.launches
+    got = T.encode_frame_planes_batch(_t(y[None]), _t(u[None]), _t(v[None]),
+                                      torch.tensor([30], dtype=torch.int32))
+    want = J.encode_frame_planes(y, u, v, 30)
+    assert intra.launches == before
+    for key in want:
+        _eq(got[key][0], want[key], key)
+
+
+def _bad_intra_args(case):
+    y, u, v = (_t(p) for p in _planes(32, 48, 5))
+    rows = T._QPRows.of(28, torch.device("cpu")).rows
+    if case == "h-not-16":
+        y, u, v = y[:24], u[:12], v[:12]
+    elif case == "w-not-16":
+        y, u, v = y[:, :40], u[:, :20], v[:, :20]
+    elif case == "under-one-mb":
+        y, u, v = y[:8, :8], u[:4, :4], v[:4, :4]
+    elif case == "chroma-shape":
+        u = u[:, :-8]
+    elif case == "chroma-lead":
+        y = y[None].expand(2, -1, -1)
+    elif case == "four-dims":
+        y, u, v = y[None, None], u[None, None], v[None, None]
+    elif case == "qp-rows-count":
+        y, u, v = y[None].expand(3, -1, -1), u[None].expand(3, -1, -1), v[None].expand(3, -1, -1)
+        rows = T._QPRows.gather(torch.tensor([1, 2], dtype=torch.int32)).rows
+    elif case == "qp-rows-width":
+        rows = rows[:, :44]
+    return y, u, v, rows
+
+
+@pytest.mark.parametrize("case", ["h-not-16", "w-not-16", "under-one-mb", "chroma-shape",
+                                  "chroma-lead", "four-dims", "qp-rows-count", "qp-rows-width"])
+def test_intra_wrapper_refuses_bad_shapes_before_loading(case, monkeypatch):
+    """The shape contract raises on any device, before the library loads."""
+    def no_load():
+        raise AssertionError("the library loaded")
+
+    monkeypatch.setattr(intra, "_load", no_load)
+    with pytest.raises(ValueError):
+        intra.encode_intra(*_bad_intra_args(case))
+
+
+def test_intra_wrapper_refuses_cpu_planes(monkeypatch):
+    monkeypatch.setattr(intra, "_load", lambda: pytest.fail("the library loaded"))
+    y, u, v = (_t(p) for p in _planes(32, 48, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        intra.encode_intra(y, u, v, T._QPRows.of(20, torch.device("cpu")).rows)
+
+
+def test_intra_kernel_reads_the_qp_table_layout():
+    """csrc/intra.cu reads each QP's constants at the columns _QP_COLS gives."""
+    src = intra.SOURCE.read_text()
+    names = {"kMf": "mf", "kVs": "vs", "kQbits": "qbits", "kFi": "f_i", "kMf00": "mf00",
+             "kF2i": "f2_i", "kQb1": "qb1", "kV00": "v00", "kDcA": "dc_a", "kDcR": "dc_r",
+             "kDcB": "dc_b", "kQper": "qper"}
+    for const, col in names.items():
+        m = re.search(rf"\b{const} = (\d+)", src)
+        assert m and int(m.group(1)) == T._QP_COLS[col], const
+    assert re.search(rf"kQpHalf = {T._QP_HALF};", src)
+    assert intra.QP_ROW == T._qp_table().shape[1] == 2 * T._QP_HALF

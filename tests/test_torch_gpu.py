@@ -20,7 +20,7 @@ import torch
 
 from selkies_tpu_torch.models.h264 import encoder as enc_mod
 from selkies_tpu_torch.models.h264 import encoder_core as core
-from selkies_tpu_torch.models.h264 import me_mc, native
+from selkies_tpu_torch.models.h264 import intra, me_mc, native
 from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
 from selkies_tpu_torch.models.h264.numpy_ref import MV_PAD
 
@@ -29,7 +29,7 @@ W, H = 320, 192
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the ME/MC kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
 
 
 def _planes(h, w, seed, motion, noise):
@@ -877,6 +877,96 @@ def test_batched_kernel_matches_plain_on_card(case):
         assert torch.equal(g, w)
 
 
+# -- the intra kernel (models/h264/intra.py, csrc/intra.cu) -----------------
+
+# name -> (sessions or None for unbatched planes, h, w, per-session QPs,
+# per-session content, plane dtype)
+_INTRA_CASES = {
+    "solo-1088x1920": (None, 1088, 1920, [28], ["random"], "uint8"),
+    "batch1-1088x1920-qp0": (1, 1088, 1920, [0], ["random"], "uint8"),
+    "batch3-1088x1920": (3, 1088, 1920, [0, 51, 26], ["random", "extremes", "flat"], "uint8"),
+    "batch8-1088x1920": (8, 1088, 1920, [0, 51, 10, 20, 28, 34, 40, 45],
+                         ["random", "extremes", "flat", "random"] * 2, "uint8"),
+    "band-272x1920": (None, 272, 1920, [30], ["random"], "uint8"),
+    "one-column-208x16": (3, 208, 16, [0, 51, 17], ["random", "extremes", "flat"], "uint8"),
+    "odd-mbw-48x336": (2, 48, 336, [51, 0], ["extremes", "random"], "uint8"),
+    "one-row-16x336": (2, 16, 336, [22, 44], ["random", "extremes"], "uint8"),
+    "one-mb-16x16": (None, 16, 16, [0], ["extremes"], "uint8"),
+    "flat-96x160": (None, 96, 160, [51], ["flat"], "uint8"),
+    "int32-96x160": (2, 96, 160, [0, 51], ["random", "extremes"], "int32"),
+}
+
+
+def _intra_planes(h, w, content, rng):
+    """Seeded (y, u, v) uint8 planes: random, one flat level a plane, or
+    only 0 and 255 (residuals at both ends, recon driven into both clamps)."""
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    if content == "random":
+        return [rng.integers(0, 256, s, np.uint8) for s in shapes]
+    if content == "flat":
+        return [np.full(s, lvl, np.uint8) for s, lvl in zip(shapes, rng.integers(0, 256, 3))]
+    return [(rng.integers(0, 2, s) * 255).astype(np.uint8) for s in shapes]
+
+
+def _intra_case(name):
+    """-> (y, u, v numpy planes with the case's leading axis, qps list)."""
+    n, h, w, qps, contents, dtype = _INTRA_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    planes = [np.stack(p).astype(dtype) for p in
+              zip(*(_intra_planes(h, w, c, rng) for c in contents))]
+    return (*(p if n else p[0] for p in planes), qps)
+
+
+def _intra_encode(y, u, v, qps, batched, dev):
+    ty, tu, tv = (torch.from_numpy(p).to(dev) for p in (y, u, v))
+    if batched:
+        return core.encode_frame_planes_batch(ty, tu, tv,
+                                              torch.tensor(qps, dtype=torch.int32, device=dev))
+    return core.encode_frame_planes(ty, tu, tv, qps[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_INTRA_CASES))
+def test_intra_kernel_matches_plain_on_card_and_cpu(case):
+    """The IDR step on CUDA planes is one call of the intra kernel and equals
+    the plain version on the card and the CPU, element for element, in
+    every output (the unused [0, 0] AC levels included)."""
+    _need_card()
+    y, u, v, qps = _intra_case(case)
+    batched = _INTRA_CASES[case][0] is not None
+    dev = torch.device("cuda")
+    before = intra.launches
+    got = _intra_encode(y, u, v, qps, batched, dev)
+    assert intra.launches == before + 1
+    ty, tu, tv = (torch.from_numpy(p).to(dev) for p in (y, u, v))
+    rows = (core._QPRows.gather(torch.tensor(qps, dtype=torch.int32, device=dev)) if batched
+            else core._QPRows.of(qps[0], dev))
+    plain = core._encode_intra_plain(ty, tu, tv, rows)
+    cpu = _intra_encode(y, u, v, qps, batched, torch.device("cpu"))
+    assert intra.launches == before + 1
+    assert list(got) == list(cpu)
+    for key in cpu:
+        assert got[key].dtype == cpu[key].dtype and got[key].shape == cpu[key].shape, key
+        assert torch.equal(got[key], plain[key]), key
+        assert torch.equal(got[key].cpu(), cpu[key]), key
+
+
+@pytest.mark.gpu
+def test_intra_kernel_on_another_card_keeps_the_current_card():
+    """The intra kernel launched on cuda:1 while cuda:0 is current: its
+    outputs equal the CPU's and the thread's current card is still 0."""
+    _need_cards(2)
+    torch.cuda.set_device(0)
+    y, u, v, qps = _intra_case("batch3-1088x1920")
+    got = _intra_encode(y, u, v, qps, True, torch.device("cuda", 1))
+    assert torch.cuda.current_device() == 0
+    want = _intra_encode(y, u, v, qps, True, torch.device("cpu"))
+    torch.cuda.synchronize(1)
+    for key in want:
+        assert got[key].device == torch.device("cuda", 1) and torch.equal(got[key].cpu(),
+                                                                         want[key]), key
+
+
 def _session_trace(n, h, w, ticks=5, seed=51):
     """Per tick an (n, h, w, 4) batch: each session scrolls its own block
     content by its own step."""
@@ -939,6 +1029,7 @@ def _service_dispatch_never_syncs():
                      "".join(traceback.format_stack(limit=8)[:-1])))
 
     aus = []
+    idr_launches = intra.launches
     for t, batch in enumerate(trace[2:]):
         if t == 1:
             svc.force_keyframe(2)  # a mixed tick
@@ -957,6 +1048,7 @@ def _service_dispatch_never_syncs():
     assert not on_dispatch, f"{len(on_dispatch)} syncs; first at:\n" + "\n".join(
         dict.fromkeys(on_dispatch))
     assert len(aus) == 4 and aus[1][2][4] & 0x1F == 7
+    assert intra.launches == idr_launches + 1  # the mixed tick's IDR, in the kernel
     return svc.last_timing
 
 
@@ -1060,6 +1152,7 @@ def _scheduled_tick_never_syncs(kind):
                      "".join(traceback.format_stack(limit=8)[:-1])))
 
     aus = []
+    idr_launches = intra.launches
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = hook
@@ -1076,6 +1169,7 @@ def _scheduled_tick_never_syncs(kind):
     syncs = [(name, st) for name, m, st in seen if "called a synchronizing CUDA operation" in m]
     assert not syncs, f"{len(syncs)} syncs; first in {syncs[0][0]} at:\n{syncs[0][1]}"
     assert len(aus) == 4 and all(au.startswith(b"\x00\x00\x00\x01") for a in aus for au in a)
+    assert intra.launches > idr_launches  # the IDR went through the intra kernel
 
 
 @pytest.mark.gpu
