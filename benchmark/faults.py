@@ -29,6 +29,15 @@ def state_unchanged(entry):
         enc.step_groups = frozen
         return
     enc = entry.enc
+    if hasattr(enc, "_step_p"):        # the band- or tile-sliced encoder
+        step_p = enc._step_p
+
+        def held(*args, **kw):
+            # the reference planes are the step's last three positional arguments
+            return (*step_p(*args, **kw)[:2], *args[-3:])
+
+        enc._step_p = held
+        return
     step = enc._step_tiles
 
     def frozen(tiles, qp, *, idr=False, stash=None):
@@ -66,6 +75,15 @@ def altered(entry):
             pack(i, host, j, idr) if idr else flip(pack(i, host, j, idr)))
         return
     enc = entry.enc
+    if hasattr(enc, "_step_p"):        # the band- or tile-sliced encoder
+        complete = enc.complete_frame
+
+        def completed(pending):
+            au = complete(pending)
+            return au if pending.idr else flip(au)
+
+        enc.complete_frame = completed
+        return
     emit = enc._emit
 
     def emitted(rec):
@@ -76,6 +94,6 @@ def altered(entry):
 
 
 FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch, "altered": altered}
-APPLIES = {"state_unchanged": ("session_service", "solo_row"),
+APPLIES = {"state_unchanged": ("session_service", "solo_row", "tile_grid_row"),
            "half_batch": ("session_service",),     # one session has no half
-           "altered": ("session_service", "solo_row")}
+           "altered": ("session_service", "solo_row", "tile_grid_row")}

@@ -2,7 +2,8 @@
 
 Written from ISO/IEC 14496-10 7.3 for the stream the encoder states:
 Constrained Baseline, CAVLC, frame macroblocks only, POC type 2, three
-reference frames, one slice per picture, deblocking off, QP coded as
+reference frames, one slice per picture (or one per band, each starting at
+its ``first_mb``), deblocking off, QP coded as
 pic_init_qp plus a slice delta. Bits are gathered MSB first; slice data
 arrives from ``cavlc.py`` as (code, length) arrays and is packed here.
 """
@@ -148,9 +149,10 @@ class Marking:
 
 
 def slice_header(s: Stream, *, idr: bool, frame_num: int, qp: int, idr_pic_id: int = 0,
-                 ltr_ref: int | None = None, marking: Marking = Marking()) -> Bits:
+                 ltr_ref: int | None = None, marking: Marking = Marking(),
+                 first_mb: int = 0) -> Bits:
     b = Bits()
-    b.ue(0)                                  # first_mb_in_slice
+    b.ue(first_mb)                           # first_mb_in_slice
     b.ue(SLICE_I if idr else SLICE_P)
     b.ue(0)                                  # pic_parameter_set_id
     b.u(frame_num % (1 << LOG2_MAX_FRAME_NUM), LOG2_MAX_FRAME_NUM)

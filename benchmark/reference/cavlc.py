@@ -255,8 +255,10 @@ def _slice(header: bs.Bits, parts, tail=None) -> np.ndarray:
     return np.concatenate([header.array(), bs.expand(codes, lens)])
 
 
-def pack_i(fc: dict, s: bs.Stream, *, frame_num: int = 0, idr_pic_id: int = 0) -> bytes:
-    """IDR slice NAL from the reference's Intra16x16 levels (numpy arrays)."""
+def pack_i(fc: dict, s: bs.Stream, *, frame_num: int = 0, idr_pic_id: int = 0,
+           first_mb: int = 0) -> bytes:
+    """IDR slice NAL from the reference's Intra16x16 levels (numpy arrays);
+    ``first_mb`` places a band's slice in its picture."""
     mbh, mbw = fc["luma_mode"].shape
     ac_scan = _zigzag(fc["luma_ac"])                        # (mbh, mbw, 4, 4, 16)
     c_scan = _zigzag(fc["chroma_ac"])                       # (mbh, mbw, 2, 2, 2, 16)
@@ -277,13 +279,14 @@ def pack_i(fc: dict, s: bs.Stream, *, frame_num: int = 0, idr_pic_id: int = 0) -
     parts = [(hdr[..., 0], hdr[..., 1]), (dcc.reshape(mbh, mbw, -1), dcl.reshape(mbh, mbw, -1)),
              (lc, ll), *_chroma_parts(fc["chroma_dc"], c_scan, cbp_c, mbh, mbw)]
     h = bs.slice_header(s, idr=True, frame_num=frame_num, qp=int(fc["qp"]),
-                        idr_pic_id=idr_pic_id)
+                        idr_pic_id=idr_pic_id, first_mb=first_mb)
     return bs.nal(3, bs.NAL_IDR, _slice(h, parts))
 
 
 def _neighbours(mvs):
     """A (left), B (top), C (top-right, else top-left D) vectors and their
-    availability over the MB grid (8.4.1.3, one slice a picture)."""
+    availability over one slice's MB grid (8.4.1.3): a slice's top row has
+    no neighbours above, whether it is the picture's or a band's."""
     mbh, mbw = mvs.shape[:2]
     z = np.zeros_like(mvs)
     a, b, c, d = z.copy(), z.copy(), z.copy(), z.copy()
@@ -318,11 +321,14 @@ def skip_mv(mvs):
 
 
 def pack_p(fc: dict, s: bs.Stream, *, frame_num: int, ltr_ref=None,
-           marking: bs.Marking = bs.Marking(), all_skip: bool = False) -> bytes:
+           marking: bs.Marking = bs.Marking(), all_skip: bool = False,
+           first_mb: int = 0) -> bytes:
     """P slice NAL: P_Skip where the residual is zero and the vector is the
-    skip vector (8.4.1.1), else P_L0_16x16 with its mvd and residual."""
+    skip vector (8.4.1.1), else P_L0_16x16 with its mvd and residual.
+    ``all_skip`` skips the ``s.mbw * s.mbh`` MBs of ``s``; ``first_mb``
+    places a band's slice in its picture."""
     h = bs.slice_header(s, idr=False, frame_num=frame_num, qp=int(fc["qp"]),
-                        ltr_ref=ltr_ref, marking=marking)
+                        ltr_ref=ltr_ref, marking=marking, first_mb=first_mb)
     if all_skip:
         c, ln = ue(s.mbw * s.mbh)
         return bs.nal(3, bs.NAL_SLICE, np.concatenate([h.array(), bs.expand(c, ln)]))

@@ -310,13 +310,19 @@ class Encoder:
         rank = torch.arange(k, dtype=_I32, device=self.device)
         return self.coarse[torch.topk(votes * 512 + (511 - rank), TOPK, dim=1).indices]
 
-    def motion(self, y, ref_y):
+    def motion(self, y, ref_y, mb_row0: int = 0):
         """(N, mbh, mbw, 2) full-pel MVs over the refine list: rank 0 the zero
         vector, then for each coarse winner g (in vote order) the raster
         g*COARSE_DS + (dx, dy), |dx|, |dy| <= REFINE_R, dy outer; the
-        lowest-ranked candidate of least SAD wins."""
+        lowest-ranked candidate of least SAD wins.
+
+        Where this encoder's picture is a band of a taller one, ``ref_y`` is
+        the taller picture's reference and the band starts at its MB row
+        ``mb_row0``: the vote reads the band's own rows of it (a slice votes
+        alone), the refine reads all of it, edge-padded at its own edges."""
         n = y.shape[0]
-        top = self._coarse_top(y, ref_y)
+        r0 = 16 * mb_row0
+        top = self._coarse_top(y, ref_y[:, r0:r0 + self.h])
         cands = torch.cat([torch.zeros((n, 1, 2), dtype=_I32, device=self.device),
                            (top[:, :, None, :] * COARSE_DS + self.grid).reshape(n, -1, 2)], 1)
         ry = _edge_pad(ref_y, MV_PAD)
@@ -330,9 +336,9 @@ class Encoder:
             rank = torch.arange(rank0, rank0 + k, dtype=_I32, device=self.device)
             return (sad * 128 + rank[:, None, None]).amin(1)
 
-        best = cost(ref_y[:, None], 0)
+        best = cost(ref_y[:, None, r0:r0 + h], 0)
         sess = torch.arange(n, device=self.device)[:, None, None]
-        ar_h = torch.arange(h + 2 * r, device=self.device)
+        ar_h = torch.arange(r0, r0 + h + 2 * r, device=self.device)
         ar_w = torch.arange(w + 2 * r, device=self.device)
         for g in range(TOPK):
             off = top[:, g] * COARSE_DS + (MV_PAD - r)                  # (N, 2)
@@ -342,13 +348,14 @@ class Encoder:
             best = torch.minimum(best, cost(sh, 1 + g * (2 * r + 1) ** 2))
         return cands[sess, (best & 127).long()]
 
-    def compensate(self, mvs, ref_y, ref_u, ref_v):
-        """Full-pel luma and half-pel bilinear chroma predictions (8.4.2.2)."""
+    def compensate(self, mvs, ref_y, ref_u, ref_v, mb_row0: int = 0):
+        """Full-pel luma and half-pel bilinear chroma predictions (8.4.2.2);
+        a band's from the taller reference at its MB row ``mb_row0``."""
         dev = self.device
         n = mvs.shape[0]
         sess = torch.arange(n, device=dev)[:, None, None, None, None]
         mvx, mvy = mvs[..., 0], mvs[..., 1]
-        mby = torch.arange(self.mbh, device=dev)[:, None]
+        mby = torch.arange(mb_row0, mb_row0 + self.mbh, device=dev)[:, None]
         mbx = torch.arange(self.mbw, device=dev)[None, :]
         i16 = torch.arange(16, device=dev)
         rows = (16 * mby + mvy + MV_PAD)[..., None] + i16
@@ -373,12 +380,14 @@ class Encoder:
 
         return pred_y, chroma(ref_u), chroma(ref_v)
 
-    def encode_p(self, y, u, v, ref, qp: int) -> dict:
+    def encode_p(self, y, u, v, ref, qp: int, mb_row0: int = 0) -> dict:
         """P_L0_16x16 residuals of every MB of N sessions, each against its
-        ``ref`` (recon planes); every input and output has the session axis."""
+        ``ref`` (recon planes); every input and output has the session axis.
+        A band's planes start at MB row ``mb_row0`` of the taller ``ref``
+        (``motion``)."""
         q, qc = self.q(qp), self.q(chroma_qp(qp))
-        mvs = self.motion(y, ref[0])
-        pred_y, pred_u, pred_v = self.compensate(mvs, *ref)
+        mvs = self.motion(y, ref[0], mb_row0)
+        pred_y, pred_u, pred_v = self.compensate(mvs, *ref, mb_row0=mb_row0)
         wy = fdct4(_blocks(y.to(_I32) - pred_y, 4), self.precision)
         luma_ac = q.quant4(wy, False)
         rec_y = (_unblocks(idct4(q.dequant4(luma_ac))) + pred_y).clamp(0, 255)

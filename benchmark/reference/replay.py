@@ -6,6 +6,30 @@ reconstruction, or, where the configuration codes unchanged captures as
 skips, an all-skip P slice that leaves the reference as it was. Only the
 sampled frames are entropy-coded; every frame a sampled one depends on is
 reconstructed, since the next one predicts from it.
+
+A configuration that states ``"bands": R`` (1 by default) splits its
+padded MB rows into R equal bands, and every picture is R slices in band
+order, as ISO/IEC 14496-10 (the slice header, 7.3.3; neighbour
+availability, 6.4.x and 8.4.1.3) and the band policy of the repository's
+``docs/bands.md`` ("Correctness") have it:
+
+* **IDR:** each band is coded as a picture of its own rows: DC prediction
+  along the band's top MB row, from the left, vertical below it.
+* **P:** each band takes its own coarse vote over its own MBs and its own
+  rows of the reference (edge-padded at the band's edges); the refine SAD
+  and the compensation read the whole picture's reconstruction,
+  edge-padded at the picture's edges only (``h264.Encoder.motion`` with
+  ``mb_row0``). That is what the encoder's band slab reads where its halo
+  of rows (and, in a tile grid, of columns) covers the search's reach plus
+  the chroma bilinear's extra row, as its default of ``h264.MV_PAD`` does.
+  A tile grid (``"cols": C``) merges its tiles' votes and MV grids into the
+  band-row's, so it codes the same slices as its R bands.
+* **Entropy:** each band's slice data is packed over the band's MB grid
+  (its top row sees no neighbours above), its header carrying
+  ``first_mb_in_slice``, the band's first MB; an unchanged capture is one
+  all-skip slice per band.
+
+With one band the band is the picture and its slice starts at MB 0.
 """
 
 from __future__ import annotations
@@ -44,27 +68,49 @@ def _host(fc: dict, b: int | None = None) -> dict:
 
 class Coder:
     """Codes the frames of ``sessions`` sessions tick by tick as the stated
-    policy says, keeping each session's reference and last capture. The
-    replay and the control both code through it; they differ only in
-    ``precision``."""
+    policy says, keeping each session's reference and last capture, each
+    picture in ``cfg["bands"]`` band slices. The replay and the control
+    both code through it; they differ only in ``precision``."""
 
     def __init__(self, cfg: dict, sessions: int, device, precision: str = "exact"):
         w, h = int(cfg["width"]), int(cfg["height"])
         self.qp = int(cfg["qp"])
         self.ph, self.pw = (h + 15) // 16 * 16, (w + 15) // 16 * 16
-        self.stream = bs.Stream(w, h, self.qp)
-        self.headers = bs.sps(self.stream) + bs.pps(self.stream)
-        self.enc = h264.Encoder(self.ph, self.pw, device, precision)
+        stream = bs.Stream(w, h, self.qp)
+        self.headers = bs.sps(stream) + bs.pps(stream)
+        self.bands = int(cfg.get("bands", 1))
+        mbh, mbw = self.ph // 16, self.pw // 16
+        if mbh % self.bands:
+            raise ValueError(f"{self.bands} bands do not split {mbh} MB rows equally")
+        self.band_mbh = mbh // self.bands
+        self.bh = 16 * self.band_mbh
+        # a band's slice is packed against the band's own MB grid
+        self.stream = bs.Stream(self.pw, self.bh, self.qp)
+        self.first_mb = [b * self.band_mbh * mbw for b in range(self.bands)]
+        self.enc = h264.Encoder(self.bh, self.pw, device, precision)
         self.device = device
         self.static_skip = bool(cfg.get("static_skip", False))
         self.refs, self.prev = [None] * sessions, [None] * sessions
         self._planes: dict = {}
 
+    def _rows(self, planes, b: int) -> tuple:
+        """Band ``b``'s rows of (y, u, v) planes, with any leading axes."""
+        r0, h = b * self.bh, self.bh
+        return (planes[0][..., r0:r0 + h, :], planes[1][..., r0 // 2:(r0 + h) // 2, :],
+                planes[2][..., r0 // 2:(r0 + h) // 2, :])
+
+    def _join(self, fcs: list, j=None) -> tuple:
+        """The bands' reconstructions as one picture's planes (session ``j``
+        of a batched step)."""
+        recs = [fc["recon"] if j is None else tuple(r[j] for r in fc["recon"]) for fc in fcs]
+        return recs[0] if len(recs) == 1 else tuple(torch.cat(p) for p in zip(*recs))
+
     def tick(self, frames: list, want=None) -> dict:
         """frames: (s, i, Frame, BGRx capture, cache key or None) of one
-        tick, at most one a session. Reconstructs every one, the sessions'
-        P frames in one batched step, and entropy-codes those in ``want``
-        (all where None). -> {(s, i): AU bytes}."""
+        tick, at most one a session. Reconstructs every one, band by band,
+        the sessions' P frames of a band in one batched step, and
+        entropy-codes those in ``want`` (all where None). -> {(s, i): AU
+        bytes}."""
         qp, out, batch = self.qp, {}, []
         for s, i, fr, frame, key in frames:
             coded = want is None or (s, i) in want
@@ -74,8 +120,10 @@ class Coder:
                 self.prev[s] = frame.copy()
             if static:
                 if coded:
-                    out[(s, i)] = cavlc.pack_p({"qp": qp}, self.stream, frame_num=fr.frame_num,
-                                               marking=fr.marking, all_skip=True)
+                    out[(s, i)] = b"".join(
+                        cavlc.pack_p({"qp": qp}, self.stream, frame_num=fr.frame_num,
+                                     marking=fr.marking, all_skip=True, first_mb=mb0)
+                        for mb0 in self.first_mb)
                 continue
             planes = self._planes.get(key) if key is not None else None
             if planes is None:
@@ -86,20 +134,25 @@ class Coder:
             if not fr.idr:
                 batch.append((s, i, fr, planes, coded))
                 continue
-            fc = self.enc.encode_idr(*planes, qp)
-            self.refs[s] = fc["recon"]
+            fcs = [self.enc.encode_idr(*self._rows(planes, b), qp) for b in range(self.bands)]
+            self.refs[s] = self._join(fcs)
             if coded:
-                out[(s, i)] = self.headers + cavlc.pack_i(_host(fc), self.stream, frame_num=0,
-                                                          idr_pic_id=fr.idr_pic_id)
+                out[(s, i)] = self.headers + b"".join(
+                    cavlc.pack_i(_host(fc), self.stream, frame_num=0,
+                                 idr_pic_id=fr.idr_pic_id, first_mb=mb0)
+                    for fc, mb0 in zip(fcs, self.first_mb))
         if batch:
             planes = [torch.stack([p[k] for *_, p, _ in batch]) for k in range(3)]
             ref = tuple(torch.stack([self.refs[s][k] for s, *_ in batch]) for k in range(3))
-            fc = self.enc.encode_p(*planes, ref, qp)
-            for b, (s, i, fr, _, coded) in enumerate(batch):
-                self.refs[s] = tuple(r[b] for r in fc["recon"])
+            fcs = [self.enc.encode_p(*self._rows(planes, b), ref, qp, mb_row0=b * self.band_mbh)
+                   for b in range(self.bands)]
+            for j, (s, i, fr, _, coded) in enumerate(batch):
+                self.refs[s] = self._join(fcs, j)
                 if coded:
-                    out[(s, i)] = cavlc.pack_p(_host(fc, b), self.stream, frame_num=fr.frame_num,
-                                               marking=fr.marking)
+                    out[(s, i)] = b"".join(
+                        cavlc.pack_p(_host(fc, j), self.stream, frame_num=fr.frame_num,
+                                     marking=fr.marking, first_mb=mb0)
+                        for fc, mb0 in zip(fcs, self.first_mb))
         return out
 
 
