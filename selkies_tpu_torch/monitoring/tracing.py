@@ -136,7 +136,24 @@ black-box bundles stay greppable). A benchmark metric that reads a name
                   already col-merged on device) + the per-slice host
                   completions, until the multi-slice access unit is
                   assembled in band-row order; selkies_stage_ms stage
-                  "row_gather"
+                  "row_gather"; read by gather_ms.bands4k
+  the band- and tile-sliced encoder's dispatch (parallel/bands.py, *port*):
+    classify, convert, h2d, allskip
+                  as the solo row's: the dirty scan (FramePrep.scan),
+                  BGRx→I420 of the whole frame, the upload of the band
+                  (tile) planes (_put_band_planes), the host's all-skip
+                  AU of an unchanged capture; convert read by
+                  convert_ms.bands4k
+    device-step   the Python issue of the carve's step: the step call,
+                  from just before it (the first-op event included) to
+                  its return
+    step-i, step-p
+                  inside device-step, the IDR or the P step; step-p read
+                  by dispatch_ms.bands4k
+    band-row      inside the step, one band-row's work (a tile grid: the
+                  row's merged vote, its C tiles and its row pack; bands:
+                  one band's body), on the stacked and the mesh steps
+                  alike: R a coded frame, the carve's counter
   session service (parallel/serving.py, parallel/sessions.py):
     convert       per-session BGRx→I420 on the pack pool
     h2d           *port*: put_groups, the upload of the tick's planes
@@ -181,8 +198,10 @@ black-box bundles stay greppable). A benchmark metric that reads a name
   the device track (*port*, tracing on, cards only):
     gpu-step      a device step as the card ran it: the step's first-op
                   timing event to its step-done event (``gpu_mark`` /
-                  ``gpu_span``), at every site of device-step (solo row
-                  and session service); chrome_trace's process 2
+                  ``gpu_span``), at every site of device-step (solo row,
+                  session service, and the band- and tile-sliced encoder,
+                  to band 0's step-done on its first device);
+                  chrome_trace's process 2; read by gpu_step_ms.bands4k
 """
 
 from __future__ import annotations

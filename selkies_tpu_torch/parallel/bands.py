@@ -48,7 +48,13 @@ As JAX's, ``dispatch_frame`` first consults the ``device:<chip>`` fault
 site over ``self.devices`` (``resilience/devhealth.py``), the completion
 opens the ``band_gather`` / ``row_gather``, ``step``, ``fetch``,
 ``unpack`` and ``pack`` spans and records ``selkies_stage_ms``, and
-``device=None`` carves through the device pool.
+``device=None`` carves through the device pool. The port's dispatch adds
+the solo row's ``classify``, ``convert``, ``h2d`` and ``allskip`` spans,
+``device-step`` around the step call with ``step-i`` / ``step-p`` inside
+it, one ``band-row`` span per band-row inside the step, and with tracing
+on a card a ``gpu-step`` device span from the step's first op to band
+0's step-done, which the first device runs after the whole step and
+before any downlink copy (``monitoring/tracing.py``).
 """
 
 from __future__ import annotations
@@ -253,6 +259,12 @@ def partition_devices(n_sessions: int, bands: int, devices=None) -> list[list]:
 # ---------------------------------------------------------------------------
 
 
+def _band_row(body, *args, **kw):
+    """One band's (band-row's) step body under its ``band-row`` span."""
+    with tracer.span("band-row"):
+        return body(*args, **kw)
+
+
 def _band_i_body(y, u, v, qp: int, cap_rows: int):
     out = encode_frame_planes(y, u, v, qp)
     header, buf = pack_i_compact(out)
@@ -336,23 +348,26 @@ def _stacked_tile_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, bands: int, cols
     fused_rows, buf_rows = [], []
     recon = [[None] * c for _ in range(b)]
     for r in range(b):
-        # the row's merged coarse votes: each tile votes over its own
-        # columns plus COARSE_R real downsampled columns each side
-        rd = edge_pad(_downsample4(fy[r * th:(r + 1) * th]), 0, 0, COARSE_R, COARSE_R)
-        votes = sum(coarse_votes(ys[r, k], rd[:, k * twd:(k + 1) * twd + 2 * COARSE_R], COARSE_R)
-                    for k in range(c))
-        coarse = select_coarse(votes)
-        touts = []
-        for k in range(c):
-            sy = py[r * th:(r + 1) * th + 2 * halo, k * tw:(k + 1) * tw + 2 * hc]
-            su = pu[r * cth:(r + 1) * cth + halo, k * ctw:(k + 1) * ctw + 2 * hcc]
-            sv = pv[r * cth:(r + 1) * cth + halo, k * ctw:(k + 1) * ctw + 2 * hcc]
-            out = encode_tile_p_planes(ys[r, k], us[r, k], vs[r, k], sy, su, sv, qp, halo=halo,
-                                       halo_cols=hc, coarse=coarse, defer_skip=True)
-            touts.append(out)
-            recon[r][k] = (out["recon_y"], out["recon_u"], out["recon_v"])
-        row = {key: torch.cat([t[key] for t in touts], dim=1) for key in _ROW_MERGE_KEYS}
-        fused, buf = _row_pack(row, nscap, cap_rows, entropy)
+        with tracer.span("band-row"):
+            # the row's merged coarse votes: each tile votes over its own
+            # columns plus COARSE_R real downsampled columns each side
+            rd = edge_pad(_downsample4(fy[r * th:(r + 1) * th]), 0, 0, COARSE_R, COARSE_R)
+            votes = sum(coarse_votes(ys[r, k], rd[:, k * twd:(k + 1) * twd + 2 * COARSE_R],
+                                     COARSE_R)
+                        for k in range(c))
+            coarse = select_coarse(votes)
+            touts = []
+            for k in range(c):
+                sy = py[r * th:(r + 1) * th + 2 * halo, k * tw:(k + 1) * tw + 2 * hc]
+                su = pu[r * cth:(r + 1) * cth + halo, k * ctw:(k + 1) * ctw + 2 * hcc]
+                sv = pv[r * cth:(r + 1) * cth + halo, k * ctw:(k + 1) * ctw + 2 * hcc]
+                out = encode_tile_p_planes(ys[r, k], us[r, k], vs[r, k], sy, su, sv, qp,
+                                           halo=halo, halo_cols=hc, coarse=coarse,
+                                           defer_skip=True)
+                touts.append(out)
+                recon[r][k] = (out["recon_y"], out["recon_u"], out["recon_v"])
+            row = {key: torch.cat([t[key] for t in touts], dim=1) for key in _ROW_MERGE_KEYS}
+            fused, buf = _row_pack(row, nscap, cap_rows, entropy)
         fused_rows.append(fused)
         buf_rows.append(buf)
     return (torch.stack(fused_rows)[:, None], torch.stack(buf_rows)[:, None],
@@ -370,7 +385,7 @@ def _stacked_tile_i_step(ys, us, vs, qp: int, *, bands: int, cols: int, cap_rows
         gy = ys[r].permute(1, 0, 2).reshape(th, c * tw)
         gu = us[r].permute(1, 0, 2).reshape(th // 2, c * tw // 2)
         gv = vs[r].permute(1, 0, 2).reshape(th // 2, c * tw // 2)
-        prefix, buf, ry_, ru_, rv_ = _band_i_body(gy, gu, gv, qp, cap_rows)
+        prefix, buf, ry_, ru_, rv_ = _band_row(_band_i_body, gy, gu, gv, qp, cap_rows)
         prefixes.append(prefix)
         bufs.append(buf)
         ry.append(torch.stack([ry_[:, k * tw:(k + 1) * tw] for k in range(c)]))
@@ -381,7 +396,7 @@ def _stacked_tile_i_step(ys, us, vs, qp: int, *, bands: int, cols: int, cap_rows
 
 
 def _stacked_i_step(ys, us, vs, qp: int, *, bands: int, cap_rows: int):
-    outs = [_band_i_body(ys[b], us[b], vs[b], qp, cap_rows) for b in range(bands)]
+    outs = [_band_row(_band_i_body, ys[b], us[b], vs[b], qp, cap_rows) for b in range(bands)]
     return tuple(torch.stack([o[k] for o in outs]) for k in range(5))
 
 
@@ -390,8 +405,8 @@ def _stacked_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, bands: int, halo: int
     sy = _stacked_slabs(rys, halo)
     su = _stacked_slabs(rus, halo // 2)
     sv = _stacked_slabs(rvs, halo // 2)
-    outs = [_band_p_body(ys[b], us[b], vs[b], qp, sy[b], su[b], sv[b], halo=halo, nscap=nscap,
-                         cap_rows=cap_rows, entropy=entropy)
+    outs = [_band_row(_band_p_body, ys[b], us[b], vs[b], qp, sy[b], su[b], sv[b], halo=halo,
+                      nscap=nscap, cap_rows=cap_rows, entropy=entropy)
             for b in range(bands)]
     return tuple(torch.stack([o[k] for o in outs]) for k in range(5))
 
@@ -464,7 +479,7 @@ def _exchange_cols(planes: list, halo: int, moved=None, stage: str = "halo_cols"
 def _mesh_i_step(ys, us, vs, qp: int, *, cap_rows: int):
     """Band IDR on the mesh: each band's I body on its own device; lists of
     per-band (prefix, buf, ry, ru, rv), each on its band's device."""
-    outs = [_band_i_body(y, u, v, qp, cap_rows) for y, u, v in zip(ys, us, vs)]
+    outs = [_band_row(_band_i_body, y, u, v, qp, cap_rows) for y, u, v in zip(ys, us, vs)]
     return tuple([o[k] for o in outs] for k in range(5))
 
 
@@ -475,8 +490,8 @@ def _mesh_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, halo: int, nscap: int, c
     sy = _exchange_rows(rys, halo, moved)
     su = _exchange_rows(rus, halo // 2, moved)
     sv = _exchange_rows(rvs, halo // 2, moved)
-    outs = [_band_p_body(ys[b], us[b], vs[b], qp, sy[b], su[b], sv[b], halo=halo, nscap=nscap,
-                         cap_rows=cap_rows, entropy=entropy)
+    outs = [_band_row(_band_p_body, ys[b], us[b], vs[b], qp, sy[b], su[b], sv[b], halo=halo,
+                      nscap=nscap, cap_rows=cap_rows, entropy=entropy)
             for b in range(len(ys))]
     return tuple([o[k] for o in outs] for k in range(5))
 
@@ -509,22 +524,25 @@ def _mesh_tile_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, halo: int, halo_col
     fused_rows, buf_rows = [], []
     recon = [[None] * cols for _ in range(rows)]
     for r in range(rows):
-        dev0 = ys[r][0].device
-        rd = _exchange_cols([_downsample4(t) for t in rys[r]], COARSE_R, moved, "coarse_cols")
-        votes = sum(_gather(coarse_votes(ys[r][c], rd[c], COARSE_R), c, dev0, moved, "votes")
-                    for c in range(cols))
-        coarse = select_coarse(votes)
-        touts = []
-        for c in range(cols):
-            out = encode_tile_p_planes(
-                ys[r][c], us[r][c], vs[r][c], *slabs[r][c], qp, halo=halo, halo_cols=hc,
-                coarse=_gather(coarse, c, ys[r][c].device, moved, "coarse"), defer_skip=True)
-            touts.append(out)
-            recon[r][c] = (out["recon_y"], out["recon_u"], out["recon_v"])
-        row = {key: torch.cat([_gather(t[key], c, dev0, moved, "row_gather")
-                               for c, t in enumerate(touts)], dim=1)
-               for key in _ROW_MERGE_KEYS}
-        fused, buf = _row_pack(row, nscap, cap_rows, entropy)
+        with tracer.span("band-row"):
+            dev0 = ys[r][0].device
+            rd = _exchange_cols([_downsample4(t) for t in rys[r]], COARSE_R, moved,
+                                "coarse_cols")
+            votes = sum(_gather(coarse_votes(ys[r][c], rd[c], COARSE_R), c, dev0, moved, "votes")
+                        for c in range(cols))
+            coarse = select_coarse(votes)
+            touts = []
+            for c in range(cols):
+                out = encode_tile_p_planes(
+                    ys[r][c], us[r][c], vs[r][c], *slabs[r][c], qp, halo=halo, halo_cols=hc,
+                    coarse=_gather(coarse, c, ys[r][c].device, moved, "coarse"),
+                    defer_skip=True)
+                touts.append(out)
+                recon[r][c] = (out["recon_y"], out["recon_u"], out["recon_v"])
+            row = {key: torch.cat([_gather(t[key], c, dev0, moved, "row_gather")
+                                   for c, t in enumerate(touts)], dim=1)
+                   for key in _ROW_MERGE_KEYS}
+            fused, buf = _row_pack(row, nscap, cap_rows, entropy)
         fused_rows.append(fused)
         buf_rows.append(buf)
     return (fused_rows, buf_rows,
@@ -541,7 +559,7 @@ def _mesh_tile_i_step(ys, us, vs, qp: int, *, grid: list, cap_rows: int, tile_w:
     bytes."""
     prefixes, bufs, recon = [], [], ([], [], [])
     for r, row_devs in enumerate(grid):
-        prefix, buf, *rec = _band_i_body(ys[r], us[r], vs[r], qp, cap_rows)
+        prefix, buf, *rec = _band_row(_band_i_body, ys[r], us[r], vs[r], qp, cap_rows)
         prefixes.append(prefix)
         bufs.append(buf)
         for i, (plane, w) in enumerate(zip(rec, (tile_w, tile_w // 2, tile_w // 2))):
@@ -937,10 +955,13 @@ class TorchBandedH264Encoder:
                or (self.keyframe_interval > 0
                    and self._frames_since_idr >= self.keyframe_interval))
         scan = self._prep.scan(frame, self.width, damage=damage)
+        t_s = time.perf_counter()
+        tracer.record("classify", t0, t_s)
         static = not idr and scan is not None and not scan.tiles.any()
-        classify_ms = (time.perf_counter() - t0) * 1e3
+        classify_ms = (t_s - t0) * 1e3
         if static:
-            au = self._allskip_au(self._frames_since_idr % 256)
+            with tracer.span("allskip"):
+                au = self._allskip_au(self._frames_since_idr % 256)
             pending = _PendingFrame(idr=False, static_au=au)
             pending.static_stats = FrameStats(
                 frame_index=self.frame_index, idr=False, qp=self.qp, bytes=len(au),
@@ -952,18 +973,31 @@ class TorchBandedH264Encoder:
         t_c0 = time.perf_counter()
         y, u, v = self._prep.convert(frame)
         t_h0 = time.perf_counter()
+        tracer.record("convert", t_c0, t_h0)
         parts = self._put_band_planes(y, u, v, idr)
         t_up = time.perf_counter()
+        tracer.record("h2d", t_h0, t_up)
         try:
+            # with tracing on, the step's first-op event on the first device
+            mark = tracer.gpu_mark(self.device)
             if idr:
-                prefix_d, buf_d, ry, ru, rv = self._step_i(*parts, self.qp)
+                with tracer.span("step-i"):
+                    prefix_d, buf_d, ry, ru, rv = self._step_i(*parts, self.qp)
             else:
-                prefix_d, buf_d, ry, ru, rv = self._step_p(*parts, self.qp, *self._ref)
+                with tracer.span("step-p"):
+                    prefix_d, buf_d, ry, ru, rv = self._step_p(*parts, self.qp, *self._ref)
+            tracer.record("device-step", t_up)
             self._ref = (ry, ru, rv)
             # hint-sized prefixes, their copies enqueued right behind the step
             full_h = self._band_handles(prefix_d)
             hint = self._pfx_total if idr else self._pfx_slice_len()
-            fetches = [_Fetch(h if hint >= self._pfx_total else h[..., :hint]) for h in full_h]
+            # the gpu-step ends at band 0's step-done: band 0 is on the first
+            # device, and its step-done follows the whole step there and
+            # precedes every downlink copy (a later band's waits behind the
+            # earlier bands' copies)
+            fetches = [_Fetch(h if hint >= self._pfx_total else h[..., :hint],
+                              mark if b == 0 else None)
+                       for b, h in enumerate(full_h)]
         except Exception:
             # the client never gets this frame: restart from an IDR
             self._ref = None

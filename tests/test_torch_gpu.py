@@ -1307,6 +1307,55 @@ def test_gpu_steps_hold_the_profilers_kernels(row, hooks_on):
     assert all(abs(h) <= 5e-4 and abs(t) <= 5e-4 for h, t in ends), ends
 
 
+def _grid_frames(n, seed=9):
+    """4K frames of full motion: a random world panned 24 px a frame."""
+    rng = np.random.default_rng(seed)
+    world = rng.integers(0, 256, (2160, 3840 + 24 * n, 4), np.uint8)
+    return [np.ascontiguousarray(world[:, 24 * i:24 * i + 3840]) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_grid_gpu_steps_one_per_coded_frame_inside_their_device_steps(hooks_on):
+    """The stacked 3x2 grid at 4K with the tracer on: one gpu-step a coded
+    frame (none for an unchanged capture), each starting inside its
+    frame's device-step on the host clock and ending before the frame's
+    AU is back; three band-row spans a coded frame."""
+    _need_card()
+    import time
+
+    from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
+
+    tracer, _ = hooks_on
+    frames = _grid_frames(7)
+    enc = TorchBandedH264Encoder(3840, 2160, qp=28, bands=3, cols=2, device="cuda")
+    try:
+        for f in frames[:2]:  # warm-up, and the card's first anchor
+            enc.encode_frame(f)
+        tracer.reset()
+        plan = [(frames[2], False), (frames[3], False), (frames[3].copy(), False),
+                (frames[4], True), (frames[5], False), (frames[6], False)]
+        ends = []
+        for f, idr in plan:
+            if idr:
+                enc.force_keyframe()
+            enc.encode_frame(f)
+            ends.append(time.perf_counter())
+    finally:
+        enc.close()
+    coded = len(plan) - 1
+    spans = {k: v["count"] for k, v in tracer.summary().items()}
+    assert spans["device-step"] == spans["gpu-step"] == coded
+    assert spans["band-row"] == 3 * coded and (spans["step-i"], spans["step-p"]) == (1, 4)
+    with tracer._lock:
+        steps = sorted((tracer._epoch + rel, tracer._epoch + rel + dur)
+                       for n, rel, dur, _ in tracer._ring if n == "device-step")
+    gpu = sorted((t0, t1) for n, t0, t1, _ in tracer.device_spans() if n == "gpu-step")
+    done = [t for k, t in enumerate(ends) if k != 2]  # the unchanged capture has no step
+    for (s0, s1), (g0, g1), t_au in zip(steps, gpu, done):
+        assert s0 - 5e-4 <= g0 <= s1 + 5e-4, (s0, s1, g0)
+        assert g0 < g1 <= t_au + 5e-4, (g0, g1, t_au)
+
+
 @pytest.mark.gpu
 def test_refetch_after_an_event_never_syncs():
     """sparse_complete.host(t, after): the copy runs on a side stream behind

@@ -476,9 +476,14 @@ def test_banded_hooks_match_jax():
     got = _drive_banded(TorchBandedH264Encoder(W, H, bands=2, device="cpu"), frames)
     assert got == want
     spans = _spans(PORT)
-    assert spans == _spans(JAX)
+    own = _split_names(spans, _spans(JAX))
     coded = len(frames) - 1  # one static repeat
     assert spans["band_gather"] == coded and spans["step"] == spans["fetch"] == 2 * coded
+    # the port's dispatch: the front end, the step's issue (the IDR branch
+    # once, the P branch on every other coded frame) and a span per band
+    assert own == {"classify": len(frames), "allskip": 1, "convert": coded, "h2d": coded,
+                   "device-step": coded, "step-i": 1, "step-p": coded - 1,
+                   "band-row": 2 * coded}
     stages = _stage_counts(PORT)
     assert stages == _stage_counts(JAX)
     assert stages == {"stage=band_gather,session=0": coded, "stage=step,session=0": 2 * coded}

@@ -290,3 +290,80 @@ def test_grid_env_owns_the_carve(monkeypatch):
     enc = TorchBandedH264Encoder(W, H, bands=1, cols=2, halo=24, device="cpu")
     assert (enc.halo, enc.halo_cols) == (0, 16)
     enc.close()
+
+
+# -- the carve's spans ------------------------------------------------------
+
+
+def _carve_trace(w=96, h=144, seed=23):
+    """An IDR, two P frames panning across the band and tile seams, an
+    unchanged capture and a forced IDR."""
+    rng = np.random.default_rng(seed)
+    f0 = rng.integers(0, 256, (h, w, 4), np.uint8)
+    f1 = np.roll(f0, (7, -5), (0, 1)).copy()
+    f2 = np.roll(f1, (-3, 9), (0, 1)).copy()
+    return [(f0, None), (f1, None), (f2, None), (f2.copy(), None), (f1, "idr")]
+
+
+def _drive_carve(frames, mesh=False):
+    carve = {"devices": ["cpu"] * 6} if mesh else {"device": "cpu"}
+    enc = TorchBandedH264Encoder(96, 144, qp=QP, bands=3, cols=2, **carve)
+    try:
+        assert (enc.bands, enc.cols, enc.mesh_enabled) == (3, 2, mesh)
+        aus = []
+        for f, op in frames:
+            if op == "idr":
+                enc.force_keyframe()
+            aus.append(enc.encode_frame(f))
+        return aus
+    finally:
+        enc.close()
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["stacked", "mesh"])
+def test_grid_dispatch_records_the_carves_spans(mesh):
+    """The 3x2 grid at 96x144 with the tracer on, its steps stacked or on a
+    mesh of one device listed six times: the front end's spans on every
+    frame (convert and h2d on coded ones), one device-step a coded frame
+    with its branch's step-i or step-p inside, and three band-row spans
+    (one a band-row) a coded frame; on the CPU no device span."""
+    from selkies_tpu_torch.monitoring.tracing import tracer
+
+    frames = _carve_trace()
+    tracer.reset()
+    tracer.enable()
+    try:
+        _drive_carve(frames, mesh)
+        spans = {k: v["count"] for k, v in tracer.summary().items()}
+        ring = [(n, t0, t0 + d) for n, t0, d, _ in tracer._ring]
+    finally:
+        tracer.disable()
+        tracer.reset()
+    coded = len(frames) - 1
+    assert {k: spans.get(k) for k in ("classify", "allskip", "convert", "h2d", "device-step",
+                                      "step-i", "step-p", "band-row", "row_gather")} == {
+        "classify": 5, "allskip": 1, "convert": coded, "h2d": coded, "device-step": coded,
+        "step-i": 2, "step-p": 2, "band-row": 3 * coded, "row_gather": coded}
+    assert "gpu-step" not in spans and tracer.device_spans() == []
+    # each branch span and its band-rows lie inside their device-step
+    steps = [(a, b) for n, a, b in ring if n == "device-step"]
+    for n, a, b in ring:
+        if n in ("step-i", "step-p", "band-row"):
+            assert sum(1 for s0, s1 in steps if s0 <= a and b <= s1) == 1, n
+
+
+def test_grid_aus_are_the_same_with_tracing_on_and_off():
+    from selkies_tpu_torch.monitoring.tracing import tracer
+
+    frames = _carve_trace(seed=24)
+    tracer.reset()
+    off = _drive_carve(frames)
+    assert tracer.summary() == {}
+    tracer.enable()
+    try:
+        on = _drive_carve(frames)
+    finally:
+        tracer.disable()
+        tracer.reset()
+    assert on == off
+    assert [len(_split_nals(au)) for au in on] == [5, 3, 3, 3, 5]
