@@ -1,18 +1,32 @@
 """ctypes binding for the repo's C++ CAVLC packer (``native/cavlc_pack.cc``)
 and CABAC arithmetic engine (``native/cabac_pack.cc``).
 
-The port builds ``native/cavlc_pack.cc`` + ``native/cabac_pack.cc`` with
-``g++`` at first use into ``build/torch_kernels/`` (see
-``selkies_tpu_torch.utils.build``); it never runs ``make`` inside
-``native/``. The packers are byte-identical to the pure-Python ones in
-``cavlc.py`` (tests/test_torch_host.py). A build failure raises: there
-is no quiet fallback to the Python packer.
+The port builds ``csrc/cavlc_rows.cc`` (which compiles
+``native/cavlc_pack.cc`` into its own unit and adds the row-chunk entries)
++ ``native/cabac_pack.cc`` with ``g++`` at first use into
+``build/torch_kernels/`` (see ``selkies_tpu_torch.utils.build``); it never
+runs ``make`` inside ``native/``. The packers are byte-identical to the
+pure-Python ones in ``cavlc.py`` (tests/test_torch_host.py). A build
+failure raises: there is no quiet fallback to the Python packer.
 
-``calls`` counts native packer calls, so a run can show that the native
-packer (and not the Python oracle) packed its slices; ``sparse_calls``
-counts the sparse-wire P packer (``pack_slice_p_sparse_native``) alone,
-and ``cabac_calls`` the CABAC arithmetic engine (``cabac_encode_tokens``),
-which every CABAC slice goes through.
+An I slice of at least ``_SPLIT_MIN_MBS`` MBs is packed as K MB-row
+chunks at once, K = min(cores, MB rows // 4, 16), on a pool of this
+module's own (``_row_pool``: created on first use, one thread a core;
+its tasks wait on nothing, so a pack already running on another pool
+can wait on them): each chunk rebuilds the TotalCoeff counts of the row
+above it and codes its rows into its own bits (``pack_mb_rows_bits``),
+and ``splice_bits`` joins the header and the chunks in order. The slice
+is the single pass's bit for bit; emulation prevention runs once over
+the spliced RBSP, since it reads across the seams. Smaller slices (and
+K < 2) keep the single ``pack_slice_rbsp`` call.
+
+``calls`` counts native packer calls (one a slice, split or not), so a
+run can show that the native packer (and not the Python oracle) packed
+its slices; ``sparse_calls`` counts the sparse-wire P packer
+(``pack_slice_p_sparse_native``) alone, ``cabac_calls`` the CABAC
+arithmetic engine (``cabac_encode_tokens``), which every CABAC slice goes
+through, ``split_calls`` the I slices packed as row chunks and
+``row_chunks`` the chunks they were cut into.
 The encoder's completion workers pack on several threads at once (ctypes
 releases the GIL), so the counts advance under a lock.
 """
@@ -20,7 +34,9 @@ releases the GIL), so the counts advance under a lock.
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -37,22 +53,31 @@ from selkies_tpu_torch.utils.bits import BitWriter
 from selkies_tpu_torch.utils.build import REPO_ROOT, BuildResult, build_shared
 
 _NATIVE_DIR = REPO_ROOT / "native"
-_SOURCES = [_NATIVE_DIR / "cavlc_pack.cc", _NATIVE_DIR / "cabac_pack.cc"]
-_HEADERS = (_NATIVE_DIR / "cavlc_tables.h",)
+_SOURCES = [REPO_ROOT / "selkies_tpu_torch" / "csrc" / "cavlc_rows.cc",
+            _NATIVE_DIR / "cabac_pack.cc"]
+_HEADERS = (_NATIVE_DIR / "cavlc_pack.cc", _NATIVE_DIR / "cavlc_tables.h")
 _COMMAND = ["g++", "-O2", "-Wall", "-fPIC", "-std=c++17", "-shared",
             f"-I{_NATIVE_DIR}"]
 
 calls = 0  # native slice packs (all three packers)
 sparse_calls = 0  # pack_slice_p_sparse_native packs
 cabac_calls = 0  # cabac_encode_tokens runs
+split_calls = 0  # I slices packed as MB-row chunks
+row_chunks = 0  # the chunks of those slices
+
+# an I slice this large is split: below it the fan-out costs what it saves
+_SPLIT_MIN_MBS = 1000
+_MAX_CHUNKS = 16
 
 _lib: ctypes.CDLL | None = None
 _build: BuildResult | None = None
+_pool: ThreadPoolExecutor | None = None
 _load_lock = threading.Lock()
 _count_lock = threading.Lock()
 
 _I16P = ctypes.POINTER(ctypes.c_int16)
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
@@ -76,6 +101,18 @@ def _load() -> ctypes.CDLL:
                 _I16P, _I16P, _I16P, _I16P, _I16P, _I16P,
                 ctypes.c_int, ctypes.c_int,
                 _U8P, ctypes.c_int64, _I32P, _I32P,
+            ]
+            lib.pack_mb_rows_bits.restype = ctypes.c_int64
+            lib.pack_mb_rows_bits.argtypes = [
+                ctypes.c_int, ctypes.c_int,
+                _I16P, _I16P, _I16P, _I16P, _I16P, _I16P,
+                ctypes.c_int, ctypes.c_int,
+                _U8P, ctypes.c_int64, _I32P, _I32P,
+            ]
+            lib.splice_bits.restype = ctypes.c_int64
+            lib.splice_bits.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(_U8P), _I64P, ctypes.c_int,
+                _U8P, ctypes.c_int64,
             ]
             lib.pack_slice_p_rbsp.restype = ctypes.c_int64
             lib.pack_slice_p_rbsp.argtypes = [
@@ -105,12 +142,15 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
-def _count(sparse: bool = False) -> None:
-    global calls, sparse_calls
+def _count(sparse: bool = False, chunks: int = 0) -> None:
+    global calls, sparse_calls, split_calls, row_chunks
     with _count_lock:
         calls += 1
         if sparse:
             sparse_calls += 1
+        if chunks:
+            split_calls += 1
+            row_chunks += chunks
 
 
 def _count_cabac() -> None:
@@ -162,10 +202,39 @@ def _finish_nal(rbsp: np.ndarray, n: int, nal_type: int) -> bytes:
     return b"\x00\x00\x00\x01" + bytes([(3 << 5) | nal_type]) + ebsp[:m].tobytes()
 
 
+def _cores() -> int:
+    return os.cpu_count() or 1
+
+
+def _chunk_count(mbh: int, mbw: int) -> int | None:
+    """The row chunks an I slice of mbh x mbw MBs is packed as; None for
+    the single call (a small slice, or fewer than two chunks)."""
+    k = min(_cores(), mbh // 4, _MAX_CHUNKS)
+    return k if mbh * mbw >= _SPLIT_MIN_MBS and k >= 2 else None
+
+
+def _row_pool() -> ThreadPoolExecutor:
+    global _pool
+    if _pool is None:
+        with _load_lock:
+            if _pool is None:
+                _pool = ThreadPoolExecutor(max_workers=_cores(), thread_name_prefix="cavlc-rows")
+    return _pool
+
+
 def pack_slice_fast(fc: FrameCoeffs, p: StreamParams, frame_num: int = 0,
                     idr: bool = True, idr_pic_id: int = 0, first_mb: int = 0) -> bytes:
     """I slice NAL; byte-identical to cavlc.pack_slice (the JAX package's
-    ``native.pack_slice_fast`` signature; the port always packs natively)."""
+    ``native.pack_slice_fast`` signature; the port always packs natively).
+    A large slice is packed as MB-row chunks (module docstring)."""
+    mbh, mbw = fc.luma_mode.shape
+    return _pack_slice_i(fc, p, frame_num, idr, idr_pic_id, first_mb, _chunk_count(mbh, mbw))
+
+
+def _pack_slice_i(fc: FrameCoeffs, p: StreamParams, frame_num: int, idr: bool,
+                  idr_pic_id: int, first_mb: int, chunks: int | None) -> bytes:
+    """pack_slice_fast with the chunk count given: None packs the slice in
+    one ``pack_slice_rbsp`` call, k >= 1 as k MB-row chunks, spliced."""
     lib = _load()
     mbh, mbw = fc.luma_mode.shape
     hdr = BitWriter()
@@ -175,6 +244,11 @@ def pack_slice_fast(fc: FrameCoeffs, p: StreamParams, frame_num: int = 0,
     arrs = [np.ascontiguousarray(getattr(fc, name), dtype=np.int16)
             for name in ("luma_mode", "chroma_mode", "luma_dc", "luma_ac",
                          "chroma_dc", "chroma_ac")]
+    nal_type = NAL_SLICE_IDR if idr else NAL_SLICE_NON_IDR
+    if chunks is not None:
+        rbsp, n = _pack_rows_spliced(arrs, hdr_bytes, hdr_bits, mbh, mbw, chunks)
+        _count(chunks=chunks)
+        return _finish_nal(rbsp, n, nal_type)
     cap = mbh * mbw * 1024 + len(hdr_bytes) + 1024
     while True:
         s = _scratch(mbh, mbw, cap)
@@ -188,7 +262,50 @@ def pack_slice_fast(fc: FrameCoeffs, p: StreamParams, frame_num: int = 0,
         if cap > (1 << 30):
             raise RuntimeError("pack_slice_rbsp overflow beyond 1 GiB")
     _count()
-    return _finish_nal(s["rbsp"], n, NAL_SLICE_IDR if idr else NAL_SLICE_NON_IDR)
+    return _finish_nal(s["rbsp"], n, nal_type)
+
+
+def _pack_rows(arrs: list[np.ndarray], r0: int, r1: int, mbh: int,
+               mbw: int) -> tuple[np.ndarray, int]:
+    """MB rows [r0, r1) of an I slice as bits: (buffer, bit length)."""
+    lib = _load()
+    rows = r1 - r0 + (1 if r0 else 0)
+    luma_tc = np.empty(rows * 4 * mbw * 4, np.int32)
+    chroma_tc = np.empty(2 * rows * 2 * mbw * 2, np.int32)
+    cap = (r1 - r0) * mbw * 1024 + 64
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.pack_mb_rows_bits(r0, r1, *(_ptr(a, _I16P) for a in arrs), mbh, mbw,
+                                  _ptr(out, _U8P), cap, _ptr(luma_tc, _I32P),
+                                  _ptr(chroma_tc, _I32P))
+        if n >= 0:
+            return out, n
+        if n == -2:
+            raise ValueError(f"bad MB row range [{r0}, {r1}) of {mbh} rows")
+        cap *= 2
+        if cap > (1 << 30):
+            raise RuntimeError("pack_mb_rows_bits overflow beyond 1 GiB")
+
+
+def _pack_rows_spliced(arrs: list[np.ndarray], hdr_bytes: bytes, hdr_bits: int,
+                       mbh: int, mbw: int, chunks: int) -> tuple[np.ndarray, int]:
+    """The slice RBSP from ``chunks`` MB-row chunks packed on the row pool:
+    (buffer, byte length)."""
+    if not 1 <= chunks <= mbh:
+        raise ValueError(f"{chunks} chunks for {mbh} MB rows")
+    bounds = [mbh * k // chunks for k in range(chunks + 1)]
+    futures = [_row_pool().submit(_pack_rows, arrs, r0, r1, mbh, mbw)
+               for r0, r1 in zip(bounds, bounds[1:])]
+    parts = [f.result() for f in futures]
+    nbits = np.array([n for _, n in parts], np.int64)
+    ptrs = (_U8P * chunks)(*(_ptr(buf, _U8P) for buf, _ in parts))
+    cap = (hdr_bits + int(nbits.sum())) // 8 + 16
+    rbsp = np.empty(cap, np.uint8)
+    n = _load().splice_bits(hdr_bytes, hdr_bits, ptrs, _ptr(nbits, _I64P), chunks,
+                            _ptr(rbsp, _U8P), cap)
+    if n < 0:
+        raise RuntimeError("splice_bits overflow")
+    return rbsp, n
 
 
 def pack_slice_p_fast(fc: PFrameCoeffs, p: StreamParams, frame_num: int,

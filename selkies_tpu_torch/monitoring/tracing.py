@@ -170,6 +170,11 @@ black-box bundles stay greppable). A benchmark metric that reads a name
                   minus the host's record of it (near 0: the card waits
                   on the Python issue; large: the card is behind); read
                   by device_tail_ms.sessions8
+    (stamp)       last_timing["idr_pack_ms"], *port*: on a tick with an
+                  IDR, the longest host CAVLC pack of an IDR session
+                  (_pack_one, on the pool; the slice's MB-row chunks
+                  and their splice included); read by
+                  idr_pack_ms.sessions8
   occupancy scheduler (parallel/occupancy.py):
     unit-dispatch *port*: one unit's dispatch on the lane (one span per
                   unit and tick)

@@ -119,7 +119,8 @@ class TorchMultiSessionH264Service:
     device, stepped there and fetched from there. ``self.devices`` lists
     the groups' devices, which the ``device:<chip>`` fault site checks each
     tick. ``last_timing`` holds the last completed tick's host-clock split
-    in ms."""
+    in ms; on a tick with an IDR, ``idr_pack_ms`` is its longest IDR pack
+    (timed in ``_pack_one``)."""
 
     def __init__(self, n_sessions: int, width: int, height: int, *,
                  qp: int = 28, fps: int = 60, device=None, devices=None):
@@ -149,6 +150,8 @@ class TorchMultiSessionH264Service:
         self._uploaded: list = [None] * len(self.enc.groups)
         self._inflight = 0
         self.last_timing: dict = {}
+        # the tick's IDR packs' times, appended by the pool's workers
+        self._idr_pack_ms: list[float] = []
         # the devices of the device:<chip> fault site
         self.devices = list(self.enc.devices)
 
@@ -233,6 +236,7 @@ class TorchMultiSessionH264Service:
                 step_ms, fetch_ms = max(step_ms, g_step), fetch_ms + g_fetch
                 down += arr.nbytes
         idrs = pending.idrs
+        self._idr_pack_ms = []
         t0 = time.perf_counter()
         with tracer.span("pack"):
             futures = [self._pool.submit(self._pack_one, g.lo + j, hosts[k], j,
@@ -243,6 +247,8 @@ class TorchMultiSessionH264Service:
             "convert_ms": pending.convert_ms, "h2d_ms": pending.h2d_ms,
             "dispatch_ms": pending.dispatch_ms, "step_ms": step_ms, "fetch_ms": fetch_ms,
             "pack_ms": (time.perf_counter() - t0) * 1e3, "down_bytes": int(down)}
+        if self._idr_pack_ms:
+            self.last_timing["idr_pack_ms"] = max(self._idr_pack_ms)
         tails = [f.tail_ms for f in pending.fetches]
         if tails and None not in tails:
             # tracing on, on a card: how far behind the host's record of
@@ -262,6 +268,7 @@ class TorchMultiSessionH264Service:
         """Session ``i``'s AU from row ``j`` of its group's fetched fields."""
         s = self.sessions[i]
         if idr:
+            t0 = time.perf_counter()
             fc = FrameCoeffs(
                 luma_mode=host["luma_mode"][j], chroma_mode=host["chroma_mode"][j],
                 luma_dc=host["luma_dc"][j], luma_ac=host["luma_ac"][j],
@@ -270,6 +277,7 @@ class TorchMultiSessionH264Service:
             )
             nal = pack_slice_fast(fc, self.params, frame_num=0, idr=True,
                                   idr_pic_id=s.idr_pic_id)
+            self._idr_pack_ms.append((time.perf_counter() - t0) * 1e3)
             return self._headers + nal
         pfc = PFrameCoeffs(
             mvs=host["mvs"][j], skip=host["skip"][j] != 0, luma_ac=host["luma_ac"][j],

@@ -1006,6 +1006,37 @@ def test_service_cuda_matches_cpu():
     assert got == want
 
 
+@pytest.mark.gpu
+def test_service_mixed_tick_splits_the_idr_pack(monkeypatch):
+    """8 sessions at 1080p: a mixed tick packs its IDR as MB-row chunks
+    (one split slice), whose AU equals a single-call pack of the same
+    fetched coefficients, and stamps last_timing["idr_pack_ms"]."""
+    _need_card()
+    from selkies_tpu_torch.parallel import serving
+
+    packed = []
+
+    def pack(fc, p, frame_num=0, idr=True, idr_pic_id=0, first_mb=0):
+        packed.append((fc, p, frame_num, idr, idr_pic_id, first_mb))
+        return native.pack_slice_fast(fc, p, frame_num, idr, idr_pic_id, first_mb)
+
+    monkeypatch.setattr(serving, "pack_slice_fast", pack)
+    trace = _session_trace(8, 1088, 1920, ticks=3)
+    svc = serving.TorchMultiSessionH264Service(8, 1920, 1088, device="cuda")
+    for batch in trace[:2]:  # every session's IDR, then a P tick
+        svc.encode_tick(batch)
+    assert "idr_pack_ms" not in svc.last_timing
+    packed.clear()
+    splits = native.split_calls
+    svc.force_keyframe(3)
+    aus = svc.encode_tick(trace[2])
+    svc.close()
+    assert native.split_calls == splits + 1 and len(packed) == 1
+    single = svc._headers + native._pack_slice_i(*packed[0], None)
+    assert hashlib.sha256(aus[3]).hexdigest() == hashlib.sha256(single).hexdigest()
+    assert svc.last_timing["idr_pack_ms"] > 0
+
+
 def _service_dispatch_never_syncs():
     """dispatch_tick (conversion, the pinned upload, the mixed step and its
     downlink copy) makes no synchronising CUDA call: torch's sync debug

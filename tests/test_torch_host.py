@@ -7,6 +7,7 @@ from __future__ import annotations
 import ast
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -85,6 +86,116 @@ def test_native_binding_equals_python_packer(qp):
         tcavlc.pack_slice(fc, p, frame_num=0, idr=True, idr_pic_id=1)
     assert native.pack_slice_p_fast(pfc, p, frame_num=3) == tcavlc.pack_slice_p(pfc, p, 3)
     assert native.calls == before + 2
+
+
+def _wild_i_coeffs(mbh, mbw, seed, seams=(), qp=28):
+    """Random Intra16x16 levels that reach CAVLC's corners: blocks dense
+    enough for their neighbours' nC to reach 8 and beyond, levels past
+    WriteLevel's escape prefixes (16 and above), MBs with DC only; in the
+    MB rows on both sides of each seam, every other MB has no luma AC
+    (cbp_luma 0; the MBs alternate from row to row) and every third no
+    chroma AC."""
+    rng = np.random.default_rng(seed)
+
+    def levels(shape, dense):
+        u = rng.random(shape)
+        return np.where(u < 0.01, rng.integers(-8000, 8001, shape),
+                        np.where(u < dense, rng.integers(-40, 41, shape),
+                                 np.where(u < 2 * dense, rng.integers(-1, 2, shape), 0)))
+
+    dense = rng.choice([0.0, 0.05, 0.3, 0.5], (mbh, mbw))
+    luma_ac = levels((mbh, mbw, 4, 4, 4, 4), dense[:, :, None, None, None, None])
+    chroma_ac = levels((mbh, mbw, 2, 2, 2, 4, 4), dense[:, :, None, None, None, None, None] / 2)
+    for r in {r for s in seams for r in (s - 1, s)}:
+        luma_ac[r, r % 2::2] = 0
+        chroma_ac[r, ::3] = 0
+    return ref_np.FrameCoeffs(
+        luma_mode=rng.integers(0, 4, (mbh, mbw)), chroma_mode=rng.integers(0, 4, (mbh, mbw)),
+        luma_dc=levels((mbh, mbw, 4, 4), 0.4), luma_ac=luma_ac,
+        chroma_dc=levels((mbh, mbw, 2, 2, 2), 0.3), chroma_ac=chroma_ac, qp=qp)
+
+
+def _split_counts():
+    return native.calls, native.split_calls, native.row_chunks
+
+
+# name -> (mbh, mbw, chunks, first_mb, idr); chunks None: one row per chunk
+_SPLIT_CASES = {
+    "one-chunk": (6, 5, 1, 0, True),
+    "two": (6, 5, 2, 0, True),
+    "three-odd-rows": (7, 5, 3, 0, True),
+    "a-row-each-non-idr": (7, 4, None, 0, False),
+    "band-three": (9, 6, 3, 54, True),
+    "band-two-non-idr": (5, 3, 2, 15, False),
+    "one-column-a-row-each": (5, 1, None, 0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_SPLIT_CASES))
+def test_split_i_slice_equals_the_single_pass(case):
+    """An I slice packed as MB-row chunks and spliced equals
+    pack_slice_rbsp's single call and the Python packer; a slice this small
+    takes the single call through pack_slice_fast."""
+    mbh, mbw, chunks, first_mb, idr = _SPLIT_CASES[case]
+    chunks = chunks or mbh
+    seams = [mbh * k // chunks for k in range(1, chunks)]
+    fc = _wild_i_coeffs(mbh, mbw, seed=len(case), seams=seams)
+    p = tbs.StreamParams(width=mbw * 16, height=(mbh + first_mb // mbw) * 16)
+    want = tcavlc.pack_slice(fc, p, frame_num=3, idr=idr, idr_pic_id=1, first_mb=first_mb)
+    calls, splits, chunked = _split_counts()
+    assert native.pack_slice_fast(fc, p, 3, idr, 1, first_mb) == want
+    assert _split_counts() == (calls + 1, splits, chunked)
+    assert native._pack_slice_i(fc, p, 3, idr, 1, first_mb, chunks) == want
+    assert _split_counts() == (calls + 2, splits + 1, chunked + chunks)
+    # levels reach an escape prefix of 16 and above, and blocks nC >= 8
+    assert max(np.abs(getattr(fc, k)).max() for k in ("luma_dc", "luma_ac", "chroma_ac")) > 4096
+    ac = np.count_nonzero(fc.luma_ac.reshape(mbh, mbw, 16, 16)[..., 1:], axis=-1)
+    assert (ac >= 8).any()
+
+
+# name -> (mbh, mbw, cores, chunks the rule gives; None: the single call)
+_RULE_CASES = {
+    "1080p-8-cores": (68, 120, 8, 8),
+    "1080p-many-cores": (68, 120, 64, 16),
+    "4k-band": (45, 240, 8, 8),
+    "short-wide": (9, 120, 8, 2),
+    "under-1000-mbs": (7, 120, 8, None),
+    "one-core": (40, 25, 1, None),
+    "three-rows": (3, 400, 8, None),
+}
+
+
+@pytest.mark.parametrize("case", list(_RULE_CASES))
+def test_i_slice_split_follows_the_rule(case, monkeypatch):
+    """pack_slice_fast splits an I slice of 1000 MBs or more into
+    min(cores, MB rows // 4, 16) chunks when that is 2 or more, and gives
+    the single call's bytes either way."""
+    mbh, mbw, cores, chunks = _RULE_CASES[case]
+    native._row_pool()  # the pool keeps the cores it was made with
+    monkeypatch.setattr(native, "_cores", lambda: cores)
+    fc = _wild_i_coeffs(mbh, mbw, seed=mbh)
+    p = tbs.StreamParams(width=mbw * 16, height=mbh * 16)
+    want = native._pack_slice_i(fc, p, 0, True, 0, 0, None)
+    calls, splits, chunked = _split_counts()
+    assert native.pack_slice_fast(fc, p, 0, True, 0) == want
+    assert _split_counts() == ((calls + 1, splits + 1, chunked + chunks) if chunks
+                               else (calls + 1, splits, chunked))
+
+
+def test_split_packs_from_a_busy_pool_finish():
+    """Eight 1080p IDRs packed at once from an 8-worker pool, as the
+    session service's first tick packs them: every pack's chunks queue on
+    the row pool behind the others' and all finish, with the single call's
+    bytes."""
+    p = tbs.StreamParams(width=1920, height=1088)
+    fcs = [_wild_i_coeffs(68, 120, seed=s) for s in range(8)]
+    want = [native._pack_slice_i(fc, p, 0, True, 0, 0, None) for fc in fcs]
+    splits = native.split_calls
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        futures = [pool.submit(native._pack_slice_i, fc, p, 0, True, 0, 0, 8) for fc in fcs]
+        got = [f.result(timeout=120) for f in futures]
+    assert got == want
+    assert native.split_calls == splits + 8
 
 
 def test_native_emulation_prevent_and_skip_mvs():

@@ -391,7 +391,9 @@ def test_service_over_two_devices_matches_jax():
         assert svc.devices == [CPU, CPU] and [(g.lo, g.hi) for g in svc.enc.groups] == [
             (0, 2), (2, 4)]
         got = drive_service(svc)
-        assert len(svc.last_timing) == 7 and svc.last_timing["down_bytes"] > 0
+        # the last tick holds an IDR, so its timing has idr_pack_ms as well
+        assert any(svc.last_idrs) and len(svc.last_timing) == 8
+        assert svc.last_timing["down_bytes"] > 0 and svc.last_timing["idr_pack_ms"] > 0
     finally:
         svc.close()
     assert got == jax_service_run()
