@@ -5962,13 +5962,11 @@ def _carve_drive(enc, trace) -> list:
 
 
 def _recon_devices(enc) -> list:
-    """The device of every band's (tile's) reference luma, in mesh order."""
+    """The device of every tile's reference luma, as the (bands, cols) grid."""
     ref = enc._ref[0]
-    if enc.mesh_enabled and enc.cols > 1:
-        return [[str(t.device) for t in row] for row in ref]
     if enc.mesh_enabled:
-        return [str(t.device) for t in ref]
-    return [str(ref.device)] * enc.bands
+        return [[str(t.device) for t in row] for row in ref]
+    return [[str(ref.device)] * enc.cols for _ in range(enc.bands)]
 
 
 def _carve_phase(timing: bool, ses_shas: list) -> dict:

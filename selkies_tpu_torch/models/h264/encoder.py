@@ -43,8 +43,8 @@ as scatters whose duplicates are resolved on the device
 offsets, and the hint-sized fetch slice is cut before anything is read.
 On the card each step's downlink copy is enqueued right behind it (pinned,
 ``non_blocking``) between two CUDA events that the completion worker
-waits on (``_Fetch``): a worker never synchronises the whole device, which
-would wait for later frames' steps too.
+waits on (``device.Fetch``): a worker never synchronises the whole
+device, which would wait for later frames' steps too.
 
 The JAX encoder's hooks sit at its sites: the ``frontend`` fault site at
 the top of ``submit`` (``SELKIES_FAULTS``; a raise leaves the frames in
@@ -57,7 +57,6 @@ no hook changes a byte or waits on the device.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import threading
 import time
@@ -68,7 +67,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from selkies_tpu_torch.device import resolve_device
+from selkies_tpu_torch.device import Fetch, host, resolve_device, to_device
 from selkies_tpu_torch.models.frameprep import FramePrep, delta_buckets_for, tile_width_for
 from selkies_tpu_torch.models.h264 import me_mc, native
 from selkies_tpu_torch.models.h264.bitstream import StreamParams, write_pps, write_sps
@@ -111,7 +110,7 @@ from selkies_tpu_torch.models.h264.encoder_core import (
 )
 from selkies_tpu_torch.models.h264.native import pack_slice_fast, pack_slice_p_fast
 from selkies_tpu_torch.models.h264.numpy_ref import PFrameCoeffs
-from selkies_tpu_torch.models.h264.sparse_complete import complete_sparse_slice, fetch_rest, host
+from selkies_tpu_torch.models.h264.sparse_complete import complete_sparse_slice, fetch_rest
 from selkies_tpu_torch.models.stats import FrameStats, LinkByteCounter
 from selkies_tpu_torch.models.tilecache import TileCache
 from selkies_tpu_torch.monitoring import jitprof
@@ -376,85 +375,6 @@ def _p_scatter_multi_step2(packed, qps, sy, su, sv, py, pu, pv, ref_y, ref_u, re
     return prefixes, denses, bufs, ry, ru, rv, y, u, v, py, pu, pv
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One host-to-device copy. On the card it is staged into pinned memory
-    and enqueued (``non_blocking``): a blocking copy ends in a stream
-    synchronise, which would wait for the steps of the frames in flight.
-    PyTorch's caching host allocator keeps each pinned block until its copy
-    is done, so the source buffer may be reused at once. On the CPU it is a
-    copy too: the resident planes are written in place and must not alias
-    host buffers."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        # on ``device``'s current stream, whatever the thread's current card
-        with torch.cuda.device(device):
-            return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device, copy=True)
-
-
-class _Fetch:
-    """One downlink buffer's device-to-host copy.
-
-    On the card the copy is enqueued at dispatch, right behind the step
-    that wrote the buffer, into pinned memory (``non_blocking``), between
-    two events: ``step_done`` (the step finished) and ``fetched`` (the
-    copy landed). The completion worker waits on those two events only,
-    never on the device as a whole, so it does not wait for the steps of
-    later frames. On the CPU the copy is made when the worker asks.
-
-    Both events and the copy go on the current stream of the card that
-    holds ``t``, whatever the thread's current card is: a mesh's band on
-    ``cuda:1`` is fetched from ``cuda:1``.
-
-    ``mark`` is the step's first-op event from ``tracer.gpu_mark`` (tracing
-    on, a card): ``step_done`` is then a timing event, ``t_rec`` the host's
-    time of its record, and the wait puts the step on the tracer's device
-    track and sets ``tail_ms``, the card's execution of ``step_done`` minus
-    ``t_rec``."""
-
-    def __init__(self, t: torch.Tensor, mark=None):
-        self.src = t
-        self.step_done = self.fetched = self.host = None
-        self.mark, self.tail_ms = mark, None
-        if t.device.type == "cuda":
-            stream = torch.cuda.current_stream(t.device)
-            with torch.cuda.device(t.device):
-                # blocking-sync events: a waiting worker sleeps instead of
-                # spinning on a core the submit thread needs
-                self.step_done = torch.cuda.Event(blocking=True, enable_timing=mark is not None)
-                self.step_done.record(stream)
-                if mark is not None:
-                    self.t_rec = time.perf_counter()
-                self.host = t.contiguous().to("cpu", non_blocking=True)
-                self.fetched = torch.cuda.Event(blocking=True)
-                self.fetched.record(stream)
-
-    def wait(self, t_disp: float, *, step_span: bool = True,
-             fetch_span: bool = False) -> tuple[np.ndarray, float, float]:
-        """-> (host array, step ms since ``t_disp``, fetch ms). The wait on
-        ``step_done`` is the tracer's ``step`` span unless ``step_span`` is
-        False (a caller that waited already, under its own span); the copy
-        is a ``fetch`` span where the JAX encoder opens one."""
-        with tracer.span("step") if step_span else contextlib.nullcontext():
-            if self.step_done is not None:
-                self.step_done.synchronize()
-        t_ready = time.perf_counter()
-        if self.mark is not None:
-            placed = tracer.gpu_span(self.mark, self.step_done)
-            if placed is not None:
-                self.tail_ms = (placed[1] - self.t_rec) * 1e3
-        with tracer.span("fetch") if fetch_span else contextlib.nullcontext():
-            if self.step_done is None:
-                arr = np.ascontiguousarray(host(self.src))
-            else:
-                self.fetched.synchronize()
-                arr = self.host.numpy()
-        if tracer.enabled:
-            # the downlink landed: the card may be idle, a moment to anchor
-            tracer.gpu_anchor(self.src.device)
-        return arr, (t_ready - t_disp) * 1e3, (time.perf_counter() - t_ready) * 1e3
-
-
 @dataclass
 class _Pending:
     """One frame in the encode pipeline."""
@@ -474,7 +394,7 @@ class _Pending:
     buf_d: object = None
     hdr_d: object = None  # pd: dense header for the ns > nscap fallback; pb: for the overflow
     words_d: object = None  # pb: the whole bit / token word buffer (spill fetch)
-    fetch: _Fetch | None = None  # the downlink copy, enqueued at dispatch (not grouped)
+    fetch: Fetch | None = None  # the downlink copy, enqueued at dispatch (not grouped)
     future: object = None  # completion future (fetch + unpack + pack on a worker)
     batch_slot: int = -1  # >= 0: index into a shared group future's result list
     # t_disp is the wall clock just before the step's dispatch: a worker's
@@ -551,7 +471,8 @@ class TorchH264Encoder:
         self.pipeline_depth = max(0, int(pipeline_depth))
         # intra-frame slicing is TorchBandedH264Encoder's (parallel/bands.py);
         # here ``bands`` only sizes the pack pool, for a caller that runs one
-        # instance per band. Imported here: parallel.bands imports this module
+        # instance per band. Imported here, so that the row does not load
+        # the whole parallel package
         if bands is None:
             from selkies_tpu_torch.parallel.bands import bands_from_env
 
@@ -1265,7 +1186,7 @@ class TorchH264Encoder:
                     prefix_d, hdr_d, buf_d, ry, ru, rv = self._step_tiles(group[0][1:], rec.qp)
                     self._ref = (ry, ru, rv)
                     rec.prefix_d, rec.hdr_d, rec.buf_d = prefix_d, hdr_d, buf_d
-                    rec.fetch = _Fetch(self._pfx_slice(prefix_d), self._gpu0)
+                    rec.fetch = Fetch(self._pfx_slice(prefix_d), self._gpu0)
                     rec.batch_slot = -1
                     rec.t_disp = self._t_disp0
                     rec.h2d_ms += self._t_h2d_ms
@@ -1292,7 +1213,7 @@ class TorchH264Encoder:
                                               **self._p_consts()))
                 self._step_issued()
                 self._src, self._ref = (sy, su, sv), (ry, ru, rv)
-                fetch = _Fetch(self._pfx_slice(prefixes_d), self._gpu0)
+                fetch = Fetch(self._pfx_slice(prefixes_d), self._gpu0)
                 recs = [g[0] for g in group]
                 # the group's host front end (pack + h2d) is stamped on every
                 # member, beside each frame's own classify and convert
@@ -1512,7 +1433,7 @@ class TorchH264Encoder:
                 prefix_d, buf_d, ry, ru, rv = self._run_step_i(frame)
             rec = _Pending(kind="i", frame_index=self.frame_index, qp=self.qp, frame_num=0,
                            idr_pic_id=self._idr_pic_id, t0=t0, meta=meta)
-            rec.fetch = _Fetch(prefix_d, self._gpu0)
+            rec.fetch = Fetch(prefix_d, self._gpu0)
             self._frames_since_idr = 0
             self._idr_pic_id = (self._idr_pic_id + 1) % 2
             self._force_idr = False
@@ -1543,7 +1464,7 @@ class TorchH264Encoder:
                            frame_num=self._frames_since_idr % 256, idr_pic_id=0, t0=t0,
                            meta=meta, scene_cut=scene_cut, n_up=n_up, n_remap=n_remap,
                            ltr_ref=ltr_ref, mark_ltr=mark_ltr, mmco_evict=mmco_evict)
-            rec.fetch = _Fetch(self._pfx_slice(prefix_d) if pk == "pd" else prefix_d,
+            rec.fetch = Fetch(self._pfx_slice(prefix_d) if pk == "pd" else prefix_d,
                                self._gpu0)
         self._ref = (ry, ru, rv)
         rec.prefix_d, rec.buf_d, rec.hdr_d, rec.words_d = prefix_d, buf_d, hdr_d, words_d
@@ -1641,7 +1562,7 @@ class TorchH264Encoder:
             mmco_evict=rec.mmco_evict, entropy_coder=self._coder)
         return au, skipped, t1, tu, time.perf_counter(), mode
 
-    def _complete_batch(self, recs, fetch: _Fetch, rows_d, denses_d, bufs_d):
+    def _complete_batch(self, recs, fetch: Fetch, rows_d, denses_d, bufs_d):
         """A group's completion: one fetch of the stacked prefixes, then each
         frame's unpack and pack fanned out over the pack pool (the slices
         are independent and the native packer releases the GIL). Results in

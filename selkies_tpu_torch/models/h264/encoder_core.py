@@ -36,9 +36,10 @@ Inter: P frames have no spatial dependencies (P_Skip / P_L0_16x16 only),
 so everything is one batched program over the MB grid. The refine
 search + motion compensation goes through ``me_mc.me_mc``, which runs the
 hand-written CUDA kernel on a CUDA tensor and the plain version on a CPU
-tensor. The band and tile steps (``encode_band_p_planes``,
-``encode_tile_p_planes``, driven by ``parallel/bands.py``) run the same P
-step on one band or tile against a halo-extended reference slab.
+tensor. The carve's step (``encode_tile_p_planes``, driven by
+``parallel/bands.py``) runs the same P step on one tile against a
+halo-extended reference slab; a band is a tile row at one column
+(``halo_cols=0``, a full-width slab).
 """
 
 from __future__ import annotations
@@ -721,28 +722,18 @@ def encode_frame_p_planes_batch(y, u, v, ref_y, ref_u, ref_v, qps) -> dict:
     return _p_transform_tail(y, u, v, _QPRows.gather(qps), mvs, pred_y, pred_u, pred_v)
 
 
-def encode_band_p_planes(y, u, v, slab_y, slab_u, slab_v, qp: int, halo: int) -> dict:
-    """Band-sliced P encode: one horizontal band against its reference
-    slab (parallel/bands.py). ``slab_y`` holds the band's reference rows
-    plus ``halo`` real rows above and below (edge-replicated at the picture
-    edges, as the decoder clamps); the chroma slabs hold ``halo // 2``.
-    ``halo=0`` with the full reference as the slab is encode_frame_p_planes
-    (the one-band identity); a real band needs an even halo in
-    [REFINE_R + 2, MV_PAD], and below the full reach the candidate window is
-    clamped to ``halo - 2`` rows so that no chosen prediction reads a
-    replicated slab row. See encode_tile_p_planes."""
-    return encode_tile_p_planes(y, u, v, slab_y, slab_u, slab_v, qp, halo=halo)
-
-
 def encode_tile_p_planes(y, u, v, slab_y, slab_u, slab_v, qp: int, halo: int,
                          halo_cols: int = 0, coarse=None, defer_skip: bool = False) -> dict:
     """Tile-sliced P encode: one tile against a 2D reference slab, ``halo``
     real rows above and below and ``halo_cols`` real columns left and right
-    (chroma: half of each). ``halo_cols=0`` with a full-width slab is the
-    band case. The validity rule for either halo: even, and 0 (the slab
-    spans the whole reference on that axis) or in [REFINE_R + 2, MV_PAD];
-    below the full reach (COARSE_DS*COARSE_R + REFINE_R + 2 = 36) the
-    window on that axis is clamped to ``halo - 2``.
+    (chroma: half of each), edge-replicated at the picture edges as the
+    decoder clamps. ``halo_cols=0`` with a full-width slab is a band;
+    ``halo=0`` with the whole reference as the slab is
+    encode_frame_p_planes. The validity rule for either halo: even,
+    and 0 (the slab spans the whole reference on that axis) or in
+    [REFINE_R + 2, MV_PAD]; below the full reach (COARSE_DS*COARSE_R +
+    REFINE_R + 2 = 36) the window on that axis is clamped to ``halo - 2``,
+    so that no chosen prediction reads a replicated slab row.
 
     ``coarse`` injects a (TOPK, 2) coarse list: a tile grid sums the vote
     histograms of one slice row's tiles and selects once, so every tile

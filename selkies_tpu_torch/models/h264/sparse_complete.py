@@ -37,8 +37,8 @@ import time
 from typing import Callable
 
 import numpy as np
-import torch
 
+from selkies_tpu_torch.device import host
 from selkies_tpu_torch.models.h264.cabac import pack_slice_p_cabac
 from selkies_tpu_torch.models.h264.compact import (
     ENTROPY_META16,
@@ -55,25 +55,7 @@ from selkies_tpu_torch.models.h264.device_cavlc import assemble_p_nal
 from selkies_tpu_torch.models.h264.native import pack_slice_p_fast, pack_slice_p_sparse_native
 from selkies_tpu_torch.monitoring.tracing import tracer
 
-__all__ = ["complete_sparse_slice", "fetch_rest", "host"]
-
-
-def host(a, after=None) -> np.ndarray:
-    """One device-to-host copy of a tensor (numpy arrays pass through).
-    ``after``: the CUDA event after which ``a`` is complete; the copy then
-    waits for that event only (a side stream) and for nothing else."""
-    if not isinstance(a, torch.Tensor):
-        return np.asarray(a)
-    if after is None or a.device.type != "cuda":
-        return a.cpu().numpy()
-    stream = torch.cuda.Stream(a.device)  # one of PyTorch's pooled streams
-    with torch.cuda.stream(stream):
-        stream.wait_event(after)
-        out = a.contiguous().to("cpu", non_blocking=True)
-        done = torch.cuda.Event(blocking=True)
-        done.record(stream)
-    done.synchronize()
-    return out.numpy()
+__all__ = ["complete_sparse_slice", "fetch_rest"]
 
 
 def _settle_device_bits(fused, need: int, note_need, link_bytes, prefix_bytes: int, full_d,
@@ -98,7 +80,7 @@ def _settle_device_bits(fused, need: int, note_need, link_bytes, prefix_bytes: i
 def fetch_rest(buf, n: int, base: int = 4096, after=None) -> np.ndarray:
     """Rows [base, >=n) of a row buffer, fetched in power-of-two buckets
     from 4096 (the whole buffer's tail once the bucket reaches it);
-    ``after`` as for :func:`host`."""
+    ``after`` as for ``device.host``."""
     total = buf.shape[0]
     bucket = max(base, 4096)
     while bucket < n:

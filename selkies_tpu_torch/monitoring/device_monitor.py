@@ -22,8 +22,6 @@ import logging
 
 import torch
 
-from selkies_tpu_torch.device import resolve_device
-
 logger = logging.getLogger("device_monitor")
 
 __all__ = ["DeviceMonitor", "NvmlLoad"]
@@ -101,6 +99,9 @@ class DeviceMonitor:
     """``device=None`` means ``cuda`` and raises without a card."""
 
     def __init__(self, period: float = 1.0, enabled: bool = True, device=None):
+        # imported here: device.py imports the tracer, and so this package
+        from selkies_tpu_torch.device import resolve_device
+
         self.device = resolve_device(device)
         if self.device.type != "cuda":
             raise ValueError(f"DeviceMonitor reads a CUDA card's memory, not {self.device}")

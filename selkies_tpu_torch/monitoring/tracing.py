@@ -28,7 +28,7 @@ the clock again (``t1`` defaults to now). Two export surfaces:
 
 **The device track.** With tracing on, each device-step site takes
 ``gpu_mark(device)`` just before its first op: a timing CUDA event on the
-step's stream. The step's step-done event (``encoder._Fetch``) is then
+step's stream. The step's step-done event (``device.Fetch``) is then
 created with timing too, and the worker that has waited on it hands both
 to ``gpu_span``, which puts them on the ``perf_counter`` clock through an
 anchor: a timing event recorded at a known host time on the step's

@@ -1,60 +1,62 @@
 """Band and tile slicing: one frame encoded as several H.264 slices.
 
 Counterpart of ``selkies_tpu/parallel/bands.py`` (``BandedH264Encoder``).
-Nothing is batched across bands: each band's slice comes from the graph a
-single band would run alone, which is what makes the per-band oracle a
-byte-identity statement.
+Nothing is batched across slices: each slice comes from the graph a
+single band-row would run alone, which is what makes the per-band oracle
+a byte-identity statement.
 
-* **Bands** (``SELKIES_BANDS``): the frame splits into ``bands``
-  horizontal bands of equal MB rows, each an independent slice. A band's
-  motion search sees its own reference rows plus ``halo`` neighbour rows
-  (``encoder_core.encode_band_p_planes``); below the full reach of the
-  search the candidate window is clamped, so every chosen prediction is
-  real reference content, as the decoder's full-frame MC reads it.
-* **Tile grid** (``SELKIES_TILE_GRID=RxC``): each band-row also splits
-  into C tiles with ``halo_cols`` neighbour columns. The tiles of a row
-  sum their coarse vote histograms and select one candidate list, and
-  P_Skip is derived on the row's merged MV grid, so with the default
-  full-reach halos an RxC access unit equals the ``bands=R`` one. Slices
-  stay one per band-row: the tiles' coefficients merge into the row's
-  layout before the pack.
+There is one carve, the tile grid: the frame splits into ``bands``
+band-rows of equal MB rows (``SELKIES_BANDS``), each an independent
+slice, and each band-row into ``cols`` tiles (``SELKIES_TILE_GRID=RxC``).
+A band is a tile row at one column. A tile's motion search sees its own
+reference block plus ``halo`` neighbour rows and ``halo_cols`` neighbour
+columns (``encoder_core.encode_tile_p_planes``); below the full reach of
+the search the candidate window is clamped, so every chosen prediction is
+real reference content, as the decoder's full-frame MC reads it. The
+tiles of a row sum their coarse vote histograms and select one candidate
+list, and P_Skip is derived on the row's merged MV grid, so with the
+default full-reach halos an RxC access unit equals the ``bands=R`` one.
+Slices stay one per band-row: the tiles' coefficients merge into the
+row's layout before the pack.
 
 The carve is JAX's: when the caller (or the device pool) lists at least
-``bands * cols`` devices, band (tile) ``i`` runs on device ``i`` (the
-mesh steps, ``_mesh_*``): one thread issues each shard's ops onto its own
-card's stream, ``_exchange_rows`` / ``_exchange_cols`` copy the halos
-between cards where JAX's ``ppermute`` does, the row's vote histograms
-are summed on its column-0 card where JAX's ``psum`` does, and its
-coefficients gathered there where JAX's ``all_gather`` does. With fewer
-devices, the stacked steps run the same per-band graph in a Python loop
-on one device, as JAX's fallback does. A list may repeat a device, so
-the mesh runs on one card too (``[cuda:0] * 4``). Either way a P frame
-launches the ME/MC kernel once per band or tile.
+``bands * cols`` devices, tile ``(r, c)`` runs on device ``r * cols + c``
+(the mesh steps, ``_mesh_tile_*``): one thread issues each shard's ops
+onto its own card's stream, ``_exchange_rows`` / ``_exchange_cols`` copy
+the halos between cards where JAX's ``ppermute`` does, the row's vote
+histograms are summed on its column-0 card where JAX's ``psum`` does, and
+its coefficients gathered there where JAX's ``all_gather`` does; at one
+column only the halo rows cross. With fewer devices, the stacked steps
+(``_stacked_tile_*``) run the same per-tile graph in a Python loop on one
+device, as JAX's fallback does. A list may repeat a device, so the mesh
+runs on one card too (``[cuda:0] * 4``). Either way a P frame launches
+the ME/MC kernel once per tile.
 
 The AUs equal JAX ``BandedH264Encoder``'s byte for byte, its one-device
 run's and its mesh run's (tests/test_torch_bands.py,
 tests/test_torch_tile_grid.py, tests/test_torch_mesh.py); ``bands=1``
 equals ``TorchH264Encoder`` at ``frame_batch=1, pipeline_depth=0,
-ltr_scenes=False``. The host half completes each band's downlink as one
-slice (``sparse_complete.complete_sparse_slice`` with the band's
-``first_mb``) on the pack pool. Each band's downlink copy is enqueued on
-the dispatching thread right behind the step (``encoder._Fetch``, on the
-band's card), and the completion waits on those events only: a refetch
-or spill copies on a side stream behind the band's step-done event
-(``sparse_complete.host``), so a completion never waits for steps other
-sessions dispatched since.
+ltr_scenes=False``. The host half completes each band-row's downlink as
+one slice (``sparse_complete.complete_sparse_slice`` with the row's
+``first_mb``) on the pack pool. Each row's downlink copy is enqueued on
+the dispatching thread right behind the step (``device.Fetch``, on the
+row's card), and the completion waits on those events only: a refetch or
+spill copies on a side stream behind the row's step-done event
+(``device.host``), so a completion never waits for steps other sessions
+dispatched since.
 
 As JAX's, ``dispatch_frame`` first consults the ``device:<chip>`` fault
 site over ``self.devices`` (``resilience/devhealth.py``), the completion
-opens the ``band_gather`` / ``row_gather``, ``step``, ``fetch``,
-``unpack`` and ``pack`` spans and records ``selkies_stage_ms``, and
-``device=None`` carves through the device pool. The port's dispatch adds
-the solo row's ``classify``, ``convert``, ``h2d`` and ``allskip`` spans,
-``device-step`` around the step call with ``step-i`` / ``step-p`` inside
-it, one ``band-row`` span per band-row inside the step, and with tracing
-on a card a ``gpu-step`` device span from the step's first op to band
-0's step-done, which the first device runs after the whole step and
-before any downlink copy (``monitoring/tracing.py``).
+opens the ``band_gather`` (one column) or ``row_gather`` span, and the
+``step``, ``fetch``, ``unpack`` and ``pack`` spans, and records
+``selkies_stage_ms``, and ``device=None`` carves through the device pool.
+The port's dispatch adds the solo row's ``classify``, ``convert``, ``h2d``
+and ``allskip`` spans, ``device-step`` around the step call with
+``step-i`` / ``step-p`` inside it, one ``band-row`` span per band-row
+inside the step, and with tracing on a card a ``gpu-step`` device span
+from the step's first op to row 0's step-done, which the first device
+runs after the whole step and before any downlink copy
+(``monitoring/tracing.py``).
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from selkies_tpu_torch.device import device_list, resolve_device
+from selkies_tpu_torch.device import Fetch, device_list, resolve_device, to_device
 from selkies_tpu_torch.models.frameprep import FramePrep
 from selkies_tpu_torch.models.h264.bitstream import StreamParams, write_pps, write_sps
 from selkies_tpu_torch.models.h264.cabac import pack_slice_cabac, pack_slice_p_cabac
@@ -81,13 +83,11 @@ from selkies_tpu_torch.models.h264.compact import (
     unpack_i_compact,
 )
 from selkies_tpu_torch.models.h264.device_cavlc import entropy_coder_default, resolve_entropy
-from selkies_tpu_torch.models.h264.encoder import _Fetch, to_device
 from selkies_tpu_torch.models.h264.encoder_core import (
     _downsample4,
     _skip_mask,
     coarse_votes,
     edge_pad,
-    encode_band_p_planes,
     encode_frame_planes,
     encode_tile_p_planes,
     fuse_downlink,
@@ -255,12 +255,12 @@ def partition_devices(n_sessions: int, bands: int, devices=None) -> list[list]:
 
 
 # ---------------------------------------------------------------------------
-# Device steps: the same per-band (per-tile) function in a static loop
+# Stacked steps: the same per-tile function in a static loop on one device
 # ---------------------------------------------------------------------------
 
 
 def _band_row(body, *args, **kw):
-    """One band's (band-row's) step body under its ``band-row`` span."""
+    """One band-row's step body under its ``band-row`` span."""
     with tracer.span("band-row"):
         return body(*args, **kw)
 
@@ -286,36 +286,6 @@ def _pack_fused(out: dict, nscap: int, cap_rows: int, entropy):
     return fused, buf
 
 
-def _band_p_body(y, u, v, qp: int, slab_y, slab_u, slab_v, *, halo: int, nscap: int,
-                 cap_rows: int, entropy=None):
-    out = encode_band_p_planes(y, u, v, slab_y, slab_u, slab_v, qp, halo=halo)
-    fused, buf = _pack_fused(out, nscap, cap_rows, entropy)
-    return fused, buf, out["recon_y"], out["recon_u"], out["recon_v"]
-
-
-def _slab_indices(bands: int, rows: int, halo: int) -> np.ndarray:
-    """(bands, rows + 2*halo) row indices into the stacked (bands*rows)
-    plane, clipped at the picture edges (the decoder's edge replication)."""
-    base = rows * np.arange(bands)[:, None]
-    span = np.arange(-halo, rows + halo)[None, :]
-    return np.clip(base + span, 0, bands * rows - 1)
-
-
-@functools.lru_cache(maxsize=None)
-def _slab_index(bands: int, rows: int, halo: int, device: torch.device) -> torch.Tensor:
-    """_slab_indices, flat, as an int64 constant on ``device`` (copied there
-    once: a copy per frame would synchronise the stream)."""
-    return torch.from_numpy(_slab_indices(bands, rows, halo).reshape(-1)).to(device)
-
-
-def _stacked_slabs(ref, halo: int):
-    """(B, rows, W) stacked reference -> halo-extended (B, rows + 2*halo, W)
-    slabs by one row gather."""
-    b, rows, w = ref.shape
-    idx = _slab_index(b, rows, halo, ref.device)
-    return ref.reshape(b * rows, w).index_select(0, idx).reshape(b, rows + 2 * halo, w)
-
-
 # merged tile -> row before the row's pack: what the sparse packers read,
 # in MB-grid layout (dim 1 = MB column). recon stays per tile.
 _ROW_MERGE_KEYS = ("mvs", "resid_zero", "luma_ac", "chroma_dc", "chroma_ac")
@@ -328,13 +298,22 @@ def _row_pack(row: dict, nscap: int, cap_rows: int, entropy):
     return _pack_fused(row, nscap, cap_rows, entropy)
 
 
+def _tile_slab(padded, r: int, k: int, th: int, tw: int, halo: int, halo_cols: int):
+    """Tile (r, k)'s reference slab: its th x tw block of the reassembled
+    reference plane plus ``halo`` rows and ``halo_cols`` columns each side,
+    cut from that plane edge-padded by the two halos (the picture edges
+    replicate, as the decoder clamps)."""
+    return padded[r * th:(r + 1) * th + 2 * halo, k * tw:(k + 1) * tw + 2 * halo_cols]
+
+
 def _stacked_tile_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, bands: int, cols: int,
                          halo: int, halo_cols: int, nscap: int, cap_rows: int, entropy=None):
     """Tile-grid P step: the per-tile graph in a static loop, slabs and
     votes taken from the reassembled reference planes with the edge
-    semantics of the mesh exchanges. Inputs (bands, cols, th, tw) and
-    (bands, cols, th/2, tw/2); outputs fused/buf with a unit col axis and
-    the tiles' recon in the input layout."""
+    semantics of the mesh exchanges (at one column, a band's slab and its
+    own edge-padded rows). Inputs (bands, cols, th, tw) and (bands, cols,
+    th/2, tw/2); outputs fused/buf with a unit col axis and the tiles'
+    recon in the input layout."""
     b, c, th, tw = rys.shape
     cth, ctw = th // 2, tw // 2
     hc, hcc = halo_cols, halo_cols // 2
@@ -358,9 +337,9 @@ def _stacked_tile_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, bands: int, cols
             coarse = select_coarse(votes)
             touts = []
             for k in range(c):
-                sy = py[r * th:(r + 1) * th + 2 * halo, k * tw:(k + 1) * tw + 2 * hc]
-                su = pu[r * cth:(r + 1) * cth + halo, k * ctw:(k + 1) * ctw + 2 * hcc]
-                sv = pv[r * cth:(r + 1) * cth + halo, k * ctw:(k + 1) * ctw + 2 * hcc]
+                sy = _tile_slab(py, r, k, th, tw, halo, hc)
+                su = _tile_slab(pu, r, k, cth, ctw, halo // 2, hcc)
+                sv = _tile_slab(pv, r, k, cth, ctw, halo // 2, hcc)
                 out = encode_tile_p_planes(ys[r, k], us[r, k], vs[r, k], sy, su, sv, qp,
                                            halo=halo, halo_cols=hc, coarse=coarse,
                                            defer_skip=True)
@@ -395,24 +374,8 @@ def _stacked_tile_i_step(ys, us, vs, qp: int, *, bands: int, cols: int, cap_rows
             torch.stack(ry), torch.stack(ru), torch.stack(rv))
 
 
-def _stacked_i_step(ys, us, vs, qp: int, *, bands: int, cap_rows: int):
-    outs = [_band_row(_band_i_body, ys[b], us[b], vs[b], qp, cap_rows) for b in range(bands)]
-    return tuple(torch.stack([o[k] for o in outs]) for k in range(5))
-
-
-def _stacked_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, bands: int, halo: int, nscap: int,
-                    cap_rows: int, entropy=None):
-    sy = _stacked_slabs(rys, halo)
-    su = _stacked_slabs(rus, halo // 2)
-    sv = _stacked_slabs(rvs, halo // 2)
-    outs = [_band_row(_band_p_body, ys[b], us[b], vs[b], qp, sy[b], su[b], sv[b], halo=halo,
-                      nscap=nscap, cap_rows=cap_rows, entropy=entropy)
-            for b in range(bands)]
-    return tuple(torch.stack([o[k] for o in outs]) for k in range(5))
-
-
 # ---------------------------------------------------------------------------
-# Mesh steps: each band (tile) on its own device, halos copied between them
+# Mesh steps: each tile on its own device, halos copied between them
 # ---------------------------------------------------------------------------
 #
 # JAX runs one shard_map body per chip and exchanges the halos with
@@ -476,33 +439,14 @@ def _exchange_cols(planes: list, halo: int, moved=None, stage: str = "halo_cols"
     return out
 
 
-def _mesh_i_step(ys, us, vs, qp: int, *, cap_rows: int):
-    """Band IDR on the mesh: each band's I body on its own device; lists of
-    per-band (prefix, buf, ry, ru, rv), each on its band's device."""
-    outs = [_band_row(_band_i_body, y, u, v, qp, cap_rows) for y, u, v in zip(ys, us, vs)]
-    return tuple([o[k] for o in outs] for k in range(5))
-
-
-def _mesh_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, halo: int, nscap: int, cap_rows: int,
-                 entropy=None, moved=None):
-    """Band P on the mesh: the halo rows exchanged, then each band's P body
-    on its own device (JAX's ``_mesh_p_body``)."""
-    sy = _exchange_rows(rys, halo, moved)
-    su = _exchange_rows(rus, halo // 2, moved)
-    sv = _exchange_rows(rvs, halo // 2, moved)
-    outs = [_band_row(_band_p_body, ys[b], us[b], vs[b], qp, sy[b], su[b], sv[b], halo=halo,
-                      nscap=nscap, cap_rows=cap_rows, entropy=entropy)
-            for b in range(len(ys))]
-    return tuple([o[k] for o in outs] for k in range(5))
-
-
 def _mesh_tile_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, halo: int, halo_cols: int,
                       nscap: int, cap_rows: int, entropy=None, moved=None):
     """Tile-grid P on the mesh, in JAX's order (``_mesh_tile_p_body``):
     inputs and references are (rows, cols) nested lists, tile (r, c) on its
     device. Columns are exchanged before rows, so the corner blocks carry
     the diagonal neighbour's pixels. Each tile votes on its own device over
-    its downsampled reference with COARSE_R exchanged columns; the row's
+    its downsampled reference with COARSE_R exchanged columns (one column
+    exchanges none: the vote edge-pads the band's own rows); the row's
     histograms are summed on its column-0 device (JAX's psum) and one
     ``select_coarse`` there gives every tile the same candidates (JAX
     selects on every chip of the row, from the same sum). Each tile is
@@ -513,6 +457,7 @@ def _mesh_tile_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, halo: int, halo_col
     recon as nested lists."""
     rows, cols = len(ys), len(ys[0])
     hc, hcc = halo_cols, halo_cols // 2
+    dcols = COARSE_R if cols > 1 else 0
     ext = [tuple(_exchange_cols(ref[r], h, moved) for ref, h in ((rys, hc), (rus, hcc), (rvs, hcc)))
            for r in range(rows)]
     slabs = [[None] * cols for _ in range(rows)]
@@ -526,9 +471,8 @@ def _mesh_tile_p_step(ys, us, vs, qp: int, rys, rus, rvs, *, halo: int, halo_col
     for r in range(rows):
         with tracer.span("band-row"):
             dev0 = ys[r][0].device
-            rd = _exchange_cols([_downsample4(t) for t in rys[r]], COARSE_R, moved,
-                                "coarse_cols")
-            votes = sum(_gather(coarse_votes(ys[r][c], rd[c], COARSE_R), c, dev0, moved, "votes")
+            rd = _exchange_cols([_downsample4(t) for t in rys[r]], dcols, moved, "coarse_cols")
+            votes = sum(_gather(coarse_votes(ys[r][c], rd[c], dcols), c, dev0, moved, "votes")
                         for c in range(cols))
             coarse = select_coarse(votes)
             touts = []
@@ -569,7 +513,7 @@ def _mesh_tile_i_step(ys, us, vs, qp: int, *, grid: list, cap_rows: int, tile_w:
     return (prefixes, bufs, *recon)
 
 
-def _step_ready(fetch: _Fetch) -> float:
+def _step_ready(fetch: Fetch) -> float:
     """Wall clock once the step that wrote ``fetch``'s buffer has finished
     (its ``step_done`` event; a CPU step is finished when it returns)."""
     if fetch.step_done is not None:
@@ -596,8 +540,8 @@ class TorchBandedH264Encoder:
     unit out.
 
     One IDR, then P frames (``keyframe_interval`` / ``force_keyframe`` as in
-    TorchH264Encoder); every picture is ``bands`` slices, and with
-    ``cols > 1`` each band-row is computed as ``cols`` tiles. This is the
+    TorchH264Encoder); every picture is ``bands`` slices, each band-row
+    computed as ``cols`` tiles (one at ``cols=1``). This is the
     full-motion / 4K path: no delta uploads and no tile cache, but an
     unchanged capture is still an all-skip AU built on the host.
 
@@ -607,7 +551,7 @@ class TorchBandedH264Encoder:
     cards (``resilience/devhealth.py``, raising without a card), shrinking
     the carve while a quarantine is active as JAX's does. ``mesh_enabled``
     is JAX's rule, ``bands * cols > 1`` and at least that many devices;
-    ``mesh`` is then the band list or the (bands, cols) tile grid.
+    ``mesh`` is then the (bands, cols) tile grid, else None.
     ``self.devices`` lists the devices the fault site checks each frame
     (the mesh's, else the one; empty when no card was healthy), and
     ``shard_bytes`` counts the bytes the mesh steps exchange between
@@ -730,8 +674,9 @@ class TorchBandedH264Encoder:
         self._pfx_recent: list[int] = []
         self._pfx_lock = threading.Lock()
 
-        # JAX's carve: a mesh when the list holds a device per band (tile);
-        # else the stacked steps on the first device
+        # JAX's carve: a mesh when the list holds a device per tile (a band
+        # is a tile row at one column); else the stacked steps on the first
+        # device
         chips = self.bands * self.cols
         self.mesh_enabled = chips > 1 and len(devs) >= chips
         # the devices this encoder dispatches to, in mesh order: the device
@@ -743,39 +688,25 @@ class TorchBandedH264Encoder:
                                    entropy_coder=self._coder)
         self._headers = write_sps(self.params) + write_pps(self.params)
         self._prep = FramePrep(width, height, self._pad_w, self._pad_h, nslots=2)
-        pconsts = dict(halo=self.halo, nscap=self._nscap, cap_rows=self._cap_p,
-                       entropy=self._entropy)
-        # the device list (band mesh) or grid (tile mesh); None when stacked
+        pconsts = dict(halo=self.halo, halo_cols=self.halo_cols, nscap=self._nscap,
+                       cap_rows=self._cap_p, entropy=self._entropy)
+        # the (bands, cols) device grid of the mesh steps; None when stacked
         self.mesh = None
-        if self.mesh_enabled and self.cols > 1:
+        if self.mesh_enabled:
             self.mesh = tile_mesh(self.bands, self.cols, devs)
             self._step_i = functools.partial(_mesh_tile_i_step, grid=self.mesh,
                                              cap_rows=self._cap_i, tile_w=self._tile_w,
                                              moved=self.shard_bytes)
-            self._step_p = functools.partial(_mesh_tile_p_step, halo_cols=self.halo_cols,
-                                             moved=self.shard_bytes, **pconsts)
-        elif self.mesh_enabled:
-            self.mesh = band_mesh(self.bands, devs)
-            self._step_i = functools.partial(_mesh_i_step, cap_rows=self._cap_i)
-            self._step_p = functools.partial(_mesh_p_step, moved=self.shard_bytes, **pconsts)
-        elif self.cols > 1:
+            self._step_p = functools.partial(_mesh_tile_p_step, moved=self.shard_bytes,
+                                             **pconsts)
+        else:
             if chips > 1:
                 logger.info("tile mesh unavailable (%d devices < %dx%d grid): the tile-sliced "
                             "step runs on one device", len(devs), self.bands, self.cols)
             self._step_i = functools.partial(_stacked_tile_i_step, bands=self.bands,
                                              cols=self.cols, cap_rows=self._cap_i)
             self._step_p = functools.partial(_stacked_tile_p_step, bands=self.bands,
-                                             cols=self.cols, halo_cols=self.halo_cols, **pconsts)
-        else:
-            if chips > 1:
-                logger.info("band mesh unavailable (%d devices < %d bands): the band-sliced "
-                            "step runs on one device", len(devs), self.bands)
-            self._step_i = functools.partial(_stacked_i_step, bands=self.bands,
-                                             cap_rows=self._cap_i)
-            self._step_p = functools.partial(_stacked_p_step, bands=self.bands, **pconsts)
-            # the slab gathers' row indices reach the device now, not mid-stream
-            _slab_index(self.bands, self._band_h, self.halo, self.device)
-            _slab_index(self.bands, self._band_h // 2, self.halo // 2, self.device)
+                                             cols=self.cols, **pconsts)
         # per-band completion fan-out, sized for every slice that can be in
         # flight (the solo formula with the bands factor)
         if pack_workers is None:
@@ -784,8 +715,8 @@ class TorchBandedH264Encoder:
         self._pack_pool = ThreadPoolExecutor(max_workers=pack_workers,
                                              thread_name_prefix="h264-pack")
         self.link_bytes = LinkByteCounter()
-        # recon planes, the next P's reference: stacked, or on a mesh one
-        # per band (tile) on its device
+        # recon planes, the next P's reference: stacked on (bands, cols)
+        # axes, or on a mesh nested per tile, each on its device
         self._ref: tuple | None = None
         self._allskip: PFrameCoeffs | None = None
         self.frame_index = 0
@@ -820,40 +751,35 @@ class TorchBandedH264Encoder:
     # -- device dispatch --
 
     def _put_band_planes(self, y: np.ndarray, u: np.ndarray, v: np.ndarray, idr: bool):
-        """Converted planes stacked on a leading band axis, (bands, cols)
-        axes in tile mode, and uploaded. On a mesh each band (tile) goes to
-        its own device, lists (nested in tile mode) in place of the stacked
-        axes; a tile grid's IDR uploads each band-row whole to its column-0
+        """Converted planes on (bands, cols) tile axes, uploaded. On a mesh
+        each tile goes to its own device, nested lists in place of the two
+        axes; a mesh IDR uploads each band-row whole to its column-0
         device, where the row is encoded."""
-        b, bh = self.bands, self._band_h
-        if self.cols > 1 and not (self.mesh_enabled and idr):
-            c, tw = self.cols, self._tile_w
-            ys = np.asarray(y).reshape(b, bh, c, tw).transpose(0, 2, 1, 3)
-            us = np.asarray(u).reshape(b, bh // 2, c, tw // 2).transpose(0, 2, 1, 3)
-            vs = np.asarray(v).reshape(b, bh // 2, c, tw // 2).transpose(0, 2, 1, 3)
-        else:
+        b, bh, c, tw = self.bands, self._band_h, self.cols, self._tile_w
+        if self.mesh_enabled and idr:
             ys = np.asarray(y).reshape(b, bh, self._pad_w)
             us = np.asarray(u).reshape(b, bh // 2, self._pad_w // 2)
             vs = np.asarray(v).reshape(b, bh // 2, self._pad_w // 2)
+        else:
+            ys = np.asarray(y).reshape(b, bh, c, tw).transpose(0, 2, 1, 3)
+            us = np.asarray(u).reshape(b, bh // 2, c, tw // 2).transpose(0, 2, 1, 3)
+            vs = np.asarray(v).reshape(b, bh // 2, c, tw // 2).transpose(0, 2, 1, 3)
         self.link_bytes.add("up_full", ys.nbytes + us.nbytes + vs.nbytes)
         if not self.mesh_enabled:
             return tuple(to_device(a, self.device) for a in (ys, us, vs))
-        if self.cols > 1 and not idr:
-            return tuple([[to_device(a[r, c], dev) for c, dev in enumerate(row)]
-                          for r, row in enumerate(self.mesh)] for a in (ys, us, vs))
-        devs = [row[0] for row in self.mesh] if self.cols > 1 else self.mesh
-        return tuple([to_device(a[r], dev) for r, dev in enumerate(devs)] for a in (ys, us, vs))
+        if idr:
+            return tuple([to_device(a[r], row[0]) for r, row in enumerate(self.mesh)]
+                         for a in (ys, us, vs))
+        return tuple([[to_device(a[r, k], dev) for k, dev in enumerate(row)]
+                      for r, row in enumerate(self.mesh)] for a in (ys, us, vs))
 
     def _band_handles(self, arr):
         """Per-band-row tensors of a step's output, in band order: the
-        mesh's per-band (per-row) list itself, else views of the stacked
-        (bands, ...) output (tile mode: (bands, 1, ...), the unit col axis
-        dropped)."""
+        mesh's per-row list itself, else views of the stacked (bands, 1,
+        ...) output with the unit col axis dropped."""
         if self.mesh_enabled:
             return list(arr)
-        if self.cols > 1:
-            return [arr[b, 0] for b in range(self.bands)]
-        return [arr[b] for b in range(self.bands)]
+        return [arr[r, 0] for r in range(self.bands)]
 
     def _pfx_slice_len(self) -> int:
         with self._pfx_lock:
@@ -868,7 +794,7 @@ class TorchBandedH264Encoder:
 
     # -- host completion (per band, on the pack pool) --
 
-    def _complete_band_i(self, band: int, fetch: _Fetch, buf_d, idr_pic_id: int):
+    def _complete_band_i(self, band: int, fetch: Fetch, buf_d, idr_pic_id: int):
         prefix, _, fetch_ms = fetch.wait(0.0, step_span=False, fetch_span=True)
         t_f = time.perf_counter()
         self.link_bytes.add("down_prefix", prefix.nbytes)
@@ -889,7 +815,7 @@ class TorchBandedH264Encoder:
         # the downlink mode labels P frames only
         return nal, 0, fetch_ms / 1e3, t_u - t_f, time.perf_counter() - t_u, t_f, ""
 
-    def _complete_band_p(self, band: int, fetch: _Fetch, full_d, buf_d, frame_num: int,
+    def _complete_band_p(self, band: int, fetch: Fetch, full_d, buf_d, frame_num: int,
                          qp: int):
         fused, _, fetch_ms = fetch.wait(0.0, step_span=False, fetch_span=True)
         t_f = time.perf_counter()
@@ -995,7 +921,7 @@ class TorchBandedH264Encoder:
             # device, and its step-done follows the whole step there and
             # precedes every downlink copy (a later band's waits behind the
             # earlier bands' copies)
-            fetches = [_Fetch(h if hint >= self._pfx_total else h[..., :hint],
+            fetches = [Fetch(h if hint >= self._pfx_total else h[..., :hint],
                               mark if b == 0 else None)
                        for b, h in enumerate(full_h)]
         except Exception:

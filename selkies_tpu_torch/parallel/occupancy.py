@@ -9,7 +9,7 @@ work as two explicit stages per session:
 * **dispatch** — the host front end (static scan, BGRx->I420 conversion,
   the pinned upload) and the device step, enqueued: PyTorch returns
   before the card finishes, and each downlink copy is enqueued behind its
-  step between two events (``encoder._Fetch``), so the moment session A's
+  step between two events (``device.Fetch``), so the moment session A's
   dispatch returns, A's step is on the card and the host is free.
 * **complete** — the wait on those events (where the device wait lives),
   the host unpack and pack.

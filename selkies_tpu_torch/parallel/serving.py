@@ -33,7 +33,7 @@ nothing per geometry.
 ``TorchBandedFleetService`` is the counterpart of JAX's
 ``BandedFleetService``: N sessions, each a ``TorchBandedH264Encoder`` on
 its own row of devices, behind the same interface. A row of ``bands x
-cols`` devices runs its session as a mesh, a band (tile) per device, as
+cols`` devices runs its session as a mesh, a tile per device, as
 JAX's does; on one card every carve of more than one chip is JAX's
 shared carve: single-device rows over the healthy cards, each session
 still band-sliced at the requested count (the band bytes do not depend
@@ -58,9 +58,9 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from selkies_tpu_torch.device import Fetch
 from selkies_tpu_torch.models.frameprep import FramePrep
 from selkies_tpu_torch.models.h264.bitstream import StreamParams, write_pps, write_sps
-from selkies_tpu_torch.models.h264.encoder import _Fetch
 from selkies_tpu_torch.models.h264.native import pack_slice_fast, pack_slice_p_fast
 from selkies_tpu_torch.models.h264.numpy_ref import FrameCoeffs, PFrameCoeffs
 from selkies_tpu_torch.monitoring import jitprof
@@ -215,7 +215,7 @@ class TorchMultiSessionH264Service:
                                     for k in keys]).to(torch.int16))
             layouts.append(layout)
         t_disp = time.perf_counter()
-        fetches = [_Fetch(flat, mark) for flat, mark in zip(flats, self.enc.last_marks)]
+        fetches = [Fetch(flat, mark) for flat, mark in zip(flats, self.enc.last_marks)]
         self._inflight += 1
         return _PendingTick(idrs, fetches, layouts, t_disp, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
                             (t_disp - t2) * 1e3)

@@ -33,8 +33,7 @@ import logging
 import numpy as np
 import torch
 
-from selkies_tpu_torch.device import device_list, resolve_device
-from selkies_tpu_torch.models.h264.encoder import to_device
+from selkies_tpu_torch.device import device_list, resolve_device, to_device
 from selkies_tpu_torch.models.h264.encoder_core import (
     encode_frame_p_planes_batch,
     encode_frame_planes_batch,

@@ -1,9 +1,10 @@
 """The band slice of the port: TorchBandedH264Encoder's 1D band carve against
 JAX's BandedH264Encoder on one device (``devices=[cpu]``) and once against
 its mesh run on the 8 virtual CPU devices. Helpers and env parsers equal
-JAX's, the band device half and the stacked steps equal JAX's element for
-element, and the whole encoder's access units are sha256-equal over a trace
-of every frame kind, for both coders with device entropy off and on. Inside
+JAX's, the band device half and the stacked steps (the tile steps at one
+column) equal JAX's band steps element for element, and the whole
+encoder's access units are sha256-equal over a trace of every frame kind,
+for both coders with device entropy off and on. Inside
 the port: bands=1 equals the solo encoder, and the dispatch/complete seam
 keeps its contract."""
 
@@ -93,14 +94,15 @@ def test_constants_and_span_errors_match_jax():
 
 @pytest.mark.parametrize("bands,rows,halo", [(4, 64, 40), (2, 48, 4), (1, 16, 0), (3, 8, 20),
                                              (4, 32, 16)])
-def test_slab_indices_match_jax(bands, rows, halo):
-    got = TB._slab_indices(bands, rows, halo)
-    np.testing.assert_array_equal(got, JB._slab_indices(bands, rows, halo))
-    flat = TB._slab_index(bands, rows, halo, torch.device("cpu"))
-    np.testing.assert_array_equal(flat.numpy(), got.reshape(-1))
+def test_tile_slab_at_one_column_matches_jax_band_slabs(bands, rows, halo):
+    """The tile step's slab cut at one column, from the edge-padded
+    reassembled reference: each band's slab equals JAX's clipped row
+    gather of the stacked bands."""
     ref = torch.arange(bands * rows * 3, dtype=torch.int32).reshape(bands, rows, 3)
     want = JB._stacked_slabs(jnp.asarray(ref.numpy()), halo)
-    np.testing.assert_array_equal(TB._stacked_slabs(ref, halo).numpy(), np.asarray(want))
+    padded = TC.edge_pad(ref.reshape(bands * rows, 3), halo, halo, 0, 0)
+    got = torch.stack([TB._tile_slab(padded, b, 0, rows, 3, halo, 0) for b in range(bands)])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # -- the band device half ------------------------------------------------
@@ -134,8 +136,10 @@ def _jax_band_p(halo):
 
 @pytest.mark.parametrize("halo", [0, 16, 40])
 def test_encode_band_p_planes_matches_jax(halo):
-    """The middle band of three against its slab; halo 0 takes the whole
-    reference as the slab (the one-band identity, unclamped window)."""
+    """The middle band of three against its slab, the port's tile encode at
+    one column (``halo_cols=0``) against JAX's band encode; halo 0 takes
+    the whole reference as the slab (the one-band identity, unclamped
+    window)."""
     (y, u, v), (ry, ru, rv) = _band_planes(3 + halo)
     bh = 48
     if halo == 0:
@@ -146,8 +150,8 @@ def test_encode_band_p_planes_matches_jax(halo):
         slabs = (_clip_slab(ry, bh, bh, halo), _clip_slab(ru, bh // 2, bh // 2, halo // 2),
                  _clip_slab(rv, bh // 2, bh // 2, halo // 2))
     want = _jax_band_p(halo)(*srcs, *slabs, jnp.int32(QP))
-    got = TC.encode_band_p_planes(*(torch.from_numpy(np.ascontiguousarray(a))
-                                    for a in (*srcs, *slabs)), QP, halo=halo)
+    got = TC.encode_tile_p_planes(*(torch.from_numpy(np.ascontiguousarray(a))
+                                    for a in (*srcs, *slabs)), QP, halo=halo, halo_cols=0)
     _eq_out(got, want)
     assert (got["mvs"].numpy() != 0).any()
 
@@ -165,7 +169,7 @@ def test_halo_validation_matches_jax(kw):
     assert str(got.value) == str(want.value)
 
 
-# -- the stacked steps -------------------------------------------------
+# -- the stacked steps: the tile steps at one column -------------------
 
 BW, BH = 96, 96  # 6 MB rows -> 2 bands of 3
 _STEP_ENTROPY = ["none", "cavlc", "cabac"]
@@ -195,6 +199,11 @@ def _t(arrs):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
 
 
+def _col(arrs):
+    """Stacked band planes on (bands, 1) tile axes: the grid at one column."""
+    return [t[:, None] for t in _t(arrs)]
+
+
 def _on_dev0(arrs):
     """Arrays placed as the JAX encoder places a step's inputs (committed to
     its one device), so a direct call of its jitted step reuses the program
@@ -210,28 +219,33 @@ _STEP_ROWS = {"none": "cabac_bands2", "cavlc": "device_cavlc_bands2",
 
 
 def test_stacked_i_step_matches_jax():
+    """The tile IDR at one column against JAX's band IDR, the unit column
+    axis squeezed."""
     cur, _ = _stacked_inputs(2)
     want = jax_encoder(_STEP_ROWS["none"])._step_i(*_on_dev0(cur), np.int32(QP))
-    got = TB._stacked_i_step(*_t(cur), QP, bands=2, cap_rows=min(27 * 18, 4096))
+    got = TB._stacked_tile_i_step(*_col(cur), QP, bands=2, cols=1, cap_rows=min(27 * 18, 4096))
     for name, g, w in zip(("prefix", "buf", "ry", "ru", "rv"), got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        np.testing.assert_array_equal(g[:, 0].numpy(), np.asarray(w), err_msg=name)
 
 
 @pytest.mark.parametrize("entropy", _STEP_ENTROPY)
 def test_stacked_p_step_matches_jax(entropy):
-    """The band P step against an IDR's recon, the slabs gathered across
-    the band seam; every output (fused, buf, recon) equal."""
+    """The tile P step at one column against JAX's band P step from an
+    IDR's recon, the slabs cut across the band seam; every output (fused,
+    buf, recon) equal, the unit column axis squeezed."""
     ref, cur = _stacked_inputs(2)
     m = 3 * 6
-    rec = TB._stacked_i_step(*_t(ref), QP, bands=2, cap_rows=min(27 * m, 4096))[2:]
+    rec = TB._stacked_tile_i_step(*_col(ref), QP, bands=2, cols=1,
+                                  cap_rows=min(27 * m, 4096))[2:]
     want = jax_encoder(_STEP_ROWS[entropy])._step_p(*_on_dev0(cur), np.int32(QP),
-                                                    *_on_dev0(r.numpy() for r in rec))
-    got = TB._stacked_p_step(*_t(cur), QP, *rec, entropy=_entropy(tdc, m, entropy), bands=2,
-                             halo=40, nscap=m, cap_rows=min(26 * m, 4096))
+                                                    *_on_dev0(r[:, 0].numpy() for r in rec))
+    got = TB._stacked_tile_p_step(*_col(cur), QP, *rec, entropy=_entropy(tdc, m, entropy),
+                                  bands=2, cols=1, halo=40, halo_cols=0, nscap=m,
+                                  cap_rows=min(26 * m, 4096))
     for name, g, w in zip(("fused", "buf", "ry", "ru", "rv"), got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        np.testing.assert_array_equal(g[:, 0].numpy(), np.asarray(w), err_msg=name)
     if entropy != "none":  # a busy band ships its coded slice
-        assert 1 in {int(f[0]) for f in got[0]}
+        assert 1 in {int(f[0, 0]) for f in got[0]}
 
 
 # -- the whole encoder against JAX --------------------------------------
@@ -559,7 +573,7 @@ def _band_out():
     srcs = (cur[0][bh:], cur[1][bh // 2:], cur[2][bh // 2:])
     slabs = (_clip_slab(ref[0], bh, bh, 40), _clip_slab(ref[1], bh // 2, bh // 2, 20),
              _clip_slab(ref[2], bh // 2, bh // 2, 20))
-    return TC.encode_band_p_planes(*_t((*srcs, *slabs)), 26, halo=40)
+    return TC.encode_tile_p_planes(*_t((*srcs, *slabs)), 26, halo=40, halo_cols=0)
 
 
 _ARMS = ["cavlc", "cabac", "device_bits", "device_tokens", "dense"]

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from selkies_tpu_torch.device import Fetch
 from selkies_tpu_torch.models.h264 import encoder as enc_mod
 from selkies_tpu_torch.models.h264 import encoder_core as core
 from selkies_tpu_torch.models.h264 import intra, me_mc, native
@@ -753,14 +754,14 @@ def test_band_mesh_on_one_card_repeated_equals_stacked(name, listed):
 
 @pytest.mark.gpu
 def test_fetch_of_another_cards_buffer_returns_its_bytes():
-    """With cuda:0 current, a _Fetch of a buffer a kernel just wrote on
+    """With cuda:0 current, a device.Fetch of a buffer a kernel just wrote on
     cuda:1 waits on cuda:1's stream and returns the written bytes."""
     _need_cards(2)
     torch.cuda.set_device(0)
     src = torch.arange(1 << 24, dtype=torch.int32, device="cuda:1")
     for k in range(8):  # queue work on cuda:1's stream ahead of the copy
         src = src * 2 + k - src
-    fetch = enc_mod._Fetch(src)
+    fetch = Fetch(src)
     arr, _, _ = fetch.wait(0.0, step_span=False)
     np.testing.assert_array_equal(arr, np.arange(1 << 24, dtype=np.int32) + 28)
     assert torch.cuda.current_device() == 0
@@ -1389,13 +1390,14 @@ def test_grid_gpu_steps_one_per_coded_frame_inside_their_device_steps(hooks_on):
 
 @pytest.mark.gpu
 def test_refetch_after_an_event_never_syncs():
-    """sparse_complete.host(t, after): the copy runs on a side stream behind
+    """device.host(t, after): the copy runs on a side stream behind
     ``after`` only, returns t's values, and makes no synchronising call,
     while the default stream is busy with later work."""
     _need_card()
     import warnings
 
-    from selkies_tpu_torch.models.h264.sparse_complete import fetch_rest, host
+    from selkies_tpu_torch.device import host
+    from selkies_tpu_torch.models.h264.sparse_complete import fetch_rest
 
     a = torch.arange(3 * 5000, dtype=torch.int32, device="cuda").reshape(5000, 3)[::2]
     done = torch.cuda.Event()

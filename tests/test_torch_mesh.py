@@ -107,7 +107,7 @@ def port_run(name):
 
     try:
         assert enc.mesh_enabled and enc.devices == [CPU] * k
-        assert enc.mesh == ([[CPU] * enc.cols] * enc.bands if enc.cols > 1 else [CPU] * k)
+        assert enc.mesh == [[CPU] * enc.cols] * enc.bands
         me_mc.me_mc = counted
         out, links = drive(enc, _frames(name))
         return out, links, len(launches), enc.shard_bytes.snapshot()
@@ -188,16 +188,13 @@ def test_exchanges_with_one_shard_or_no_halo_are_identity():
 def _split(enc, planes):
     """One frame's (y, u, v) as JAX's mesh encoder takes them (stacked on
     the band, or band and col, axes and sharded) and as the port's mesh
-    steps do (per-band lists, nested per tile)."""
+    steps do (nested per band-row and tile; one tile a row at one column)."""
     b, c, bh, tw = enc.bands, enc.cols, enc._band_h, enc._tile_w
-    if c > 1:
-        arrs = [np.ascontiguousarray(p.reshape(b, bh >> s, c, tw >> s).transpose(0, 2, 1, 3))
-                for p, s in zip(planes, (0, 1, 1))]
-        lists = [[[torch.from_numpy(a[r, k].copy()) for k in range(c)] for r in range(b)]
-                 for a in arrs]
-    else:
-        arrs = [p.reshape(b, bh >> s, -1) for p, s in zip(planes, (0, 1, 1))]
-        lists = [[torch.from_numpy(a[r].copy()) for r in range(b)] for a in arrs]
+    tiles = [np.ascontiguousarray(p.reshape(b, bh >> s, c, tw >> s).transpose(0, 2, 1, 3))
+             for p, s in zip(planes, (0, 1, 1))]
+    lists = [[[torch.from_numpy(a[r, k].copy()) for k in range(c)] for r in range(b)]
+             for a in tiles]
+    arrs = tiles if c > 1 else [a[:, 0] for a in tiles]
     return [jax.device_put(a, enc._shard) for a in arrs], lists
 
 
@@ -212,12 +209,14 @@ def _moved_planes(w, h, seed):
 
 
 def _assert_outputs(got, want, cols, kind):
-    """The port's per-band (per-row, nested per tile) outputs against JAX's
-    stacked ones; a tile grid's fused and buf against column 0's copy."""
+    """The port's per-row (nested per tile) outputs against JAX's stacked
+    ones; a tile grid's fused and buf against column 0's copy, a band
+    mesh's recon with the unit column axis squeezed."""
     for k, (g, w) in enumerate(zip(got, want)):
         w = np.asarray(w)
         if isinstance(g[0], list):
             g = np.stack([np.stack([t.numpy() for t in row]) for row in g])
+            g = g if cols > 1 else g[:, 0]
         else:
             g = np.stack([t.numpy() for t in g])
             w = w[:, 0] if cols > 1 else w
@@ -232,24 +231,19 @@ def test_mesh_steps_match_jax_mesh_steps(name):
     w, h, _, k = CONFIGS[name]
     enc = jax_encoder(name)
     cur, ref = _moved_planes(w, h, 5)
-    jref, ref_lists = _split(enc, ref)
+    jref, _ = _split(enc, ref)
     want_i = enc._step_i(*jref, np.int32(QP))
-    if enc.cols > 1:
-        # the port uploads an IDR's band-rows whole to their column-0 device
-        rows = [[torch.from_numpy(p.reshape(enc.bands, -1, p.shape[1])[r].copy())
-                 for r in range(enc.bands)] for p in ref]
-        got_i = TB._mesh_tile_i_step(*rows, QP, grid=TB.tile_mesh(enc.bands, enc.cols, [CPU] * k),
-                                     cap_rows=enc._cap_i, tile_w=enc._tile_w)
-    else:
-        got_i = TB._mesh_i_step(*ref_lists, QP, cap_rows=enc._cap_i)
+    # the port uploads an IDR's band-rows whole to their column-0 device
+    rows = [[torch.from_numpy(p.reshape(enc.bands, -1, p.shape[1])[r].copy())
+             for r in range(enc.bands)] for p in ref]
+    got_i = TB._mesh_tile_i_step(*rows, QP, grid=TB.tile_mesh(enc.bands, enc.cols, [CPU] * k),
+                                 cap_rows=enc._cap_i, tile_w=enc._tile_w)
     _assert_outputs(got_i, want_i, enc.cols, "I")
     jcur, cur_lists = _split(enc, cur)
     want = enc._step_p(*jcur, np.int32(QP), *want_i[2:])
-    kw = dict(halo=enc.halo, nscap=enc._nscap, cap_rows=enc._cap_p, entropy=None)
-    if enc.cols > 1:
-        got = TB._mesh_tile_p_step(*cur_lists, QP, *got_i[2:], halo_cols=enc.halo_cols, **kw)
-    else:
-        got = TB._mesh_p_step(*cur_lists, QP, *got_i[2:], **kw)
+    got = TB._mesh_tile_p_step(*cur_lists, QP, *got_i[2:], halo=enc.halo,
+                               halo_cols=enc.halo_cols, nscap=enc._nscap, cap_rows=enc._cap_p,
+                               entropy=None)
     _assert_outputs(got, want, enc.cols, "P")
     assert (np.stack([t.numpy() for t in got[0]])[:, 0] != 0).any()
 
