@@ -7,7 +7,7 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build the ME/MC and intra kernels (nvcc, sm_90a), the native CAVLC
+2. build the ME/MC, intra and BGRx->I420 kernels (nvcc, sm_90a), the native CAVLC
    packer and the frameprep library (g++) from the checkout's sources, all
    at once; print build seconds and the ``-Xptxas -v`` reports; read the
    ME/MC kernel's SASS
@@ -24,15 +24,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    list) against its batched plain version at 8 x 1088x1920 and at
    3 x 768x1376: every output exactly equal; and the intra kernel (the IDR
    step, one call) against its plain version at 1 and 8 x 1088x1920 with
-   seeded QPs from 0 to 51: every output exactly equal;
+   seeded QPs from 0 to 51: every output exactly equal; and the BGRx->I420
+   kernel against its plain version at 8 x 1088x1920 and one frame;
 4. the device-conversion path: TorchH264Encoder(1920, 1080,
    host_convert=False, pipeline_depth=0, frame_batch=1, device="cuda")
    over a seeded desktop-like trace
    (IDR, scrolls, typing, a static repeat, force_keyframe, a QP change)
    with the launch counters zeroed just before; every access unit's sha256
    must equal the same trace on the CPU, the kernel must have launched once
-   per non-static P frame, the intra kernel once per IDR frame, and the
-   native packer at least once;
+   per non-static P frame, the intra kernel once per IDR frame, the
+   BGRx->I420 kernel once per IDR and non-static P frame, and the native
+   packer at least once;
 5. the host-conversion path, ungrouped and unpipelined:
    TorchH264Encoder(1920, 1080, scene_qp_boost=6, frame_batch=1,
    pipeline_depth=0, ltr_scenes=False, device="cuda") over a
@@ -86,9 +88,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    just before: every session's AUs must equal a solo TorchH264Encoder
    (host_convert=False, frame_batch=1, pipeline_depth=0) fed the same
    frames, QPs and keyframes, K1 must launch exactly once per tick
-   with a P session and the intra kernel once per tick with an IDR;
-   (b) the same trace at 4 x 640x368 must equal the port's CPU run of
-   the service;
+   with a P session, the intra kernel once per tick with an IDR and the
+   BGRx->I420 kernel once per tick; (b) the same trace at 4 x 640x368 must
+   equal the port's CPU run of the service, with one BGRx->I420 launch a
+   tick on the card and none on the CPU;
 12. (run after phase 9, before the timing) the hybrid VP9/AV1 rows and the
    port's registry at 1920x1080, over a seeded desktop trace (the first
    frame, static repeats, typing, a 16-row scroll of a window, a window
@@ -292,7 +295,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    replay's state before it (its reference planes after it compared too);
    the supervisor counts no failure; K1 launches once per tick with a P
    session and its plain versions never run
-   (``launches_fleet_server_path``), and on one tick's inputs K1 equals
+   (``launches_fleet_server_path``), the BGRx->I420 kernel once per
+   dispatched tick, and on one tick's inputs K1 equals
    ``me_mc_batch_plain``; fps across sessions
    over 3 s (its share of phase 17 (b)'s occupancy-on loop), capture->send
    ms (median, p95) and the idle share over 10 ticks (torch.profiler);
@@ -326,7 +330,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    TorchMultiSessionH264Service(8, 1920, 1088) in 2 groups over phase 9's
    ticks (IDR, P, mixed, QP changes): every session's AUs equal phase 9's
    one-card service's, K1 launches once per group and tick with a P
-   session, and the P tick's split is recorded. K1's plain versions never
+   session, the BGRx->I420 kernel once per group and tick, and the P
+   tick's split is recorded. K1's plain versions never
    run in the phase;
 10. time the kernel with CUDA events over 50 launches queued behind a spin
    kernel (the device's time; also as the host issues them), its plain
@@ -359,7 +364,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    intra kernel at 1 and 8 x 1088x1920 by CUDA events (20 calls behind a
    spin kernel, and as issued) against its byte floor and its 187-step
    chain, its plain version, and row 0 and one MB column alone; the
-   hybrid front-end step per frame kind (static, typing, scroll, full; host
+   BGRx->I420 kernel at 8 x 1088x1920 and one frame by CUDA events (50
+   launches behind a spin kernel, and as issued) against its byte bound,
+   and its plain version; the hybrid front-end step per frame kind (static, typing, scroll, full; host
    clock around the synchronised step), its upload (host clock and CUDA
    events), its device ops and idle share over 8 steps (torch.profiler),
    FramePrep.dirty_tiles on the same frames, and the VP9/AV1 rows' median
@@ -1170,6 +1177,48 @@ def _intra_phase(dev, timing: bool) -> dict:
             ms = _time_cuda(lambda: intra.encode_intra(y, u, v, rows.rows), iters=20, hold=True)
             steps = w // 16 if h == 16 else h // 16
             res[name] = {"ms": ms, "mb_steps": steps, "us_per_step": ms * 1e3 / steps}
+    return res
+
+
+def _colorspace_phase(dev, timing: bool) -> dict:
+    """The BGRx->I420 kernel (one launch per call) against its plain
+    version at the service's shape, 8 x 1088x1920 of seeded random BGRx,
+    and one unbatched frame: every plane exactly equal. With ``timing``,
+    the kernel by CUDA events over 50 launches queued behind a spin kernel
+    (and as the host issues them), the plain version on the card, and the
+    byte bound (every input byte read once, every plane byte written once,
+    at 3.35 TB/s)."""
+    import torch
+
+    from selkies_tpu_torch.ops import colorspace
+
+    res = {}
+    for name, shape in (("n8", (8, 1088, 1920, 4)), ("single", (1088, 1920, 4))):
+        rng = np.random.default_rng(90 + len(shape))
+        frame = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        before = colorspace.launches
+        got = colorspace.bgrx_to_i420(frame)
+        want = colorspace.bgrx_to_i420_plain(frame)
+        torch.cuda.synchronize()
+        if colorspace.launches != before + 1:
+            _fail(f"bgrx_to_i420 {name}: {colorspace.launches - before} launches for one call")
+        for plane, g, w in zip("yuv", got, want):
+            if not torch.equal(g, w):
+                _fail(f"bgrx_to_i420 {name}: plane {plane} differs from the plain version")
+        row = {"shape": list(shape), "exact": True}
+        if timing:
+            def call():
+                return colorspace.bgrx_to_i420(frame)
+
+            row["ms"] = _time_cuda(call, iters=50, hold=True)
+            row["host_issued_ms"] = _time_cuda(call, iters=50)
+            row["plain_ms"] = _time_cuda(lambda: colorspace.bgrx_to_i420_plain(frame), iters=5,
+                                         warmup=1)
+            nbytes = frame.numel() + sum(t.numel() for t in got)
+            row["bytes"] = nbytes
+            row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+        res[name] = row
     return res
 
 
@@ -5373,6 +5422,7 @@ def _fleet_server_run(dev, n: int, w: int, h: int) -> dict:
     import aiohttp
 
     from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.ops import colorspace
     from selkies_tpu_torch.parallel.fleet import browser_peer_id
     from selkies_tpu_torch.resilience import reset_device_pool
     from selkies_tpu_torch.transport.websocket import FLAG_KEYFRAME
@@ -5407,7 +5457,7 @@ def _fleet_server_run(dev, n: int, w: int, h: int) -> dict:
         me_mc.me_mc_batch = grabbing
         me_mc.me_mc_plain, me_mc.me_mc_batch_plain = (_counting(f, plain_calls)
                                                       for f in real[1:])
-        me_mc.launches = 0  # the main path's count starts here
+        me_mc.launches = colorspace.launches = 0  # the main path's count starts here
 
         async def go():
             task = asyncio.ensure_future(orch.run())
@@ -5466,6 +5516,7 @@ def _fleet_server_run(dev, n: int, w: int, h: int) -> dict:
             return clients, b
         clients, b = asyncio.run(go())
         launches = me_mc.launches  # read before the checks launch below
+        conv_launches = colorspace.launches
     finally:
         me_mc.me_mc_batch, me_mc.me_mc_plain, me_mc.me_mc_batch_plain = real
         silent.close()
@@ -5474,7 +5525,7 @@ def _fleet_server_run(dev, n: int, w: int, h: int) -> dict:
             os.environ["DISPLAY"] = saved_display
     out["drive_s"] = time.perf_counter() - t_phase
     out.update(orch=orch, rec=rec, clients=clients, browser=b, sends=sends, grab=grab,
-               launches=launches, plain_calls=plain_calls)
+               launches=launches, conv_launches=conv_launches, plain_calls=plain_calls)
     return out
 
 
@@ -5517,6 +5568,11 @@ def _fleet_server_checks(run: dict, dev, n: int, w: int, h: int) -> dict:
         _fail(f"phase 20 (a): K1 launched {run['launches']} times ({rec.launches} inside the "
               f"service's ticks), its plain versions {run['plain_calls']}, for {with_p} ticks "
               "with a P session")
+    # the service's one group converts every tick it dispatches on the card
+    conv = run["conv_launches"]
+    if not (len(ticks) <= conv <= len(ticks) + cut if dev is None else conv == 0):
+        _fail(f"phase 20 (a): bgrx_to_i420 launched {conv} times for {len(ticks)} ticks "
+              f"({cut} cut)")
     card = dev or "cuda"
     t0 = time.perf_counter()
     frames = _SyntheticFrames(n, w, h)
@@ -5570,6 +5626,7 @@ def _fleet_server_checks(run: dict, dev, n: int, w: int, h: int) -> dict:
             "capture_to_send_ms_p95": _pct(lat, 95), "profile": run["profile"],
             "rtc_times": run["rtc_times"], "ticks_recorded": len(ticks),
             "ticks_with_p": with_p, "me_mc_launches": run["launches"],
+            "colorspace_launches": conv,
             "me_mc_plain_calls": run["plain_calls"], "me_mc_plain_max_abs_err": err,
             "me_mc_checked_shape": list(grab["args"][1].shape), "card_replay_s": replay_s,
             "cpu_replay_ticks": FS_CPU_TICKS, "cpu_probe_ticks": probes, "cpu_replay_s": cpu_s,
@@ -5976,6 +6033,7 @@ def _carve_phase(timing: bool, ses_shas: list) -> dict:
     import torch
 
     from selkies_tpu_torch.models.h264 import me_mc
+    from selkies_tpu_torch.ops import colorspace
     from selkies_tpu_torch.parallel.bands import TorchBandedH264Encoder
     from selkies_tpu_torch.parallel.codec_mesh import MeshDeltaFrontend
     from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
@@ -6078,7 +6136,9 @@ def _carve_phase(timing: bool, ses_shas: list) -> dict:
             return aus
 
         svc.complete_tick = complete
+        colorspace.launches = 0
         shas, ticks, _, _ = _drive_sessions(svc, bases)
+        conv = colorspace.launches
         groups = [(g.lo, g.hi, str(g.device)) for g in svc.enc.groups]
         ref_devs = [str(g.ref[0].device) for g in svc.enc.groups]
         svc.close()
@@ -6089,15 +6149,19 @@ def _carve_phase(timing: bool, ses_shas: list) -> dict:
         want_ticks = [0] + [CARVE_GROUPS] * (SESSION_TICKS - 1)
         if ticks != want_ticks:
             _fail(f"phase 21 (c): K1 launches per tick {ticks}, want {want_ticks}")
+        if conv != CARVE_GROUPS * SESSION_TICKS:
+            _fail(f"phase 21 (c): bgrx_to_i420 launched {conv} times, want one per group "
+                  f"and tick ({CARVE_GROUPS} x {SESSION_TICKS})")
         # ticks 1, 2 and 5 are all P (3 and 4 key some sessions)
         p_split = {k: statistics.median(timings[t][k] for t in (1, 2, 5)) for k in timings[1]}
         out["c_seconds"] = time.perf_counter() - t_part
         out["c"] = {"devices": how, "groups": groups, "reference_devices": ref_devs,
-                    "me_mc_launches_per_tick": ticks, "sha256": shas,
+                    "me_mc_launches_per_tick": ticks, "colorspace_launches": conv,
+                    "sha256": shas,
                     "p_tick_split_ms": p_split, "ticks": timings}
         print(f"phase 21 (c) TorchMultiSessionH264Service(8, {SW}, {SH}) in {CARVE_GROUPS} "
               f"groups on {how} {groups}: AUs sha256-equal phase 9's one-card service over "
-              f"{SESSION_TICKS} ticks; K1 per tick {ticks}; P tick split (median ms) "
+              f"{SESSION_TICKS} ticks; K1 per tick {ticks}; bgrx_to_i420 {conv}; P tick split (median ms) "
               f"{json.dumps(p_split)}")
     finally:
         me_mc.me_mc_plain, me_mc.me_mc_batch_plain = real
@@ -6123,6 +6187,7 @@ def main() -> int:
     from selkies_tpu_torch.models import frameprep
     from selkies_tpu_torch.models.h264 import intra, me_mc, native
     from selkies_tpu_torch.models.h264.encoder import TorchH264Encoder
+    from selkies_tpu_torch.ops import colorspace
     from selkies_tpu_torch.utils.build import BUILD_DIR, nvcc
 
     timing = "--no-timing" not in sys.argv[1:]
@@ -6141,16 +6206,18 @@ def main() -> int:
 
     # -- 2. build the three libraries at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        futs = [pool.submit(f) for f in (me_mc.build, native.build, frameprep.build, intra.build)]
-        k_build, n_build, f_build, i_build = (f.result() for f in futs)
+    with ThreadPoolExecutor(5) as pool:
+        futs = [pool.submit(f) for f in (me_mc.build, native.build, frameprep.build, intra.build,
+                                         colorspace.build)]
+        k_build, n_build, f_build, i_build, c_build = (f.result() for f in futs)
     record["build_s"] = {"me_mc": k_build.seconds, "native": n_build.seconds,
                          "frameprep": f_build.seconds, "intra": i_build.seconds,
-                         "wall": time.perf_counter() - t0}
+                         "colorspace": c_build.seconds, "wall": time.perf_counter() - t0}
     print(f"build: me_mc {k_build.seconds:.2f} s, native {n_build.seconds:.2f} s, "
           f"frameprep {f_build.seconds:.2f} s, intra {i_build.seconds:.2f} s, "
-          f"wall {record['build_s']['wall']:.2f} s")
+          f"colorspace {c_build.seconds:.2f} s, wall {record['build_s']['wall']:.2f} s")
     print("intra ptxas:", i_build.log.strip() or "(cached build)")
+    print("colorspace ptxas:", c_build.log.strip() or "(cached build)")
     if f_build.path.parent != BUILD_DIR or not f_build.path.exists():
         _fail(f"frameprep library {f_build.path} is not a build of native/frameprep.cc")
     print(f"frameprep: {f_build.path.relative_to(BUILD_DIR.parents[1])} "
@@ -6223,18 +6290,22 @@ def main() -> int:
     # the intra kernel at 1 and 8 sessions of 1088x1920
     record["intra_checks"] = _intra_phase(dev, timing=False)
     print("intra check: exact against the plain version at 1 and 8 x 1088x1920, one call each")
+    record["colorspace_checks"] = _colorspace_phase(dev, timing=False)
+    print("bgrx_to_i420 check: exact against the plain version at 8 x 1088x1920 and one frame, "
+          "one launch each")
 
     # -- 4. the device-conversion path: the encoder at 1920x1080 on the card vs the CPU
     frames = _desktop_trace()
     flat = dict(pipeline_depth=0, frame_batch=1)  # one AU per submit
     enc = TorchH264Encoder(W, H, qp=28, host_convert=False, device="cuda", **flat)
-    me_mc.launches = intra.launches = 0
+    me_mc.launches = intra.launches = colorspace.launches = 0
     native.calls = 0
     t0 = time.perf_counter()
     gpu = _drive(enc, frames)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches, packs, intra_launches = me_mc.launches, native.calls, intra.launches
+    conv_launches = colorspace.launches
     t0 = time.perf_counter()
     cpu = _drive(TorchH264Encoder(W, H, qp=28, host_convert=False, device="cpu", **flat), frames)
     cpu_s = time.perf_counter() - t0
@@ -6249,12 +6320,18 @@ def main() -> int:
     idr_frames = sum(1 for _, s in gpu if s.idr)
     if intra_launches != idr_frames:
         _fail(f"intra launched {intra_launches} times for {idr_frames} IDR frames")
+    # every frame that steps converts its upload on the card
+    if conv_launches != idr_frames + p_frames:
+        _fail(f"bgrx_to_i420 launched {conv_launches} times for {idr_frames + p_frames} "
+              "frames that stepped")
     kinds = ["I" if s.idr else ("S" if s.upload_kind == "static" else "P") for _, s in gpu]
     print(f"encoder 1920x1080: {len(frames)} frames {''.join(kinds)}, AUs sha256-equal cuda vs cpu; "
-          f"me_mc launches {launches} (= non-static P frames), native packs {packs}; "
+          f"me_mc launches {launches} (= non-static P frames), bgrx_to_i420 launches "
+          f"{conv_launches} (= I and non-static P frames), native packs {packs}; "
           f"bytes {[s.bytes for _, s in gpu]}; cuda run {main_s:.2f} s, cpu run {cpu_s:.2f} s")
     record["main_path"] = {"frames": "".join(kinds), "me_mc_launches": launches,
                            "intra_launches": intra_launches,
+                           "colorspace_launches": conv_launches,
                            "native_packs": packs, "bytes": [s.bytes for _, s in gpu],
                            "sha256": [h for h, _ in gpu], "cuda_s": main_s, "cpu_s": cpu_s}
 
@@ -6519,10 +6596,13 @@ def main() -> int:
     bases = [_session_base(i, SW, SH) for i in range(8)]
     torch.cuda.reset_peak_memory_stats()
     svc = TorchMultiSessionH264Service(8, SW, SH, qp=28, device="cuda")
-    me_mc.launches = intra.launches = 0
+    me_mc.launches = intra.launches = colorspace.launches = 0
     ses_shas, ses_ticks, ses_qps, ses_forced = _drive_sessions(svc, bases)
     torch.cuda.synchronize()
-    ses_launches, ses_intra = me_mc.launches, intra.launches
+    ses_launches, ses_intra, ses_conv = me_mc.launches, intra.launches, colorspace.launches
+    # one group on one card: one conversion a tick, P, IDR and mixed alike
+    if ses_conv != SESSION_TICKS:
+        _fail(f"sessions: bgrx_to_i420 launched {ses_conv} times in {SESSION_TICKS} ticks")
     idr_ticks = sum(1 for t in range(SESSION_TICKS)
                     if t == 0 or any(t in f for f in ses_forced.values()))
     if ses_intra != idr_ticks:
@@ -6550,30 +6630,35 @@ def main() -> int:
     small = {}
     for dev_name in ("cuda", "cpu"):
         ssvc = TorchMultiSessionH264Service(4, 640, 368, qp=28, device=dev_name)
-        me_mc.launches = 0
+        me_mc.launches = colorspace.launches = 0
         tc = time.perf_counter()
         small[dev_name] = _drive_sessions(ssvc, small_bases) + (
-            me_mc.launches, time.perf_counter() - tc)
+            me_mc.launches, time.perf_counter() - tc, colorspace.launches)
         ssvc.close()
     if small["cuda"][0] != small["cpu"][0]:
         bad = [t for t, (g, c) in enumerate(zip(small["cuda"][0], small["cpu"][0])) if g != c]
         _fail(f"sessions 4 x 640x368: cuda AUs differ from the cpu run's at ticks {bad}")
     if small["cuda"][4] != SESSION_TICKS - 1:
         _fail(f"sessions 4 x 640x368: me_mc launched {small['cuda'][4]} times")
+    if small["cuda"][6] != SESSION_TICKS or small["cpu"][6]:
+        _fail(f"sessions 4 x 640x368: bgrx_to_i420 launched {small['cuda'][6]} times on the "
+              f"card and {small['cpu'][6]} on the CPU in {SESSION_TICKS} ticks")
     idr_map = ["".join("I" if t == 0 or t in ses_forced[i] else "P" for i in range(8))
                for t in range(SESSION_TICKS)]
     print(f"multi-session 8 x {SW}x{SH} ({SESSION_TICKS} ticks, per tick {idr_map}): every "
           f"session's AUs sha256-equal its solo card encoder's; me_mc launches per tick "
-          f"{ses_ticks} (once per tick with a P session); peak device memory "
+          f"{ses_ticks} (once per tick with a P session), bgrx_to_i420 launches {ses_conv} "
+          f"(once a tick); peak device memory "
           f"{ses_peak_mb:.0f} MiB; service {ses_s:.1f} s, solo encoders {solo_s:.1f} s; "
           f"4 x 640x368 cuda AUs equal the cpu run's (me_mc launches {small['cuda'][4]}; "
           f"cuda {small['cuda'][5]:.1f} s, cpu {small['cpu'][5]:.1f} s)")
     record["session_path"] = {
         "ticks": idr_map, "me_mc_launches": ses_launches, "launches_per_tick": ses_ticks,
-        "intra_launches": ses_intra,
+        "intra_launches": ses_intra, "colorspace_launches": ses_conv,
         "qps": ses_qps, "forced": ses_forced, "sha256": ses_shas, "peak_device_mb": ses_peak_mb,
         "cuda_s": ses_s, "solo_s": solo_s,
         "small_640x368": {"sha256": small["cuda"][0], "me_mc_launches": small["cuda"][4],
+                          "colorspace_launches": small["cuda"][6],
                           "cuda_s": small["cuda"][5], "cpu_s": small["cpu"][5]}}
     # -- 12. the hybrid VP9/AV1 rows and the registry
     t0 = time.perf_counter()
@@ -6825,6 +6910,9 @@ def main() -> int:
     intra_t = _intra_phase(dev, timing=True)
     record["intra_timing"] = intra_t
     print(f"intra kernel at 1088x1920 ({card}, {power_limit}): " + json.dumps(intra_t))
+    conv_t = _colorspace_phase(dev, timing=True)
+    record["colorspace_timing"] = conv_t
+    print(f"bgrx_to_i420 kernel at 1088x1920 ({card}, {power_limit}): " + json.dumps(conv_t))
 
     block_s["sessions"], t_block = time.perf_counter() - t_block, time.perf_counter()
     # the hybrid rows' front-end and rows, per frame kind
@@ -6944,7 +7032,17 @@ def main() -> int:
         "host_issued_ms": row["host_issued_ms"], "bound_share": row["bytes_ms"] / row["ms"],
         "launches_main_path": intra_launches, "launches_session_path": ses_intra,
         "card": card, "power_limit": power_limit,
-    } for row in (intra_t["n1"], intra_t["n8"])]
+    } for row in (intra_t["n1"], intra_t["n8"])] + [{
+        "name": f"bgrx_to_i420 ({name})", "route": "cuda",
+        "source": "selkies_tpu_torch/csrc/colorspace.cu", "replaces": colorspace.REPLACES,
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shape": row["shape"], "bytes": row["bytes"],
+        "host_issued_ms": row["host_issued_ms"], "bound_share": row["bound_share"],
+        "launches_main_path": conv_launches, "launches_session_path": ses_conv,
+        "launches_fleet_server_path": record["fleet_server_path"]["a"]["colorspace_launches"],
+        "launches_carve_sessions": record["carve_path"]["c"]["colorspace_launches"],
+        "card": card, "power_limit": power_limit,
+    } for name, row in conv_t.items()]
     record["kernels"] = kernels
     record["timing_seconds"] = block_s
     print("timing blocks (s): " + json.dumps(block_s))

@@ -155,10 +155,14 @@ black-box bundles stay greppable). A benchmark metric that reads a name
                   one band's body), on the stacked and the mesh steps
                   alike: R a coded frame, the carve's counter
   session service (parallel/serving.py, parallel/sessions.py):
-    convert       per-session BGRx→I420 on the pack pool
-    h2d           *port*: put_groups, the upload of the tick's planes
-    device-step   the batched step's Python issue (pick, fillers and
-                  stacking of the mixed tick included)
+    convert       *port*: each session's frame copied into the pinned
+                  BGRx staging batch on the pack pool (the BGRx→I420
+                  conversion itself runs in device-step); read by
+                  convert_ms.sessions8
+    h2d           *port*: put_groups, the upload of the tick's BGRx batch
+    device-step   the batched step's Python issue (the conversion's
+                  launch, pick, fillers and stacking of the mixed tick
+                  included)
     step-i        *port*: inside device-step, one batched IDR branch
                   call of _group_step (the keying sessions of the mixed
                   tick, or every session on the first tick); read by

@@ -10,14 +10,18 @@ session. Every session's access units are byte-identical to JAX's service
 and to a solo ``TorchH264Encoder`` fed the same frames and QPs
 (tests/test_torch_serving.py).
 
-The tick splits into ``dispatch_tick`` (host conversion on the pool, a
-pinned upload, the device step and the downlink copy enqueued behind it,
-each per group on its device) and ``complete_tick`` (the wait on those
-copies' events, the packs, the GOP advance). ``dispatch_tick`` makes no
-synchronising CUDA call, so it returns with the card still stepping. The
-fetch is the dense coefficients, as JAX's, narrowed to int16 on the
-device: the packers take int16, so the bytes are the same and half cross
-the link.
+The tick splits into ``dispatch_tick`` (the frames copied into a pinned
+BGRx staging batch on the pool, one upload per group, the device step with
+its BGRx->I420 conversion and the downlink copy enqueued behind it, each
+per group on its device) and ``complete_tick`` (the wait on those copies'
+events, the packs, the GOP advance). The conversion runs where the planes
+are used: on a card one kernel launch per group (``ops/colorspace.py``),
+so the host copies 4 bytes a pixel once and converts nothing; on the CPU
+the plain version, whose planes equal the host converter's.
+``dispatch_tick`` makes no synchronising CUDA call, so it returns with
+the card still stepping. The fetch is the dense coefficients, as JAX's,
+narrowed to int16 on the device: the packers take int16, so the bytes are
+the same and half cross the link.
 
 As JAX's, each tick first consults the ``device:<chip>`` fault site over
 ``self.devices`` (``resilience/devhealth.py``: the cards of the session
@@ -59,7 +63,6 @@ import numpy as np
 import torch
 
 from selkies_tpu_torch.device import Fetch
-from selkies_tpu_torch.models.frameprep import FramePrep
 from selkies_tpu_torch.models.h264.bitstream import StreamParams, write_pps, write_sps
 from selkies_tpu_torch.models.h264.native import pack_slice_fast, pack_slice_p_fast
 from selkies_tpu_torch.models.h264.numpy_ref import FrameCoeffs, PFrameCoeffs
@@ -125,7 +128,7 @@ class TorchMultiSessionH264Service:
     def __init__(self, n_sessions: int, width: int, height: int, *,
                  qp: int = 28, fps: int = 60, device=None, devices=None):
         self.enc = TorchMultiSessionEncoder(n_sessions, width, height, device=device,
-                                            devices=devices)
+                                            devices=devices, host_convert=False)
         self.device = self.enc.device
         self.n = n_sessions
         # per-session IDR flags of the most recent tick; the batched step
@@ -136,17 +139,13 @@ class TorchMultiSessionH264Service:
         self._headers = write_sps(self.params) + write_pps(self.params)
         self.sessions = [_SessionState(qp) for _ in range(n_sessions)]
         self._pool = ThreadPoolExecutor(max_workers=n_sessions, thread_name_prefix="ms-pack")
-        # host BGRx->I420, one native converter per session, run on the pool
-        self._preps = [FramePrep(width, height, width, height, nslots=2)
-                       for _ in range(n_sessions)]
-        # persistent batch planes the workers convert into: pinned on the
-        # card, so the upload is one non-blocking copy per plane
+        # the persistent BGRx batch the workers copy each tick's frames
+        # into: pinned on a card, so a group's upload is one non-blocking copy
         pin = self.device.type == "cuda"
-        shapes = ((height, width), (height // 2, width // 2), (height // 2, width // 2))
-        self._batch_t = tuple(torch.empty((n_sessions, *s), dtype=torch.uint8, pin_memory=pin)
-                              for s in shapes)
-        self._batch = tuple(t.numpy() for t in self._batch_t)
-        # per group, the last upload of its planes
+        self._stage_t = torch.empty((n_sessions, height, width, 4), dtype=torch.uint8,
+                                    pin_memory=pin)
+        self._stage = self._stage_t.numpy()
+        # per group, the last upload of its rows of the staging batch
         self._uploaded: list = [None] * len(self.enc.groups)
         self._inflight = 0
         self.last_timing: dict = {}
@@ -168,28 +167,30 @@ class TorchMultiSessionH264Service:
         :meth:`dispatch_tick` then :meth:`complete_tick`."""
         return self.complete_tick(self.dispatch_tick(frames))
 
-    def _convert_into(self, frames: np.ndarray, i: int) -> None:
-        for dst, plane in zip(self._batch, self._preps[i].convert(frames[i])):
-            np.copyto(dst[i], plane)
-
     def dispatch_tick(self, frames: np.ndarray) -> _PendingTick:
-        """Front half of :meth:`encode_tick`: per-session host conversion,
-        the upload, the device step and its downlink copy, all enqueued;
-        the card is still stepping when this returns."""
-        if frames.shape[0] != self.n:
-            raise ValueError(f"expected {self.n} frames, got {frames.shape[0]}")
+        """Front half of :meth:`encode_tick`: the frames' copy into the
+        staging batch (the ``convert`` span and ``convert_ms``), the upload,
+        the device step with its conversion and the downlink copy, all
+        enqueued; the card is still stepping when this returns."""
+        # the whole shape, since the copy into the staging batch broadcasts
+        want = (self.n, self.enc.height, self.enc.width, 4)
+        if tuple(frames.shape) != want:
+            raise ValueError(f"expected {self.n} frames, got {frames.shape[0]}: "
+                             f"batch {tuple(frames.shape)} != {want}")
         check_device_faults(self.devices)
         idrs = np.array([s.force_idr or s.frames_since_idr == 0 for s in self.sessions], bool)
         t0 = time.perf_counter()
-        # the previous tick's uploads must have read the pinned planes
+        # the previous tick's uploads must have read the staging batch
         for ev in self._uploaded:
             if ev is not None and not ev.query():
                 ev.synchronize()
         with tracer.span("convert"):
-            list(self._pool.map(lambda i: self._convert_into(frames, i), range(self.n)))
+            # one copy per session, each on its own worker (numpy's copy
+            # releases the GIL)
+            list(self._pool.map(lambda i: np.copyto(self._stage[i], frames[i]), range(self.n)))
         t1 = time.perf_counter()
         with tracer.span("h2d"):
-            inputs = self.enc.put_groups(self._batch_t)
+            inputs = self.enc.put_groups(self._stage_t)
         for k, g in enumerate(self.enc.groups):
             if g.device.type == "cuda":
                 self._uploaded[k] = torch.cuda.Event()

@@ -88,9 +88,10 @@ class TorchMultiSessionEncoder:
     may repeat one), splits the sessions into k contiguous groups whose
     sizes differ by at most one (session i goes to group ``i*k//n``; at
     most n groups): each group is one batched step on its device, and its
-    sessions' reference planes stay there. ``host_convert=True`` (the
-    serving layer's mode) takes (y, u, v) I420 plane batches; ``False``
-    takes a (N, H, W, 4) BGRx batch and converts on the device. Inputs may
+    sessions' reference planes stay there. ``host_convert=True`` takes
+    (y, u, v) I420 plane batches; ``False`` (the serving layer's mode)
+    takes a (N, H, W, 4) BGRx batch and converts it inside the step, on a
+    card in one kernel launch per group (``ops/colorspace.py``). Inputs may
     be numpy arrays (uploaded pinned, ``non_blocking``) or tensors (a CPU
     tensor is copied over ``non_blocking``; pin it to keep the copy
     asynchronous).

@@ -62,6 +62,30 @@ def test_convert_matches_jax_and_plain(geom):
         np.testing.assert_array_equal(g, p)
 
 
+@pytest.mark.parametrize("geom", [(1920, 1088), (48, 32)], ids=["1920x1088", "48x32"])
+def test_device_conversion_equals_the_host_converter(geom):
+    """ops.colorspace's plain conversion (what a CPU service runs, and what
+    the card's kernel is held to) gives FramePrep.convert's planes on
+    random frames and on the clip edges: the service's switch from host to
+    device conversion keeps every byte."""
+    import torch
+
+    from selkies_tpu_torch.ops.colorspace import bgrx_to_i420
+
+    w, h = geom
+    rng = np.random.default_rng(7)
+    frames = [rng.integers(0, 256, (h, w, 4), np.uint8) for _ in range(2)]
+    for value in ((0, 0, 0, 0), (255, 255, 255, 255), (255, 0, 0, 0), (0, 255, 0, 0),
+                  (0, 0, 255, 0)):
+        frames.append(np.broadcast_to(np.array(value, np.uint8), (h, w, 4)).copy())
+    prep = TF.FramePrep(w, h, w, h)
+    for frame in frames:
+        want = prep.convert(frame)
+        got = bgrx_to_i420(torch.from_numpy(frame))
+        for g, p in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), p)
+
+
 @pytest.mark.parametrize("geom", GEOMS, ids=GID)
 def test_convert_tiles_matches_jax_and_plain(geom):
     w, h = geom

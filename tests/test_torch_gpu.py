@@ -806,34 +806,43 @@ def test_tile_grid_on_two_cards_equals_stacked():
 
 
 @pytest.mark.gpu
-def test_session_groups_on_listed_cards_equal_one_group():
+def test_session_groups_on_listed_cards_equal_one_group(monkeypatch):
     """4 sessions in 2 groups (on cuda:0 twice, or on two cards) against
     one group on cuda:0: equal AUs, K1 once per group and tick with a P
-    session."""
+    session, the conversion kernel once per group and tick (the IDR, P and
+    mixed ticks) and its plain version never on a card."""
     _need_card()
+    from selkies_tpu_torch.ops import colorspace
     from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
 
+    plain_on = []
+    plain = colorspace.bgrx_to_i420_plain
+    monkeypatch.setattr(colorspace, "bgrx_to_i420_plain",
+                        lambda f: plain_on.append(f.device.type) or plain(f))
     n = torch.cuda.device_count()
     cards = [torch.device("cuda", min(i, n - 1)) for i in range(2)]
     trace = _session_trace(4, 192, 320)
 
     def run(**kw):
         svc = TorchMultiSessionH264Service(4, 320, 192, qp=28, **kw)
-        out, launches = [], []
+        out, launches, converts = [], [], []
         for t, batch in enumerate(trace):
             if t == 2:
                 svc.force_keyframe(1)
                 svc.set_qp(3, 34)
-            before = me_mc.launches
+            before, conv = me_mc.launches, colorspace.launches
             out.append([hashlib.sha256(a).hexdigest() for a in svc.encode_tick(batch)])
             launches.append(me_mc.launches - before)
+            converts.append(colorspace.launches - conv)
         svc.close()
-        return out, launches
+        return out, launches, converts
 
-    got, launches = run(devices=cards)
-    want, one = run(device=cards[0])
+    got, launches, converts = run(devices=cards)
+    want, one, one_converts = run(device=cards[0])
     assert got == want
     assert launches == [0] + [2] * (len(trace) - 1) and one == [0] + [1] * (len(trace) - 1)
+    assert converts == [2] * len(trace) and one_converts == [1] * len(trace)
+    assert plain_on == []
 
 
 # -- multi-session serving (selkies_tpu_torch/parallel/serving.py) ---------
@@ -968,6 +977,109 @@ def test_intra_kernel_on_another_card_keeps_the_current_card():
                                                                          want[key]), key
 
 
+# -- the BGRx->I420 kernel (selkies_tpu_torch/ops/colorspace.py) -----------
+
+# the clip edges: black, white, pure blue, green, red (BGRx)
+_EDGES = np.array([(0, 0, 0, 0), (255, 255, 255, 255), (255, 0, 0, 0), (0, 255, 0, 0),
+                   (0, 0, 255, 0)], np.uint8)
+# name -> (n or None for one unbatched frame, h, w); 6x10 and the offset
+# buffer take the kernel's byte pass, the others its vector pass
+_CONVERT_CASES = {
+    "single-1088x1920": (None, 1088, 1920),
+    "n1-1088x1920": (1, 1088, 1920),
+    "n3-1088x1920": (3, 1088, 1920),
+    "n8-1088x1920": (8, 1088, 1920),
+    "single-32x48": (None, 32, 48),
+    "n3-32x48": (3, 32, 48),
+    "n3-6x10": (3, 6, 10),
+    "single-2x2": (None, 2, 2),
+}
+
+
+def _convert_frames(n, h, w, content, seed):
+    """Seeded BGRx frames: random bytes, or clip edges only, each 2x2 quad
+    either one edge or a mix of them, and frame i of a batch solid in edge
+    i % 5 over its top-left quarter."""
+    rng = np.random.default_rng(seed)
+    k = n or 1
+    if content == "random":
+        f = rng.integers(0, 256, (k, h, w, 4), np.uint8)
+    else:
+        def up(a):  # per quad -> per pixel
+            return np.repeat(np.repeat(a, 2, 1), 2, 2)
+
+        solid = up(rng.integers(0, 2, (k, h // 2, w // 2)).astype(bool))
+        f = np.where(solid[..., None], _EDGES[up(rng.integers(0, 5, (k, h // 2, w // 2)))],
+                     _EDGES[rng.integers(0, 5, (k, h, w))])
+        for i in range(k):
+            f[i, :h // 2, :w // 2] = _EDGES[i % 5]
+    return f if n else f[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("content", ["random", "edges"])
+@pytest.mark.parametrize("case", list(_CONVERT_CASES))
+def test_colorspace_kernel_matches_plain_on_cpu(case, content):
+    """bgrx_to_i420 on a CUDA frame is one kernel launch whose planes equal
+    the plain version on the CPU byte for byte, the leading axis kept."""
+    _need_card()
+    from selkies_tpu_torch.ops import colorspace
+
+    n, h, w = _CONVERT_CASES[case]
+    frames = _convert_frames(n, h, w, content, sum(map(ord, case + content)))
+    want = colorspace.bgrx_to_i420(torch.from_numpy(frames))
+    before = colorspace.launches
+    got = colorspace.bgrx_to_i420(torch.from_numpy(frames).to("cuda"))
+    assert colorspace.launches == before + 1
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert g.dtype == torch.uint8 and g.shape == p.shape and g.is_cuda
+        assert torch.equal(g.cpu(), p)
+
+
+@pytest.mark.gpu
+def test_colorspace_kernel_takes_an_offset_buffer():
+    """A contiguous frame that starts 4 bytes into its buffer (no 16-byte
+    alignment) takes the byte pass and gives the same planes."""
+    _need_card()
+    from selkies_tpu_torch.ops import colorspace
+
+    frames = _convert_frames(2, 32, 48, "random", 5)
+    buf = torch.empty(frames.size + 4, dtype=torch.uint8, device="cuda")
+    t = buf[4:].view(frames.shape)
+    t.copy_(torch.from_numpy(frames))
+    assert t.is_contiguous() and t.data_ptr() % 16
+    got = colorspace.bgrx_to_i420(t)
+    want = colorspace.bgrx_to_i420(torch.from_numpy(frames))
+    for g, p in zip(got, want):
+        assert torch.equal(g.cpu(), p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["int32", "odd-height", "odd-width", "rgb", "strided",
+                                 "planes"])
+def test_colorspace_kernel_refuses_what_it_does_not_take(bad):
+    """The wrapper raises ValueError before any launch on the wrong dtype,
+    an odd height or width, a last axis other than 4, a non-contiguous
+    frame or a frame without the channel axis."""
+    _need_card()
+    from selkies_tpu_torch.ops import colorspace
+
+    good = torch.zeros((2, 8, 12, 4), dtype=torch.uint8, device="cuda")
+    frame = {
+        "int32": good.to(torch.int32),
+        "odd-height": good[:, :7].contiguous(),
+        "odd-width": good[:, :, :11].contiguous(),
+        "rgb": good[..., :3].contiguous(),
+        "strided": good[:, :, ::2],
+        "planes": good[..., 0],
+    }[bad]
+    before = colorspace.launches
+    with pytest.raises(ValueError):
+        colorspace.bgrx_to_i420(frame)
+    assert colorspace.launches == before
+
+
 def _session_trace(n, h, w, ticks=5, seed=51):
     """Per tick an (n, h, w, 4) batch: each session scrolls its own block
     content by its own step."""
@@ -995,11 +1107,14 @@ def test_service_cuda_matches_cpu():
     _need_card()
     from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
 
+    from selkies_tpu_torch.ops import colorspace
+
     trace = _session_trace(3, H, W)
     svc = TorchMultiSessionH264Service(3, W, H, qp=30, device="cuda")
-    launches = me_mc.launches
+    launches, converts = me_mc.launches, colorspace.launches
     got = _drive_service(svc, trace)
     assert me_mc.launches - launches == len(trace) - 1
+    assert colorspace.launches - converts == len(trace)  # one group: one a tick
     svc.close()
     cpu = TorchMultiSessionH264Service(3, W, H, qp=30, device="cpu")
     want = _drive_service(cpu, trace)
@@ -1047,6 +1162,7 @@ def _service_dispatch_never_syncs():
     import traceback
     import warnings
 
+    from selkies_tpu_torch.ops import colorspace
     from selkies_tpu_torch.parallel.serving import TorchMultiSessionH264Service
 
     trace = _session_trace(3, H, W, ticks=6)
@@ -1061,7 +1177,7 @@ def _service_dispatch_never_syncs():
                      "".join(traceback.format_stack(limit=8)[:-1])))
 
     aus = []
-    idr_launches = intra.launches
+    idr_launches, converts = intra.launches, colorspace.launches
     for t, batch in enumerate(trace[2:]):
         if t == 1:
             svc.force_keyframe(2)  # a mixed tick
@@ -1081,6 +1197,7 @@ def _service_dispatch_never_syncs():
         dict.fromkeys(on_dispatch))
     assert len(aus) == 4 and aus[1][2][4] & 0x1F == 7
     assert intra.launches == idr_launches + 1  # the mixed tick's IDR, in the kernel
+    assert colorspace.launches == converts + 4  # every tick's frames, in the kernel
     return svc.last_timing
 
 
